@@ -1,8 +1,10 @@
 """Checkpoint slots and the run config.
 
 A slot (``best_valid``, ``best_test``, ``latest``) is one file,
-``{slot}_model.pt``, holding the model's ``state_dict`` written with
-``torch.save`` and read with ``torch.load(weights_only=True)``.
+``{slot}_model.pt``, holding the whole model's ``state_dict`` (the
+estimator bank included) written with ``torch.save`` and read with
+``torch.load(weights_only=True)``. The Solver writes them and ``Predictor``
+loads them; optimizer state is not saved yet (ROADMAP.md).
 ``config.json`` is the ``MimrlConfig`` as JSON, the same file the JAX
 package writes.
 

@@ -255,6 +255,11 @@ class MimrlConfig:
     # fn(out, labels, feats) -> scalar added to the stage-2 objective
     custom_loss: Optional[str] = None
 
+    # --- the port's one addition ---
+    # where the entry points run: None = CUDA (they raise without a card),
+    # 'cpu' = the plain PyTorch path on the CPU, as the tests ask for
+    device: Optional[str] = None
+
     # Derived/validation -----------------------------------------------------
     def __post_init__(self):
         def check(value, name, allowed):
@@ -465,6 +470,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--custom_loss", type=str, default=None,
                    help="user loss hook 'module.path:factory'; "
                         "factory(cfg) -> fn(out, labels, feats)")
+    p.add_argument("--device", type=str, default=None,
+                   help="'cuda[:n]' (default; raises without a card) or 'cpu'")
     return p
 
 

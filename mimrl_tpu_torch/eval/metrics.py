@@ -205,3 +205,16 @@ def get_score_from_result(predictions: np.ndarray, targets: np.ndarray,
             "rmse": rmse_score(preds * 25, targs * 25),
         }
     raise NotImplementedError(dataset)
+
+
+def current_result_better(best_score, current_score, task: str,
+                          num_class: int, dataset: str) -> bool:
+    """Model-selection rule (ref: Solver.py:425-436)."""
+    if best_score is None:
+        return True
+    if task == "classification":
+        key = f"{num_class}-class_acc"
+        return current_score[key] > best_score[key]
+    if dataset != "avec2019":
+        return current_score["mae"] < best_score["mae"]
+    return current_score["ccc"] > best_score["ccc"]

@@ -11,9 +11,15 @@ Dtype policy (``BertConfig.dtype``): parameters stay float32; embedding
 lookups and the inputs of every matmul are cast to the compute dtype;
 LayerNorm and softmax run in float32; the tower returns float32.
 
-Attention has two routes, chosen by ``resolve_flash``: on a CUDA tensor
-``flash_attn`` 'on' or 'auto' launches the hand-written kernel
-(``ops/flash_attention.py``); otherwise the plain version runs.
+Attention has two routes. ``flash_attn`` 'on' or 'auto' goes through
+``ops/flash_attention.py::flash_attention``: on a CUDA tensor it launches
+the hand-written forward kernel, and the backward kernel when a gradient
+is taken; on a CPU tensor the same wrapper runs the kernels' plain
+versions. ``flash_attn`` 'off' runs the plain forward under
+autograd. In training mode with a positive attention dropout rate a seed
+is drawn from the caller's generator on the inputs' device (no host
+round trip) and both routes build the same Philox mask from it, as
+``mimrl_tpu/models/bert.py:158-173`` draws a seed for its kernel.
 """
 
 from __future__ import annotations
@@ -53,14 +59,6 @@ class BertConfig:
         return cls(vocab_size=128, hidden_size=32, num_hidden_layers=2,
                    num_attention_heads=2, intermediate_size=64,
                    max_position_embeddings=64)
-
-
-def resolve_flash(c: BertConfig, device: torch.device) -> bool:
-    """Whether attention launches the CUDA kernel (bert.py:122-140)."""
-    if c.flash_attn not in ("auto", "on", "off"):
-        raise ValueError(
-            f"BertConfig.flash_attn={c.flash_attn!r} (want auto|on|off)")
-    return c.flash_attn != "off" and device.type == "cuda"
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
@@ -129,7 +127,7 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, device)
         self.output = BertSelfOutput(c.hidden_size, c, device)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, generator=None):
         c = self.config
         bs, T, H = x.shape
         nh = c.num_attention_heads
@@ -141,14 +139,19 @@ class BertAttention(nn.Module):
         qkv = F.linear(x.to(c.dtype), w.to(c.dtype), b.to(c.dtype))
         q, k, v = (y.reshape(bs, T, nh, hd).transpose(1, 2).contiguous()
                    for y in qkv.split(H, dim=-1))
-        if self.training and c.attention_probs_dropout_prob > 0.0:
-            raise NotImplementedError(
-                "BERT attention dropout in training mode belongs to the "
-                "training slice (ROADMAP.md); call model.eval() to serve")
-        if resolve_flash(c, x.device):
-            ctx = flash_attention(q, k, v, attn_bias)
+        p_rate = float(c.attention_probs_dropout_prob)
+        if self.training and p_rate > 0.0:
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), device=x.device,
+                                 generator=generator)
         else:
-            ctx = flash_attention_plain(q, k, v, attn_bias)
+            seed, p_rate = None, 0.0
+        if c.flash_attn not in ("auto", "on", "off"):
+            raise ValueError(
+                f"BertConfig.flash_attn={c.flash_attn!r} (want auto|on|off)")
+        if c.flash_attn != "off":
+            ctx = flash_attention(q, k, v, attn_bias, seed, p_rate)
+        else:
+            ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate)
         ctx = ctx.transpose(1, 2).reshape(bs, T, H).to(c.dtype)
         return self.output(ctx, x, c.dtype)
 
@@ -168,9 +171,9 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c, device)
         self.output = BertSelfOutput(c.intermediate_size, c, device)
 
-    def forward(self, x, attn_bias):
+    def forward(self, x, attn_bias, generator=None):
         dt = self.config.dtype
-        x = self.attention(x, attn_bias)
+        x = self.attention(x, attn_bias, generator)
         h = F.gelu(_linear(self.intermediate.dense, x, dt), approximate="none")
         return self.output(h, x, dt)
 
@@ -183,7 +186,10 @@ class BertEncoder(nn.Module):
 
 
 class BertModel(nn.Module):
-    """Returns last_hidden_state [bs, T, hidden] in float32."""
+    """Returns last_hidden_state [bs, T, hidden] in float32. ``generator``
+    (on the inputs' device) feeds the attention dropout seeds in training
+    mode; hidden dropout is ``nn.Dropout`` and draws from the device's
+    default generator."""
 
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
@@ -195,10 +201,11 @@ class BertModel(nn.Module):
         self.embeddings = BertEmbeddings(c, device)
         self.encoder = BertEncoder(c, device)
 
-    def forward(self, input_ids, token_type_ids, attention_mask):
+    def forward(self, input_ids, token_type_ids, attention_mask,
+                generator=None):
         x = self.embeddings(input_ids, token_type_ids)
         # additive bias in float32: 0 for valid keys, -1e9 for padding
         attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
         for layer in self.encoder.layer:
-            x = layer(x, attn_bias)
+            x = layer(x, attn_bias, generator)
         return x.float()

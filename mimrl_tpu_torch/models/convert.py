@@ -17,9 +17,13 @@ and ``mimrl_tpu/models/bert.py::convert_hf_torch_state_dict``):
 The classifier keeps the names ``MimrlModel`` creates (model.py:190-195):
 ``classifier``, or ``classifier_hidden`` + ``classifier``.
 
-The ``vmi_*``/``vcmi_*`` estimator groups are skipped by name (the port
-does not build the estimator bank yet). Any other JAX leaf left unmapped,
-any port tensor left unfilled, and any shape mismatch raises.
+The ``vmi_*``/``vcmi_*`` estimator groups are trees of Dense layers whose
+flax names are the port's module names
+(``vmi_estimator_f_t/critic_model/MLP_g/fc_in/kernel`` ->
+``vmi_estimator_f_t.critic_model.MLP_g.fc_in.weight``). Any JAX leaf left
+unmapped, any port tensor left unfilled, and any shape mismatch raises;
+only a tree with no estimator group at all (a forward-only flax init)
+leaves the port's estimator tensors out of the result.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
-_SKIPPED_PREFIXES = ("vmi_", "vcmi_")
+_ESTIMATOR_PREFIXES = ("vmi_", "vcmi_")
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -109,6 +113,17 @@ def _mlp_encoder_rules(p: Dict):
                 yield f + (sub, "w"), f"{t}{sub}.weight", lambda x: x.T
 
 
+def _estimator_rules(name: str, node: Dict, path: Tuple[str, ...] = ()):
+    """Every Dense of an estimator's tree, by its own path."""
+    path = path or (name,)
+    if "kernel" in node:
+        yield from _dense(".".join(path), node, path)
+        return
+    for key, sub in node.items():
+        if isinstance(sub, dict):
+            yield from _estimator_rules(name, sub, path + (key,))
+
+
 def _rules(params: Dict):
     """(JAX path, port name, transform) for every mapped leaf."""
     if "bertmodel" in params:
@@ -124,6 +139,9 @@ def _rules(params: Dict):
             yield from _dense(name, params[name], (name,))
     if "mlp_encoder" in params:
         yield from _mlp_encoder_rules(params["mlp_encoder"])
+    for name in params:
+        if name.startswith(_ESTIMATOR_PREFIXES):
+            yield from _estimator_rules(name, params[name])
 
 
 def state_dict_from_jax(params: Dict, model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -150,13 +168,16 @@ def state_dict_from_jax(params: Dict, model: nn.Module) -> Dict[str, torch.Tenso
                              f"shape {tuple(x.shape)}, the port expects "
                              f"{want[name]}")
         out[name] = torch.from_numpy(np.array(x, np.float32, order="C"))
-    unmapped = [p for p in leaves
-                if p not in used and not p[0].startswith(_SKIPPED_PREFIXES)]
+    unmapped = [p for p in leaves if p not in used]
     if unmapped:
         raise ValueError("unmapped JAX leaves: "
                          + ", ".join("/".join(p) for p in unmapped[:8])
                          + f" ({len(unmapped)} in all)")
     missing = sorted(set(want) - set(out))
+    if not any(name.startswith(_ESTIMATOR_PREFIXES) for name in params):
+        # a tree from a forward-only init has no estimator bank: the
+        # port's estimators then keep their own initialisation
+        missing = [k for k in missing if not k.startswith(_ESTIMATOR_PREFIXES)]
     if missing:
         raise ValueError(f"port tensors left unfilled: {missing[:8]} "
                          f"({len(missing)} in all)")

@@ -1,20 +1,25 @@
-"""The MIMRL model forward (PyTorch port of ``mimrl_tpu.models.model``,
-``MimrlModel.__call__``, model.py:224-331): BERT text tower, bi-GRU
-audio/video encoders, CubeMLP fusion and the classifier.
+"""The MIMRL model (PyTorch port of ``mimrl_tpu.models.model``): BERT
+text tower, bi-GRU audio/video encoders, CubeMLP fusion and the
+classifier (``MimrlModel.__call__``, model.py:224-331), plus the embedded
+MI / conditional-MI estimator bank and the two stage losses
+(model.py:197-219, :336-448).
 
 Sub-module names are the reference torch ``Model``'s (``bertmodel``,
-``W_t``, ``rnn_a``, ``ln_a``, ``mlp_encoder``, ``classifier``, ...), so
-the state_dict keys are the reference's names.
+``W_t``, ``rnn_a``, ``ln_a``, ``mlp_encoder``, ``classifier``,
+``vmi_estimator_f_t``, ``vcmi_estimator_ac_t``, ...), so the state_dict
+keys are the reference's names and the optimizer's name-based split
+('bert' / 'vmi' / 'vcmi' / rest) works on them.
 
-Ported in this slice: ``encoders='gru'``, ``fusion='cubemlp'``. The
-``vmi_*``/``vcmi_*`` estimator bank is only used by training and is not
-built yet.
+Ported: ``encoders='gru'``, ``fusion='cubemlp'``. The estimator bank runs
+its eleven estimators one after the other; ``fused_estimators`` (the JAX
+package's batched execution of the same math, model.py:371-425) is
+accepted and changes nothing here.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -22,9 +27,21 @@ from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.device import compute_dtype
+from mimrl_tpu_torch.mi.estimators import VCMIEstimator, VMIEstimator
 from mimrl_tpu_torch.models.bert import BertConfig, BertModel
 from mimrl_tpu_torch.models.cubemlp import AxisLayerNorm, MLPEncoder
 from mimrl_tpu_torch.models.encoders import BiRnnEncoder, lengths_from_sequence
+
+
+# Estimator hyperparameters hard-coded by the reference (ref: Model.py:285-286)
+EST_HIDDEN_DIM = 256
+EST_EMBED_DIM = 128
+EST_LAYERS = 2
+EST_ACTIVATION = "relu"
+EST_MU, EST_RHO = 0.0, 1.0
+
+VMI_KEYS = ("f_t", "f_a", "f_v", "t_a", "t_v")
+CMI_KEYS = ("ac_t", "ta_c", "vc_t", "tv_c", "tc_a", "tc_v")
 
 
 def get_output_dim(features_compose_t: str, features_compose_k: str,
@@ -62,13 +79,20 @@ class MimrlModel(nn.Module):
                  dropout: Sequence[float] = (0.5, 0.5, 0.5, 0.5),
                  bias: bool = False, ln_first: bool = False,
                  res_project: Sequence[bool] = (True, True),
-                 use_pallas: bool = False, fusion: str = "cubemlp",
+                 critic_type: str = "separate", baseline_type: str = "constant",
+                 bound_type: str = "infonce", k_neighbor: int = 2,
+                 radius: float = 1.0, cmi_last_acticate: str = "sigmoid",
+                 use_pallas: bool = False, fused_estimators: bool = False,
+                 fusion: str = "cubemlp",
                  bert_config: BertConfig = BertConfig(), device=None):
         super().__init__()
         if fusion != "cubemlp":
             raise NotImplementedError(
                 f"fusion {fusion!r}: only CubeMLP is ported (ROADMAP.md)")
         self.time_len = time_len
+        self.d_common = d_common
+        self.k_neighbor = k_neighbor
+        self.radius = radius
         self.features_compose_t = features_compose_t
         self.features_compose_k = features_compose_k
 
@@ -100,13 +124,31 @@ class MimrlModel(nn.Module):
             self.classifier_dropout = nn.Dropout(dropout[3])
             self.classifier = nn.Linear(128, num_class, device=device)
 
+        # Fusion information I(F;T), I(F;A), I(F;V) and invariant
+        # information I(T;A), I(T;V) (ref: Model.py:290-295); F_F has the
+        # classifier's input width, the summary features d_common
+        for key in VMI_KEYS:
+            x_dim = self.classify_dim if key[0] == "f" else d_common
+            setattr(self, f"vmi_estimator_{key}", VMIEstimator(
+                critic_type, baseline_type, bound_type, x_dim, d_common,
+                EST_HIDDEN_DIM, EST_EMBED_DIM, EST_LAYERS, EST_ACTIVATION,
+                EST_MU, EST_RHO, device))
+        # conditional-MI classifiers (ref: Model.py:298-303)
+        for key in CMI_KEYS:
+            setattr(self, f"vcmi_estimator_{key}", VCMIEstimator(
+                EST_EMBED_DIM, EST_HIDDEN_DIM, EST_ACTIVATION,
+                cmi_last_acticate, device=device))
+
     def forward(self, bert_sentences, bert_sentence_types,
-                bert_sentence_att_mask, a, v, return_features: bool = True):
+                bert_sentence_att_mask, a, v, return_features: bool = True,
+                generator=None):
         """Token ids/types/mask [bs, T] int, a [bs, T, d_a], v [bs, T, d_v].
-        Returns (out, F_F, T_F, A_F, V_F), or (out,) without features."""
+        Returns (out, F_F, T_F, A_F, V_F), or (out,) without features.
+        ``generator`` feeds BERT's attention dropout seeds in training
+        mode."""
         T = self.time_len
         t = self.bertmodel(bert_sentences, bert_sentence_types,
-                           bert_sentence_att_mask)
+                           bert_sentence_att_mask, generator)
         t = self.W_t(t)
 
         # lengths from non-zero rows, clamped to >=1 (ref: Model.py:425-432)
@@ -139,6 +181,52 @@ class MimrlModel(nn.Module):
         if return_features:
             return out, fused, T_F, A_F, V_F
         return (out,)
+
+    # ------------------------------------------------------------------ #
+    # Stage losses (ref: Model.py:305-386)
+    # ------------------------------------------------------------------ #
+    def _all_estimates(self, labels, F_F, T_F, A_F, V_F, knn: Dict):
+        """The 5 MI and 6 CMI estimates; ``knn`` maps CMI_KEYS to (x, y, z)
+        conditional-product sample triples. Labels are tiled to d_common
+        (model.py:336-337)."""
+        labels = labels.reshape(-1, 1).to(T_F.dtype).repeat(1, self.d_common)
+        pairs = {"f_t": (F_F, T_F), "f_a": (F_F, A_F), "f_v": (F_F, V_F),
+                 "t_a": (T_F, A_F), "t_v": (T_F, V_F)}
+        triples = {
+            "ac_t": (A_F, labels, T_F), "ta_c": (T_F, A_F, labels),
+            "vc_t": (V_F, labels, T_F), "tv_c": (T_F, V_F, labels),
+            "tc_a": (T_F, labels, A_F), "tc_v": (T_F, labels, V_F),
+        }
+        mis, losses = {}, {}
+        for key in VMI_KEYS:
+            mis[key], losses[key] = getattr(
+                self, f"vmi_estimator_{key}")(*pairs[key])
+        for key in CMI_KEYS:
+            mis[key], losses[key] = getattr(
+                self, f"vcmi_estimator_{key}")(*triples[key], *knn[key])
+        return mis, losses
+
+    def compute_vmi_loss_stage1(self, labels, F_F, T_F, A_F, V_F, knn):
+        """11 (mi, mi_loss) pairs for critic training
+        (ref: Model.py:305-341)."""
+        m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
+        order = VMI_KEYS + CMI_KEYS
+        return [m[k] for k in order], [l[k] for k in order]
+
+    def compute_vmi_loss_stage2(self, labels, F_F, T_F, A_F, V_F, knn):
+        """8 derived (mi, mi_loss) pairs for main-model training
+        (ref: Model.py:343-386)."""
+        m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
+        mi_inv = m["t_a"] + m["t_v"]
+        mi_spec_t = m["tc_a"] + m["tc_v"] - m["ta_c"] - m["tv_c"]
+        mi_spec_a = m["ac_t"] - m["ta_c"]
+        mi_spec_v = m["vc_t"] - m["tv_c"]
+        mi_comp = m["ta_c"] + m["tv_c"]
+        mis = [m["f_t"], m["f_a"], m["f_v"], mi_inv,
+               mi_spec_t, mi_spec_a, mi_spec_v, mi_comp]
+        losses = [l["f_t"], l["f_a"], l["f_v"], -mi_inv,
+                  -mi_spec_t, -mi_spec_a, -mi_spec_v, -mi_comp]
+        return mis, losses
 
 
 def bert_config_from(cfg: MimrlConfig, vocab_size: int) -> BertConfig:
@@ -173,17 +261,25 @@ def build_model(cfg: MimrlConfig, vocab_size: int, d_a: int, d_v: int,
             d_outs=tuple(map(tuple, cfg.d_outs)),
             dropout_mlp=tuple(cfg.dropout_mlp), dropout=tuple(cfg.dropout),
             bias=cfg.bias, ln_first=cfg.ln_first,
-            res_project=tuple(cfg.res_project), use_pallas=cfg.use_pallas,
+            res_project=tuple(cfg.res_project),
+            critic_type=cfg.critic_type, baseline_type=cfg.baseline_type,
+            bound_type=cfg.bound_type, k_neighbor=cfg.k_neighbor,
+            radius=cfg.radius, cmi_last_acticate=cfg.cmi_last_acticate,
+            use_pallas=cfg.use_pallas, fused_estimators=cfg.fused_estimators,
             fusion=cfg.fusion, bert_config=bert_config_from(cfg, vocab_size))
     return model.to_empty(device=device or "cpu")
 
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random init drawn from ``generator`` (a CPU generator, so
-    the weights do not depend on the device): Linear weights normal with
-    std 1/sqrt(fan_in) and zero bias; embeddings normal with std 0.02;
-    LayerNorms ones/zeros; GRU weights uniform in +-1/sqrt(hidden)."""
+    """Seeded random init of every parameter, the estimator bank
+    included, drawn from ``generator`` (a CPU generator, so the weights do
+    not depend on the device): Linear weights normal with std
+    1/sqrt(fan_in) and zero bias; embeddings normal with std 0.02;
+    LayerNorms ones/zeros; GRU weights uniform in +-1/sqrt(hidden), then
+    every recurrent ``weight_hh`` re-initialised orthogonal per gate-stacked
+    matrix, as ``apply_orthogonal_whh`` does (model.py:504-519,
+    ref: Customization.py:18-21)."""
 
     def fill(p, draw):
         p.copy_(draw(torch.empty(p.shape, dtype=p.dtype)))
@@ -204,4 +300,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             for p in m.parameters():
                 fill(p, lambda t: t.uniform_(-bound, bound,
                                              generator=generator))
+            for name, p in m.named_parameters():
+                if name.startswith("weight_hh"):
+                    fill(p, lambda t: _orthogonal(t, generator))
     return model
+
+
+def _orthogonal(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """A (semi-)orthogonal matrix of t's shape from a seeded normal draw
+    (QR with the sign fix of ``nn.init.orthogonal_``, which takes no
+    generator)."""
+    rows, cols = t.shape
+    flat = torch.empty(max(rows, cols), min(rows, cols)).normal_(
+        0.0, 1.0, generator=generator)
+    q, r = torch.linalg.qr(flat)
+    q = q * torch.sign(torch.diagonal(r))[None, :]
+    return t.copy_(q if rows >= cols else q.t())

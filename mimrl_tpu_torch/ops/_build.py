@@ -1,11 +1,13 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
-``nvcc`` for ``sm_90a`` into a shared library under ``ops/build/`` (a
-directory git ignores). The library's name carries a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is
-reused. ``build()`` starts one ``nvcc`` per source, all at once, and
-waits for them together. The compiler's ``-Xptxas -v`` report (registers,
+``nvcc`` for ``sm_90a`` into shared libraries under ``ops/build/`` (a
+directory git ignores), one per input type (``VARIANTS``): a source holds
+its kernel for 5 head dims, with and without dropout, and the two types
+compile side by side in half the time. The library's name carries a hash of the source,
+of every header in ``csrc/`` and of the flags, so an edited source or
+header is rebuilt and an unchanged one is reused. ``build()`` starts one ``nvcc`` per source and variant, all at
+once, and waits for them together. The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside each library as
 ``.log``.
 
@@ -21,15 +23,17 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("flash_attention_fwd.cu",)
+SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
+# variant -> the dtype code the source is compiled for (MIMRL_DTYPE)
+VARIANTS = {"float32": 0, "bfloat16": 1}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, str], ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -45,36 +49,42 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
+def library_path(source: str, variant: str) -> Path:
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / source).read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{variant}-{digest}.so"
 
 
-def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
-    """Compile every source whose library is missing, all in parallel;
-    returns {source: library path}. Raises with nvcc's output on failure."""
+def build(sources: Iterable[str] = SOURCES,
+          variants: Iterable[str] = tuple(VARIANTS)
+          ) -> Dict[Tuple[str, str], Path]:
+    """Compile every (source, variant) whose library is missing, all in
+    parallel; returns {(source, variant): library path}. Raises with
+    nvcc's output on failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
     paths = {}
-    for src in sources:
-        lib = library_path(src)
-        paths[src] = lib
+    for target in ((s, v) for s in sources for v in variants):
+        src, variant = target
+        lib = library_path(src, variant)
+        paths[target] = lib
         if lib.exists():
             continue
         nvcc = nvcc or nvcc_path()
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        running[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        tmp, lib)
+        cmd = [nvcc, *NVCC_FLAGS, f"-DMIMRL_DTYPE={VARIANTS[variant]}",
+               "-o", str(tmp), str(CSRC / src)]
+        running[target] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, lib)
     failed = []
-    for src, (proc, tmp, lib) in running.items():
+    for (src, variant), (proc, tmp, lib) in running.items():
         log, _ = proc.communicate()
         lib.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{src} (exit {proc.returncode}):\n{log}")
+            failed.append(f"{src} [{variant}] (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
     if failed:
@@ -82,9 +92,11 @@ def build(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:
     return paths
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed."""
-    if source not in _loaded:
-        lib = build([source])[source]
-        _loaded[source] = ctypes.CDLL(str(lib))
-    return _loaded[source]
+def load(source: str, variant: str) -> ctypes.CDLL:
+    """The loaded library of one source and variant. The first use builds
+    whatever is missing of every source and variant, side by side: a train
+    step needs two of them at once, and four take as long as one."""
+    if (source, variant) not in _loaded:
+        lib = build()[(source, variant)]
+        _loaded[(source, variant)] = ctypes.CDLL(str(lib))
+    return _loaded[(source, variant)]

@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel mimrl_tpu/ops/pallas/flash_attention.py::_fwd_call
 // (its _fwd_kernel / _fwd_kernel_batched / _fwd_kernel_bh tilings of one
-// function) with dropout_p = 0:
+// function):
 //
-//     out = softmax(q . k^T * scale + bias) . v      per (batch row, head)
+//     out = dropout(softmax(q . k^T * scale + bias)) . v   per (batch row, head)
 //
 // q, k, v, out: [bs, nh, T, hd] contiguous, float32 or bfloat16.
 // bias: [bs, 1, 1, T] float32, the additive key bias (0 valid, -1e9 padded).
@@ -12,6 +12,15 @@
 // rounded to the input dtype before P . V, which accumulates in float32
 // (as flash_attention.py:193-195 does). Scores and probabilities stay in
 // registers and shared memory; they never reach device memory.
+//
+// Dropout (flash_attention.py:156-159) is inverted dropout on P: a
+// probability is kept where the Philox word of its (batch row, head, query,
+// key) exceeds uint32(p * 2^32) (philox.cuh, shared with the backward, which
+// regenerates the same mask), and the kept ones are scaled by 1 / (1 - p).
+// The softmax sum runs over all keys, dropped or not; the kept,
+// unnormalised P feeds P . V and 1 / (1 - p) is folded into the final
+// 1 / sum. The kernel without dropout is its own template instance, so
+// dropout_p = 0 compiles to the code it was before dropout existed.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16) at the serving shape
 // [128, 12, 100, 64] bf16: the kernel must read q, k, v and write out,
@@ -41,52 +50,16 @@
 // nothing and does not synchronise. The C entry point returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
+#include "philox.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+using namespace mimrl;
+
 constexpr int kRowsPerWarp = 16;
 constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
 constexpr int kBK = 64;                     // keys per tile: two per lane
-constexpr int kThreads = kWarps * 32;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// P is cast to the input dtype before P . V
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
 
 // Shared-memory layout in floats. Q and K rows are padded by 4 floats so
 // that the float4 reads of 8 lanes at different rows hit distinct banks.
@@ -103,24 +76,13 @@ struct Smem {
   static constexpr size_t bytes = floats * sizeof(float);
 };
 
-// rows [r0, r0 + rows) of one head's [T, HD] slice -> a float tile with
-// row stride `stride`; rows at or past T are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, int stride, const T* src,
-                                          int r0, int rows, int t_len) {
-  const int base = r0 * HD;
-  const int limit = t_len * HD;
-  for (int i = threadIdx.x; i < rows * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    dst[r * stride + d] = base + i < limit ? to_float(src[base + i]) : 0.f;
-  }
-}
-
-template <typename T, int HD>
+template <typename T, int HD, bool kDrop>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, int nh, int t_len, float scale) {
+                     T* __restrict__ out, const long long* __restrict__ seed,
+                     int nh, int t_len, float scale, uint32_t threshold,
+                     float inv_keep) {
   using S = Smem<HD>;
   constexpr int kDims = (HD + 31) / 32;  // output columns per lane
   extern __shared__ float4 smem4[];
@@ -136,6 +98,8 @@ __global__ void __launch_bounds__(kThreads)
   const float* bias_row = bias + (size_t)b * t_len;
   const float* sQw = sQ + warp * kRowsPerWarp * S::kQK;
   float* sPw = smem + S::p_off + warp * kRowsPerWarp * S::kP;
+  uint2 key = make_uint2(0u, 0u);
+  if (kDrop) key = philox_key(seed);
 
   load_tile<T, HD>(sQ, S::kQK, q + head, q0, kBQ, t_len);
 
@@ -191,8 +155,13 @@ __global__ void __launch_bounds__(kThreads)
       const float sb = in_b ? __fadd_rn(__fmul_rn(s[r][1], scale), bias_b) : -INFINITY;
       const float m_new = fmaxf(m_run[r], warp_max(fmaxf(sa, sb)));
       const float alpha = expf(m_run[r] - m_new);  // 0 on the first tile
-      const float pa = expf(sa - m_new), pb = expf(sb - m_new);
+      float pa = expf(sa - m_new), pb = expf(sb - m_new);
       l_run[r] = l_run[r] * alpha + warp_sum(pa + pb);
+      if (kDrop) {  // the sum above is over all keys, dropped or not
+        const int row = q0 + warp * kRowsPerWarp + r;
+        if (!dropout_keep(key, threshold, b, h, row, k0 + lane)) pa = 0.f;
+        if (!dropout_keep(key, threshold, b, h, row, k0 + lane + 32)) pb = 0.f;
+      }
       m_run[r] = m_new;
 #pragma unroll
       for (int i = 0; i < kDims; ++i) acc[r][i] *= alpha;
@@ -232,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + warp * kRowsPerWarp + r;
     if (row >= t_len) continue;
-    const float inv = 1.f / l_run[r];
+    const float inv = kDrop ? inv_keep / l_run[r] : 1.f / l_run[r];
 #pragma unroll
     for (int i = 0; i < kDims; ++i) {
       const int d = lane + 32 * i;
@@ -241,11 +210,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           void* out, int bs, int nh, int t_len, float scale,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, HD>;
+           void* out, const void* seed, int bs, int nh, int t_len, float scale,
+           uint32_t threshold, float inv_keep, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<T, HD, kDrop>;
   const size_t smem = Smem<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -254,38 +223,71 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
-      static_cast<T*>(out), nh, t_len, scale);
+      static_cast<T*>(out), static_cast<const long long*>(seed), nh, t_len,
+      scale, threshold, inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDrop>
 int dispatch_hd(const void* q, const void* k, const void* v, const void* bias,
-                void* out, int bs, int nh, int t_len, int hd, float scale,
+                void* out, const void* seed, int bs, int nh, int t_len, int hd,
+                float scale, uint32_t threshold, float inv_keep,
                 cudaStream_t stream) {
+#define MIMRL_FWD_CASE(HD)                                                   \
+  case HD:                                                                   \
+    return launch<T, HD, kDrop>(q, k, v, bias, out, seed, bs, nh, t_len,     \
+                                scale, threshold, inv_keep, stream)
   switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, bias, out, bs, nh, t_len, scale, stream);
-    case 16: return launch<T, 16>(q, k, v, bias, out, bs, nh, t_len, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, bias, out, bs, nh, t_len, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, out, bs, nh, t_len, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, out, bs, nh, t_len, scale, stream);
+    MIMRL_FWD_CASE(8);
+    MIMRL_FWD_CASE(16);
+    MIMRL_FWD_CASE(32);
+    MIMRL_FWD_CASE(64);
+    MIMRL_FWD_CASE(128);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef MIMRL_FWD_CASE
+}
+
+template <typename T>
+int dispatch_drop(const void* q, const void* k, const void* v,
+                  const void* bias, void* out, const void* seed, int bs, int nh,
+                  int t_len, int hd, float scale, int dropout,
+                  uint32_t threshold, float inv_keep, cudaStream_t stream) {
+  if (dropout)
+    return dispatch_hd<T, true>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
+                                scale, threshold, inv_keep, stream);
+  return dispatch_hd<T, false>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
+                               scale, threshold, inv_keep, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t value (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16; compiled with -DMIMRL_DTYPE=0 or 1 the
+// library holds that type's kernels only and refuses the other.
+// dropout: 0 = off (seed may be null), 1 = on: seed points to one int64 on
+// the device, threshold is uint32(p * 2^32) and inv_keep is 1 / (1 - p).
+// Returns a cudaError_t value (0 = ok).
 extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, const void* bias,
-                                         void* out, int bs, int nh, int t_len,
-                                         int hd, int dtype, float scale,
-                                         void* stream) {
+                                         void* out, const void* seed, int bs,
+                                         int nh, int t_len, int hd, int dtype,
+                                         float scale, int dropout,
+                                         unsigned int threshold,
+                                         float inv_keep, void* stream) {
   if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
     return (int)cudaErrorInvalidValue;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 0
   if (dtype == 0)
-    return dispatch_hd<float>(q, k, v, bias, out, bs, nh, t_len, hd, scale, s);
+    return dispatch_drop<float>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
+                                scale, dropout, threshold, inv_keep, s);
+#endif
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
   if (dtype == 1)
-    return dispatch_hd<__nv_bfloat16>(q, k, v, bias, out, bs, nh, t_len, hd, scale, s);
+    return dispatch_drop<__nv_bfloat16>(q, k, v, bias, out, seed, bs, nh,
+                                        t_len, hd, scale, dropout, threshold,
+                                        inv_keep, s);
+#endif
   return (int)cudaErrorInvalidValue;
 }

@@ -1,54 +1,110 @@
-"""Fused attention forward: the CUDA kernel ``csrc/flash_attention_fwd.cu``,
-its wrapper, and its plain PyTorch version.
+"""Fused attention: the CUDA kernels ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``, their wrappers, their plain PyTorch
+versions and the ``torch.autograd.Function`` that joins them.
 
-Replaces ``mimrl_tpu/ops/pallas/flash_attention.py::_fwd_call`` (the
-forward of ``flash_attention``, with ``dropout_p = 0``): the three TPU
-tilings (row, batched, bh) are one function, and one Hopper kernel
-computes it; ``MIMRL_FA_VARIANT`` / ``MIMRL_FA_ROWS`` have no
+Replaces ``mimrl_tpu/ops/pallas/flash_attention.py``: ``_fwd_call`` (the
+forward) and ``_bwd_call`` (the backward of its ``custom_vjp``). The three
+TPU tilings (row, batched, bh) are one function, and one Hopper kernel
+each computes it; ``MIMRL_FA_VARIANT`` / ``MIMRL_FA_ROWS`` have no
 counterpart.
 
-    out = softmax(q . k^T * hd^-0.5 + bias) . v
+    out = dropout(softmax(q . k^T * hd^-0.5 + bias)) . v
 
 q, k, v: [bs, nh, T, hd] in float32 or bfloat16; bias: [bs, 1, 1, T]
 float32 additive key bias (0 valid, -1e9 padded). Scores and softmax in
 float32; P is rounded to the input dtype before P . V, which accumulates
 in float32; the output has q's dtype.
 
-Bound on the H100 at the serving shape [128, 12, 100, 64] bf16: 78.6 MB
-of q, k, v and out at 3.35 TB/s is 23.5 us; 3.9 GFLOP at 989 TFLOP/s is
-4 us. The function is bound by bytes; the kernel's design note and its
-measured gap to the bound are in the source and in PERF.md.
+Dropout is inverted dropout on P from a Philox4x32-10 mask that is a pure
+function of (seed, batch row, head, query, key) (``ops/philox.py``,
+``csrc/philox.cuh``): the backward regenerates it, so nothing but q, k, v,
+bias and the seed is saved for it. ``seed`` is one int64 on the inputs'
+device, read by the kernels; drawing it does not synchronise the host.
 
-``flash_attention`` takes the plain version only for tensors on the CPU.
-A CUDA tensor launches the kernel or raises; dropout (the training
-slice, with a Philox mask regenerated in the backward) raises on CUDA.
-``flash_attention.launches`` counts kernel launches.
+Bounds on the H100 at [128, 12, 100, 64] bf16: the forward moves 78.6 MB
+(23.5 us at 3.35 TB/s) for 3.9 GFLOP (4 us at 989 TFLOP/s); the backward
+moves 137.6 MB (41 us) for 9.8 GFLOP (10 us). Both are bound by bytes;
+the kernels' design notes and their measured gaps are in the sources and
+in PERF.md.
+
+``flash_attention`` and ``flash_attention_bwd`` take the plain versions
+only for tensors on the CPU. A CUDA tensor launches the kernel or raises.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 
 from mimrl_tpu_torch.ops import _build
+from mimrl_tpu_torch.ops.philox import dropout_keep_mask, dropout_threshold
 
 SOURCE = "flash_attention_fwd.cu"
+SOURCE_BWD = "flash_attention_bwd.cu"
 HEAD_DIMS = (8, 16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_T_BWD = 4096  # the backward keeps its softmax statistics in shared memory
+_DTYPE_CODES = {torch.float32: _build.VARIANTS["float32"],
+                torch.bfloat16: _build.VARIANTS["bfloat16"]}
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
-    """The kernel's math in PyTorch ops (and the CPU route)."""
+def _probabilities(q, k, bias):
     scale = 1.0 / (q.shape[-1] ** 0.5)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = e / e.sum(dim=-1, keepdim=True)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _keep_mask(q, seed, dropout_p):
+    bs, nh, t, _ = q.shape
+    return dropout_keep_mask(seed, bs, nh, t, t, dropout_p)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          bias: torch.Tensor,
+                          seed: Optional[torch.Tensor] = None,
+                          dropout_p: float = 0.0) -> torch.Tensor:
+    """The forward kernel's math in PyTorch ops (and the CPU route)."""
+    p = _probabilities(q, k, bias)
+    if dropout_p > 0.0:
+        p = torch.where(_keep_mask(q, seed, dropout_p),
+                        p * (1.0 / (1.0 - dropout_p)), 0.0)
     return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
-def _check(q, k, v, bias):
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, bias: torch.Tensor,
+                              seed: Optional[torch.Tensor],
+                              d_out: torch.Tensor, dropout_p: float = 0.0
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's math in PyTorch ops (and the CPU route): the
+    algebra of ``_bwd_kernel`` (flash_attention.py:302-355) written out,
+    with its roundings. Returns (dq, dk, dv) in q's dtype."""
+    dt = q.dtype
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    do = d_out.to(dt).float()
+    p = _probabilities(q, k, bias)
+    if dropout_p > 0.0:
+        keep = _keep_mask(q, seed, dropout_p)
+        inv = 1.0 / (1.0 - dropout_p)
+        pd = torch.where(keep, p * inv, 0.0)
+    else:
+        pd = p
+    dv = torch.matmul(pd.to(dt).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    if dropout_p > 0.0:
+        dp = torch.where(keep, dp * inv, 0.0)
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds * scale).to(dt).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check(q, k, v, bias, seed=None, dropout_p: float = 0.0, d_out=None):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
                         "(float32 or bfloat16)")
@@ -56,7 +112,8 @@ def _check(q, k, v, bias):
         raise ValueError(f"flash_attention: q must be [bs, nh, T, hd], "
                          f"got {tuple(q.shape)}")
     bs, nh, t, hd = q.shape
-    for name, x in (("k", k), ("v", v)):
+    same = [("k", k), ("v", v)] + ([("d_out", d_out)] if d_out is not None else [])
+    for name, x in same:
         if x.shape != q.shape or x.dtype != q.dtype:
             raise ValueError(f"flash_attention: {name} is {x.dtype} "
                              f"{tuple(x.shape)}, q is {q.dtype} {tuple(q.shape)}")
@@ -68,7 +125,15 @@ def _check(q, k, v, bias):
         raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
     if bs > 65535 or nh > 65535:
         raise ValueError("flash_attention: bs and nh must be <= 65535")
-    for name, x in (("q", q), ("k", k), ("v", v), ("bias", bias)):
+    if d_out is not None and t > MAX_T_BWD:
+        raise ValueError(f"flash_attention backward: T {t} > {MAX_T_BWD}")
+    tensors = [("q", q), ("bias", bias)] + same
+    if dropout_p > 0.0:
+        if (seed is None or seed.dtype != torch.int64 or seed.numel() != 1):
+            raise ValueError("flash_attention: dropout needs a seed tensor "
+                             "of one int64 on the inputs' device")
+        tensors.append(("seed", seed))
+    for name, x in tensors:
         if x.device != q.device:
             raise ValueError(f"flash_attention: {name} on {x.device}, "
                              f"q on {q.device}")
@@ -76,41 +141,124 @@ def _check(q, k, v, bias):
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    fn = lib.mimrl_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    bias: torch.Tensor, dropout_p: float = 0.0) -> torch.Tensor:
-    """Fused attention forward. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise)."""
+def _dropout_args(seed, dropout_p):
+    """(seed pointer, dropout flag, threshold, 1 / (1 - p)) for the C
+    entry points."""
     if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention: attention dropout belongs to the training "
-            "slice (flash backward kernel + Philox dropout, ROADMAP.md); "
-            "serve with the model in eval mode")
+        return (seed.data_ptr(), 1, dropout_threshold(dropout_p),
+                1.0 / (1.0 - dropout_p))
+    return None, 0, 0, 1.0
+
+
+_TAIL_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                       ctypes.c_uint, ctypes.c_float,
+                                       ctypes.c_void_p]
+
+
+_entries = {}  # (source, dtype) -> the configured C entry point
+
+
+def _entry(source: str, name: str, n_pointers: int, dtype: torch.dtype):
+    """The C entry point of a kernel for one input type (built and
+    configured at first use, then kept): n_pointers device pointers, then
+    bs, nh, T, hd, dtype code, scale, dropout flag, threshold,
+    1 / (1 - p), stream."""
+    fn = _entries.get((source, dtype))
+    if fn is None:
+        variant = str(dtype).replace("torch.", "")
+        fn = getattr(_build.load(source, variant), name)
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + _TAIL_ARGTYPES
+        fn.restype = ctypes.c_int
+        _entries[(source, dtype)] = fn
+    return fn
+
+
+def _forward(q, k, v, bias, seed, dropout_p):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias)
+        return flash_attention_plain(q, k, v, bias, seed, dropout_p)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v, bias)
+    _check(q, k, v, bias, seed, dropout_p)
     bs, nh, t, hd = q.shape
     out = torch.empty_like(q)
-    fn = _library().mimrl_flash_attention_fwd
+    fn = _entry(SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)
+    seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), bs, nh, t, hd, _DTYPE_CODES[q.dtype],
-                1.0 / (hd ** 0.5), stream)
+                out.data_ptr(), seed_ptr, bs, nh, t, hd, _DTYPE_CODES[q.dtype],
+                1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor, seed: Optional[torch.Tensor],
+                        d_out: torch.Tensor, dropout_p: float = 0.0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient
+    ``d_out``. CPU tensors take the plain version; CUDA tensors launch the
+    backward kernel (or raise)."""
+    dropout_threshold(dropout_p)  # raises outside [0, 1)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, bias, seed, d_out, dropout_p)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    _check(q, k, v, bias, seed, dropout_p, d_out)
+    bs, nh, t, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # the sum of dq over key tiles is kept in float32
+    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+        q.shape, dtype=torch.float32, device=q.device)
+    fn = _entry(SOURCE_BWD, "mimrl_flash_attention_bwd", 10, q.dtype)
+    seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                d_out.data_ptr(), seed_ptr, dq.data_ptr(), dq_acc.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), bs, nh, t, hd,
+                _DTYPE_CODES[q.dtype], 1.0 / (hd ** 0.5), drop, threshold,
+                inv_keep, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, backward kernel; residuals q, k, v, bias, seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, dropout_p):
+        out = _forward(q, k, v, bias, seed, dropout_p)
+        ctx.save_for_backward(q, k, v, bias, seed)
+        ctx.dropout_p = dropout_p
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, bias, seed = ctx.saved_tensors
+        # dO is rounded to the input dtype (flash_attention.py:556)
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, bias, seed, d_out.to(q.dtype).contiguous(), ctx.dropout_p)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: torch.Tensor, seed: Optional[torch.Tensor] = None,
+                    dropout_p: float = 0.0) -> torch.Tensor:
+    """Fused attention, differentiable in q, k and v. CPU tensors take the
+    plain versions; CUDA tensors launch the kernels (or raise). ``seed``
+    (one int64 on the inputs' device) is read only when ``dropout_p > 0``."""
+    dropout_threshold(dropout_p)  # raises outside [0, 1)
+    if dropout_p > 0.0 and seed is None:
+        raise ValueError("flash_attention: dropout_p > 0 needs a seed")
+    return _FlashAttention.apply(q, k, v, bias, seed, dropout_p)
 
 
 flash_attention.launches = 0

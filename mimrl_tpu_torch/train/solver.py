@@ -1,0 +1,402 @@
+"""The training loop: two-stage epochs, evaluation, model selection,
+checkpoints and the run log (PyTorch port of the per-batch path of
+``mimrl_tpu.train.solver``; ref: Solver.py:18-531).
+
+Same epoch structure, label routing, score routing, dual best-model
+tracking, epoch log line and telemetry channels as the JAX package. The
+host loop feeds batches to ``train/steps.py`` and keeps every loss, MI
+value and output on the device until the epoch ends.
+
+Not ported, and refused with a ``NotImplementedError`` that names
+ROADMAP.md: the epoch-level schedules (``--epoch_scan``, ``--fast_stage1``,
+``--stage1_cached``, ``--epoch_group``), ``--resume`` and optimizer
+checkpoints, ``--check_gradient``, ``--custom_loss``, ``--profile_dir``,
+``--bert_weights``, ``--distributed`` and a mesh over more than one device.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from mimrl_tpu_torch.core.checkpoint import CheckpointManager
+from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
+from mimrl_tpu_torch.data.tokenizer import build_tokenizer
+from mimrl_tpu_torch.data.universal import get_data_loader
+from mimrl_tpu_torch.device import resolve_device
+from mimrl_tpu_torch.eval.metrics import (current_result_better,
+                                          get_score_from_result)
+from mimrl_tpu_torch.eval.predict import get_label_from_datas
+from mimrl_tpu_torch.models.model import build_model, init_weights
+from mimrl_tpu_torch.train import steps
+from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
+                                         make_vmi_optimizer, partition_params)
+
+MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
+
+
+def _refuse_unported(opt: MimrlConfig) -> None:
+    unported = {
+        "--epoch_scan": opt.epoch_scan,
+        "--fast_stage1": opt.fast_stage1,
+        "--stage1_cached": opt.stage1_cached,
+        "--epoch_group > 1": opt.epoch_group > 1,
+        "--resume": bool(opt.resume),
+        "--check_gradient": opt.check_gradient,
+        "--custom_loss": bool(opt.custom_loss),
+        "--profile_dir": bool(opt.profile_dir),
+        "--bert_weights": bool(opt.bert_weights),
+        "--distributed": opt.distributed,
+        "a mesh over more than one device (--mesh_data/--mesh_model/"
+        "--mesh_pipe/--mesh_dcn)": (
+            opt.mesh_data > 1 or opt.mesh_model > 1 or opt.mesh_pipe > 1
+            or opt.mesh_dcn > 1),
+        "--fusion other than cubemlp": opt.fusion != "cubemlp",
+        "--encoders other than gru": opt.encoders != "gru",
+    }
+    asked = [name for name, on in unported.items() if on]
+    if asked:
+        raise NotImplementedError(
+            "not ported to mimrl_tpu_torch yet (ROADMAP.md, Open items): "
+            + "; ".join(asked))
+
+
+class Solver:
+    """Builds data, model and optimizers for a config and trains it.
+
+    Runs on the CUDA device unless ``device`` (or ``opt.device``) asks for
+    the CPU. Random state: the Solver owns one ``torch.Generator`` on its
+    device, seeded from ``opt.seed``, for the kNN anchors and the attention
+    dropout seeds; ``nn.Dropout`` takes no generator, so the Solver also
+    seeds torch's default generators from ``opt.seed``, once, here.
+    Weights are drawn from a CPU generator seeded the same way, so they do
+    not depend on the device.
+    """
+
+    def __init__(self, opt: MimrlConfig, device=None):
+        _refuse_unported(opt)
+        self.opt = opt
+        self.device = resolve_device(device if device is not None
+                                     else opt.device)
+        self.task_path, self.writer, self.ckpt = self.prepare_checkpoint_log()
+        log_message(str(opt))
+        log_message("Making logger and dataset...")
+
+        self.tokenizer = build_tokenizer(opt.bert_vocab)
+        (self.train_loader, self.valid_loader, self.test_loader,
+         self.d_t, self.d_a, self.d_v) = get_data_loader(opt, self.tokenizer)
+
+        log_message("Making model and optimizer...")
+        torch.manual_seed(opt.seed)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(opt.seed)
+        self.model = build_model(opt, self.tokenizer.vocab_size, self.d_a,
+                                 self.d_v, self.device)
+        init_weights(self.model, torch.Generator().manual_seed(opt.seed))
+        if opt.print_params:
+            for name, _ in self.model.named_parameters():
+                log_message("\t" + name)
+
+        # optimizers + schedules (dual, ref: Solver.py:119-170)
+        params_main, params_bert, params_vmi = partition_params(self.model)
+        self.opt_main = make_main_optimizer(opt, params_main, params_bert)
+        self.opt_vmi = make_vmi_optimizer(opt, params_vmi)
+        self.lr_schedule = LRScheduler(opt)
+        self.base_lr_main = opt.learning_rate
+        self.base_lr_vmi = opt.learning_rate * opt.mi_lr_rate
+
+        # feature banks: one row per train-step sample; the epoch reads
+        # `bank` and writes `new_bank`, then they change places
+        self.n_bank = len(self.train_loader) * opt.batch_size
+        n_valid = min(len(self.train_loader.ds), self.n_bank)
+        bank_kw = dict(n_bank=self.n_bank, n_valid=n_valid,
+                       d_common=opt.d_common, d_fused=self.model.classify_dim,
+                       dtype=getattr(torch, opt.bank_dtype),
+                       device=self.device)
+        self.bank = steps.FeatureBank(**bank_kw)
+        self.new_bank = steps.FeatureBank(**bank_kw)
+        self.have_bank = False  # epoch-0 semantics (ref: Customization.py:97)
+        # mean critic loss of each stage-1 pass of the last epoch
+        self.stage1_pass_losses: List[float] = []
+
+    # ------------------------------------------------------------------ #
+    def prepare_checkpoint_log(self):
+        task_path = os.path.join(self.opt.task_dir, self.opt.task_name)
+        os.makedirs(task_path, exist_ok=True)
+        set_logger(os.path.join(task_path, "Running.log"))
+        writer = ScalarWriter(task_path)
+        ckpt = CheckpointManager(task_path)
+        ckpt.save_config(self.opt.to_json())
+        return task_path, writer, ckpt
+
+    def _prep(self, batch: Dict):
+        """Host batch -> (device batch, device labels, host labels)."""
+        labels = np.asarray(get_label_from_datas(self.opt, batch))
+        model_batch, labels_dev = steps.to_device(
+            batch, labels, self.opt.task, self.device)
+        return model_batch, labels_dev, labels
+
+    def _state_dict(self) -> Dict[str, torch.Tensor]:
+        """A copy of the whole model's state_dict (the steps update the
+        live tensors in place)."""
+        return {k: v.detach().clone()
+                for k, v in self.model.state_dict().items()}
+
+    # ------------------------------------------------------------------ #
+    def train(self, epoch: int):
+        """One epoch: stage 1 (critics) x stage1_n, then stage 2 (main)
+        (ref: Solver.py:194-248)."""
+        opt = self.opt
+        t_stage1 = time.time()
+        n = len(self.train_loader)
+        running_loss_mi = 0.0
+        self.stage1_pass_losses = []
+
+        # Stage 1 (skipped at epoch 0, ref: Solver.py:201-203)
+        if epoch > 0 and self.have_bank:
+            for _ in range(opt.stage1_n):
+                mi_losses = []
+                for batch in self.train_loader:
+                    model_batch, labels_dev, _ = self._prep(batch)
+                    loss, _mis = steps.critic_step(
+                        self.model, self.opt_vmi, opt, model_batch,
+                        labels_dev, self.bank, self.generator)
+                    mi_losses.append(loss)
+                pass_loss = float(torch.stack(mi_losses).sum())
+                running_loss_mi += pass_loss
+                self.stage1_pass_losses.append(pass_loss / n)
+        self._synchronize()
+        t_stage2 = time.time()
+        log_message(f"  stage1: {t_stage2 - t_stage1:.2f}s" + "".join(
+            f" pass{i + 1}:[{l:.4f}]"
+            for i, l in enumerate(self.stage1_pass_losses)))
+
+        # Stage 2
+        use_mi = self.have_bank
+        self.new_bank.zero_()
+        offset = 0
+        step_losses, step_mis, outs, masks, targets = [], [], [], [], []
+        for batch in self.train_loader:
+            model_batch, labels_dev, labels_np = self._prep(batch)
+            loss, mis, out = steps.train_step(
+                self.model, self.opt_main, opt, model_batch, labels_dev,
+                self.bank, self.new_bank, offset, self.generator, use_mi)
+            # device tensors are kept; converting here would synchronise
+            # the host on every step
+            step_losses.append(loss)
+            step_mis.append(mis)
+            outs.append(out)
+            masks.append(batch["sample_mask"] > 0.5)
+            targets.append(labels_np)
+            offset += opt.batch_size
+        self._synchronize()
+        log_message(f"  stage2: {time.time() - t_stage2:.2f}s")
+
+        running_loss = float(torch.stack(step_losses).sum())
+        mis_sum = torch.stack(step_mis).sum(dim=0).cpu().numpy()
+        self.bank, self.new_bank = self.new_bank, self.bank
+        self.have_bank = True
+        predictions = np.concatenate(
+            [o.float().cpu().numpy()[m] for o, m in zip(outs, masks)])
+        targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
+        train_score = get_score_from_result(
+            predictions, targets, opt.dataset, opt.task, opt.num_class)
+        return (running_loss / n, running_loss_mi / n,
+                (mis_sum / n).tolist(), train_score)
+
+    def evaluate(self, loader):
+        """No-grad eval pass (ref: Solver.py:250-270)."""
+        opt = self.opt
+        use_mi = self.have_bank
+        losses, mis_list, outs, masks, targets, features = [], [], [], [], [], []
+        for batch in loader:
+            model_batch, labels_dev, labels_np = self._prep(batch)
+            loss, mis, out, feats = steps.eval_step(
+                self.model, opt, model_batch, labels_dev, self.bank,
+                self.generator, use_mi)
+            losses.append(loss)
+            mis_list.append(mis)
+            outs.append(out)
+            masks.append(batch["sample_mask"] > 0.5)
+            targets.append(labels_np)
+            if opt.save_best_features:
+                features.append(feats)
+
+        n = len(loader)
+        predictions = np.concatenate(
+            [o.float().cpu().numpy()[m] for o, m in zip(outs, masks)])
+        targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
+        if opt.save_best_features:
+            features = [[f.float().cpu().numpy()[m] for f in fl]
+                        for fl, m in zip(features, masks)]
+        score = get_score_from_result(predictions, targets, opt.dataset,
+                                      opt.task, opt.num_class)
+        avg_loss = float(torch.stack(losses).sum()) / n
+        avg_mis = (torch.stack(mis_list).sum(dim=0).cpu().numpy() / n).tolist()
+        return (avg_loss, avg_mis, score, predictions, targets,
+                features if opt.save_best_features else None)
+
+    def _synchronize(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------ #
+    def solve(self):
+        log_message("Start training...")
+        opt = self.opt
+        tracking = {"score": [None, None, None],  # valid, test, test at best valid
+                    "predictions": [None, None, None],
+                    "features": [None, None, None],
+                    "targets": [None, None],
+                    "valid_state": None, "test_state": None}
+        for epoch in range(opt.epochs_num):
+            t0 = time.time()
+            train = self.train(epoch)
+            valid = self.evaluate(self.valid_loader)
+            test = self.evaluate(self.test_loader)
+            self._finalize_epoch(tracking, epoch, time.time() - t0, train,
+                                 valid, test)
+        log_message("Training complete.")
+        self.writer.close()
+        if tracking["score"][0] is not None:
+            self.log_best_scores(tracking["score"])
+        self.save_results(tracking["predictions"], tracking["targets"],
+                          tracking["features"], tracking["valid_state"],
+                          tracking["test_state"])
+        return tracking["score"]
+
+    def _finalize_epoch(self, tracking, epoch, dt, train, valid, test):
+        """Step the learning-rate schedule, track the best models, write
+        the epoch's log line and scalar channels, and keep the checkpoint
+        cadence."""
+        opt = self.opt
+        train_loss, train_loss_mi, train_mis, train_score = train
+        (val_loss, val_mis, val_score, val_predictions, val_targets,
+         val_features) = valid
+        (test_loss, test_mis, test_score, test_predictions, test_targets,
+         test_features) = test
+
+        # LR schedule, applied to both optimizers (ref: Solver.py:52-57)
+        factor = self.lr_schedule.step(val_loss)
+        self.opt_main.learning_rate = self.base_lr_main * factor
+        self.opt_vmi.learning_rate = self.base_lr_vmi * factor
+
+        # best-model tracking (ref: Solver.py:59-93)
+        if current_result_better(tracking["score"][0], val_score, opt.task,
+                                 opt.num_class, opt.dataset):
+            log_message("Better valid score found...")
+            if opt.save_models:
+                tracking["valid_state"] = self._state_dict()
+            tracking["score"][0] = val_score
+            tracking["predictions"][0] = val_predictions
+            tracking["features"][0] = val_features
+            tracking["score"][2] = test_score
+            tracking["predictions"][2] = test_predictions
+            tracking["features"][2] = test_features
+            tracking["targets"][0] = val_targets
+        if current_result_better(tracking["score"][1], test_score, opt.task,
+                                 opt.num_class, opt.dataset):
+            log_message("Better test score found...")
+            if opt.save_models:
+                tracking["test_state"] = self._state_dict()
+            tracking["score"][1] = test_score
+            tracking["predictions"][1] = test_predictions
+            tracking["features"][1] = test_features
+            tracking["targets"][1] = test_targets
+
+        sps = len(self.train_loader.ds) / max(dt, 1e-9)
+        msg = self.build_message(epoch, train_loss, train_mis, train_score,
+                                 val_loss, val_mis, val_score, test_loss,
+                                 test_mis, test_score)
+        log_message(msg + f" || {dt:.1f}s {sps:.1f} samples/s"
+                    + self._memory_suffix())
+        self.log_scalars(epoch, train_loss, train_mis, train_score, val_loss,
+                         val_mis, val_score, test_loss, test_mis, test_score)
+        if opt.save_latest_every > 0 and (
+                epoch % opt.save_latest_every == opt.save_latest_every - 1
+                or epoch == opt.epochs_num - 1):
+            self.ckpt.save("latest", self.model.state_dict())
+
+    def _memory_suffix(self) -> str:
+        if self.device.type != "cuda":
+            return ""
+        gib = 1024 ** 3
+        return (f" device memory {torch.cuda.max_memory_allocated(self.device) / gib:.2f}"
+                f"/{torch.cuda.memory_allocated(self.device) / gib:.2f} GiB peak/live")
+
+    def build_message(self, epoch, train_loss, train_mis, train_score,
+                      val_loss, val_mis, val_score, test_loss, test_mis,
+                      test_score) -> str:
+        """Epoch summary line (ref: Solver.py:438-459)."""
+
+        def block(tag, loss, mis, score):
+            s = f" {tag}Loss:[{loss:.3f}]"
+            s += (" " + tag + "MI_ft/fa/fv/in/st/sa/sv/cp:["
+                  + "/".join(f"{m:.3f}" for m in mis) + "]")
+            for key in score:
+                s += f" {tag}_{key}:[{score[key]:6.3f}]"
+            return s
+
+        msg = f"Epoch:[{epoch + 1:3.0f}] ||"
+        msg += block("Train", train_loss, train_mis, train_score)
+        msg += " ||" + block("Val", val_loss, val_mis, val_score)
+        msg += " ||" + block("Test", test_loss, test_mis, test_score)
+        return msg
+
+    def build_single_message(self, score, mode):
+        return mode + "".join(f" {key}:[{score[key]:6.3f}]" for key in score)
+
+    def log_scalars(self, epoch, train_loss, train_mis, train_score, val_loss,
+                    val_mis, val_score, test_loss, test_mis, test_score):
+        """The reference's channel names (ref: Solver.py:467-507)."""
+        for tag, loss, mis, score in (
+                ("Train", train_loss, train_mis, train_score),
+                ("Val", val_loss, val_mis, val_score),
+                ("Test", test_loss, test_mis, test_score)):
+            self.writer.add_scalar(f"{tag}/Loss", loss, epoch)
+            for name, value in zip(MI_NAMES, mis):
+                self.writer.add_scalar(f"{tag}/MI_{name}", value, epoch)
+            for key in score:
+                self.writer.add_scalar(f"{tag}/{key}", score[key], epoch)
+        self.writer.add_scalar(
+            "Lr", self.base_lr_main * self.lr_schedule.factor, epoch)
+        self.writer.flush()
+
+    def log_best_scores(self, best_score):
+        log_message(self.build_single_message(best_score[0],
+                                              "Best Valid Score \t\t"))
+        log_message(self.build_single_message(best_score[2],
+                                              "Test Score at Best Valid \t"))
+        log_message(self.build_single_message(best_score[1],
+                                              "Best Test Score \t\t"))
+
+    def save_results(self, best_predictions, best_targets, best_features,
+                     best_valid_state: Optional[Dict],
+                     best_test_state: Optional[Dict]):
+        """(ref: Solver.py:514-531) The ``best_valid`` and ``best_test``
+        slots hold the whole model's state_dict, which ``Predictor``
+        loads."""
+        for name, array in (
+                ("predictions_val", best_predictions[0]),
+                ("predictions_test", best_predictions[1]),
+                ("predictions_test_for_valid", best_predictions[2]),
+                ("targets_val", best_targets[0]),
+                ("targets_test", best_targets[1])):
+            np.save(os.path.join(self.task_path, f"{name}.npy"), array)
+        if self.opt.save_best_features:
+            for name, feats in (("features_val", best_features[0]),
+                                ("features_test", best_features[1]),
+                                ("features_test_for_valid", best_features[2])):
+                with open(os.path.join(self.task_path, f"{name}.pkl"),
+                          "wb") as f:
+                    pickle.dump(feats, f)
+        if best_valid_state is not None:
+            self.ckpt.save("best_valid", best_valid_state)
+        if best_test_state is not None:
+            self.ckpt.save("best_test", best_test_state)

@@ -1,0 +1,227 @@
+"""The two-stage training loop's steps (PyTorch port of
+``mimrl_tpu.train.steps``:47-338; ref: Solver.py:194-248).
+
+- ``critic_step``  = stage 1's inner loop body (Solver.py:204-216): updates
+  only the vmi / vcmi parameter group. The model's forward runs in training
+  mode (dropout on) under ``torch.no_grad()``: the features are constants
+  of this stage, so no graph is built through BERT and the attention
+  backward kernel is not launched.
+- ``train_step``   = stage 2's body (Solver.py:220-242): updates main + bert
+  with ``task_loss + sum(coef2 * mi_loss)`` (Customization.py:104-113) and
+  writes the batch's features into the new bank.
+- Epoch-0 semantics (no bank yet): stage 1 is skipped and stage 2 runs
+  with ``use_mi=False``, the task loss alone and zero MI telemetry
+  (ref: Solver.py:201-203, Customization.py:97-98, :105-106).
+- Feature banks are epoch-stale: stage 2 writes the bank that the next
+  epoch reads (ref: Solver.py:219-244).
+
+Nothing here reads a value back from the device: losses, MI values and
+outputs are returned as device tensors, and the non-finite guard
+(``--skip_nonfinite_updates``) selects with ``torch.where`` on a device
+flag. Parameters, optimizer state and banks are updated in place.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.mi.knn import prod_knn_sample
+from mimrl_tpu_torch.models.model import CMI_KEYS, MimrlModel
+from mimrl_tpu_torch.train.losses import compute_task_loss
+from mimrl_tpu_torch.train.optim import ChainOptimizer
+
+MODEL_INPUTS = ("bert_sentences", "bert_sentence_types",
+                "bert_sentence_att_mask", "audio", "video")
+
+
+class FeatureBank:
+    """Epoch-wide feature store: fixed [N_bank, d] device tensors and a
+    valid mask, written in place by slices (the reference grows python
+    lists and concatenates them, Solver.py:219-244)."""
+
+    FIELDS = ("C", "F", "T", "A", "V")
+
+    def __init__(self, n_bank: int, n_valid: int, d_common: int,
+                 d_fused: Optional[int] = None, dtype=torch.float32,
+                 device=None):
+        def z(d):
+            return torch.zeros((n_bank, d), dtype=dtype, device=device)
+
+        self.C = z(1)  # labels
+        self.F = z(d_common if d_fused is None else d_fused)
+        self.T, self.A, self.V = z(d_common), z(d_common), z(d_common)
+        self.valid = torch.arange(n_bank, device=device) < n_valid
+
+    def tensors(self) -> List[torch.Tensor]:
+        return [getattr(self, f) for f in self.FIELDS]
+
+    def zero_(self) -> "FeatureBank":
+        for t in self.tensors():
+            t.zero_()
+        return self
+
+    @torch.no_grad()
+    def write(self, offset: int, labels, F, T, A, V,
+              ok: Optional[torch.Tensor] = None) -> None:
+        """Rows [offset, offset + bs) <- this batch; with ``ok`` (a device
+        bool) false, the rows keep what they held."""
+        new = (labels.reshape(-1, 1), F, T, A, V)
+        for bank, x in zip(self.tensors(), new):
+            rows = bank[offset:offset + x.shape[0]]
+            x = x.detach().to(bank.dtype)
+            rows.copy_(x if ok is None else torch.where(ok, x, rows))
+
+
+def sample_all_knn(generator: Optional[torch.Generator], bank: FeatureBank,
+                   batch_size: int, k_neighbor: int, radius: float,
+                   anchors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Dict[str, Tuple]:
+    """The six conditional-product sample triples of one loss evaluation
+    (ref: Model.py:323-339): I(x;y|z) samples are (x_bank, y_bank, z_bank).
+    ``anchors`` may give each estimator's anchor rows (the tests inject the
+    JAX package's)."""
+    triples = {
+        "ac_t": (bank.A, bank.C, bank.T),
+        "ta_c": (bank.T, bank.A, bank.C),
+        "vc_t": (bank.V, bank.C, bank.T),
+        "tv_c": (bank.T, bank.V, bank.C),
+        "tc_a": (bank.T, bank.C, bank.A),
+        "tc_v": (bank.T, bank.C, bank.V),
+    }
+    return {
+        name: prod_knn_sample(
+            generator, *triples[name], batch_size=batch_size,
+            k_neighbor=k_neighbor, radius=radius, valid=bank.valid,
+            anchor_idx=None if anchors is None else anchors[name])
+        for name in CMI_KEYS
+    }
+
+
+def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Device bool: every element of every tensor is finite."""
+    return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+
+
+def _guarded_step(enabled: bool, optimizer: ChainOptimizer, loss, grads
+                  ) -> Optional[torch.Tensor]:
+    """One optimizer step under the ``--skip_nonfinite_updates``
+    containment: when it is enabled and the loss or any gradient is NaN or
+    Inf, parameters and optimizer state keep their old values. The loss is
+    checked as well as the gradients, because a NaN target gives a NaN loss
+    with finite garbage gradients (abs and max swallow NaN in their
+    backward). Returns the device flag ``ok``, or None when not enabled."""
+    if not enabled:
+        optimizer.step(grads)
+        return None
+    ok = torch.isfinite(loss) & _all_finite(grads)
+    live = list(optimizer.params) + optimizer.state()
+    with torch.no_grad():
+        old = [t.detach().clone() for t in live]
+        optimizer.step(grads)
+        for t, o in zip(live, old):
+            t.copy_(torch.where(ok, t, o))
+    return ok
+
+
+def _grads(loss, params: List[nn.Parameter]) -> List[torch.Tensor]:
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)]
+
+
+def to_device(batch: Dict, labels: np.ndarray, task: str, device
+              ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Host batch -> the model's inputs, the sample mask and the labels on
+    the device (int64 labels for classification, float32 otherwise)."""
+    model_batch = {k: torch.from_numpy(np.asarray(batch[k])).to(device)
+                   for k in MODEL_INPUTS + ("sample_mask",) if k in batch}
+    labels = np.asarray(labels)
+    labels = labels.astype(np.int64 if task == "classification" else np.float32)
+    return model_batch, torch.from_numpy(labels).to(device)
+
+
+def _forward(model: MimrlModel, batch: Dict[str, torch.Tensor], generator):
+    return model(*(batch[k] for k in MODEL_INPUTS), return_features=True,
+                 generator=generator)
+
+
+def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
+                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+                knn: Optional[Dict[str, Tuple]],
+                generator: Optional[torch.Generator]):
+    """The model's forward and the stage-2 objective: the task loss, plus
+    ``sum(coef2 * mi_loss)`` when ``knn`` holds the bank's samples (None:
+    no MI, zero telemetry). Returns (loss, the 8 MI channels detached,
+    output, [F_F, T_F, A_F, V_F])."""
+    out, *feats = _forward(model, batch, generator)
+    total = compute_task_loss(cfg.loss, cfg.num_class, out, labels,
+                              batch.get("sample_mask"))
+    if knn is not None:
+        mis, mi_losses = model.compute_vmi_loss_stage2(labels, *feats, knn)
+        total = total + sum(l * c for l, c in zip(
+            mi_losses, cfg.loss_mi_coefficient2))
+        mis = torch.stack(mis).detach()
+    else:
+        mis = torch.zeros(8, dtype=torch.float32, device=out.device)
+    return total, mis, out, feats
+
+
+def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
+                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+                bank: FeatureBank, generator: Optional[torch.Generator],
+                anchors: Optional[Dict[str, torch.Tensor]] = None):
+    """Stage 1: one update of the estimator parameters. Returns (loss,
+    the 11 MI estimates) as device tensors."""
+    model.train()
+    with torch.no_grad():
+        _, *feats = _forward(model, batch, generator)
+    knn = sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
+                         cfg.radius, anchors)
+    mis, losses = model.compute_vmi_loss_stage1(labels, *feats, knn)
+    total = sum(l * c for l, c in zip(losses, cfg.loss_mi_coefficient1))
+    grads = _grads(total, opt_vmi.params)
+    _guarded_step(cfg.skip_nonfinite_updates, opt_vmi, total.detach(), grads)
+    return total.detach(), torch.stack(mis).detach()
+
+
+def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
+               batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+               bank: FeatureBank, new_bank: FeatureBank, offset: int,
+               generator: Optional[torch.Generator], use_mi: bool,
+               anchors: Optional[Dict[str, torch.Tensor]] = None):
+    """Stage 2: one update of the main and BERT parameters, and the
+    batch's features written to ``new_bank`` at ``offset``. Returns (loss,
+    the 8 MI channels, the model's output) as device tensors."""
+    model.train()
+    knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
+                          cfg.radius, anchors) if use_mi else None)
+    total, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn,
+                                         generator)
+    grads = _grads(total, opt_main.params)
+    ok = _guarded_step(cfg.skip_nonfinite_updates, opt_main, total.detach(),
+                       grads)
+    if ok is not None:
+        # NaN features in the bank would poison every later kNN sample
+        ok = ok & _all_finite(feats + [labels.float()])
+    new_bank.write(offset, labels, *feats, ok=ok)
+    return total.detach(), mis, out.detach()
+
+
+@torch.no_grad()
+def eval_step(model: MimrlModel, cfg: MimrlConfig,
+              batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+              bank: FeatureBank, generator: Optional[torch.Generator],
+              use_mi: bool,
+              anchors: Optional[Dict[str, torch.Tensor]] = None):
+    """Deterministic forward and the stage-2 objective. Returns (loss, the
+    8 MI channels, output, (F_F, T_F, A_F, V_F))."""
+    model.eval()
+    knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
+                          cfg.radius, anchors) if use_mi else None)
+    loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn, None)
+    return loss, mis, out, tuple(feats)

@@ -62,9 +62,10 @@ def test_every_leaf_is_carried(params):
     model = _port()
     sd = state_dict_from_jax(params, model)
     assert set(sd) == set(model.state_dict())
-    kept = [v for p, v in _leaves(params) if not p[0].startswith(("vmi_", "vcmi_"))]
-    assert sum(v.size for v in kept) == sum(t.numel() for t in sd.values())
-    assert any(p[0].startswith("vmi_") for p, _ in _leaves(params))
+    # every leaf of init_full's tree, the estimator groups included
+    assert sum(v.size for _, v in _leaves(params)) == sum(
+        t.numel() for t in sd.values())
+    assert sum(k.startswith(("vmi_", "vcmi_")) for k in sd) == 5 * 16 + 6 * 8
     assert all(t.dtype == torch.float32 and t.is_contiguous()
                for t in sd.values())
 
@@ -78,6 +79,25 @@ def test_refuses_a_mismatched_tree(params, fault):
         del p["rnn_v"]["l1_bwd"]
     else:
         p["ln_a"]["scale"] = np.ones((D_C + 1,), np.float32)
+    with pytest.raises(ValueError):
+        state_dict_from_jax(p, _port())
+
+
+def test_estimator_groups_are_carried(params):
+    sd = state_dict_from_jax(params, _port())
+    g = params["vmi_estimator_t_a"]["critic_model"]["MLP_g"]["fc_0"]
+    np.testing.assert_array_equal(
+        sd["vmi_estimator_t_a.critic_model.MLP_g.fc_0.weight"].numpy().T,
+        g["kernel"])
+    c = params["vcmi_estimator_tc_v"]["classifier"]["fc_out"]
+    np.testing.assert_array_equal(
+        sd["vcmi_estimator_tc_v.classifier.fc_out.weight"].numpy().T,
+        c["kernel"])
+    np.testing.assert_array_equal(
+        sd["vcmi_estimator_tc_v.classifier.fc_out.bias"].numpy(), c["bias"])
+    p = copy.deepcopy(params)
+    p["vmi_estimator_f_t"]["critic_model"]["MLP_x"] = {
+        "fc_in": {"kernel": np.zeros((2, 2), np.float32)}}
     with pytest.raises(ValueError):
         state_dict_from_jax(p, _port())
 

@@ -44,12 +44,15 @@ README_MOSI = (
 
 @pytest.mark.parametrize("argv", [[], README_MOSI])
 def test_config_matches_jax(argv):
-    want = jconfig.parse_args(argv)
-    got = config.parse_args(argv)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
-    loaded = config.MimrlConfig.from_json(want.to_json())
-    assert dataclasses.asdict(loaded) == dataclasses.asdict(want)
+    want = dataclasses.asdict(jconfig.parse_args(argv))
+    got = dataclasses.asdict(config.parse_args(argv))
+    # the port's one addition: where its entry points run (None = CUDA)
+    assert got.pop("device") is None
+    assert got == want
+    loaded = config.MimrlConfig.from_json(jconfig.parse_args(argv).to_json())
+    assert dataclasses.asdict(loaded) == dict(want, device=None)
     assert loaded.replace(seed=3).seed == 3
+    assert config.parse_args(argv + ["--device", "cpu"]).device == "cpu"
 
 
 @pytest.mark.parametrize("bad", [dict(encoders="rnn"), dict(flash_attn="yes"),

@@ -60,7 +60,13 @@ def _port_model(jparams, d_outs=(4, 2, D_C), compose=("mean", "mean"),
                    bert_config=dataclasses.replace(BertConfig.tiny(),
                                                    flash_attn=flash),
                    **_model_kw(d_outs))
-    m.load_state_dict(state_dict_from_jax(jparams, m), strict=True)
+    # a forward-only JAX tree carries no estimator bank; nothing else may
+    # be missing
+    missing, unexpected = m.load_state_dict(state_dict_from_jax(jparams, m),
+                                            strict=False)
+    assert not unexpected
+    assert all(k.startswith(("vmi_", "vcmi_")) for k in missing)
+    assert not missing or not any(k.startswith("vmi_") for k in jparams)
     return m.eval()
 
 
