@@ -5,16 +5,23 @@
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
-1. build   ``nvcc`` builds every kernel of the port from ``ops/csrc``,
-           one process per source and input type, all started together.
+1. build   ``nvcc`` builds every kernel of the port from ``ops/csrc``
+           (four sources, six libraries), one process per source and
+           variant, all started together.
 2. kernel  each kernel against its plain PyTorch version on the card, at
            the canonical shape, at T 150 and at ragged small shapes, with
            random key padding and a fully padded row: the attention forward
            without and with dropout (same Philox mask on both sides, keep
            rate, same seed same bits), the attention backward without and
-           with dropout; times with CUDA events (median of 25 after 5
-           warm-up runs) beside the plain version, the one-call PyTorch
-           equivalent (timed only) and the bound.
+           with dropout; the fused CubeMLP axis MLP at the six shapes of the
+           canonical encoder with and without bias and at one ragged shape
+           per axis; the int8 GEMM at the four forward shapes of a BERT
+           layer (bf16 out), the four weight-gradient shapes (float32 out)
+           and one shape ragged in M, N and K, bit for bit; times with CUDA
+           events (median of 25 after 5 warm-up runs; the two short
+           kernels with 10-20 queued launches per pair of events, and by
+           the profiler's kernel records as well) beside the plain version,
+           the one-call PyTorch equivalent (timed only) and the bound.
 3. serve   ``Predictor`` on the canonical MOSI config at full width
            (README quick start: bs 128, time_len 100, BERT-base
            12 x 768 x 12 heads, bi-GRU, CubeMLP 50-3-128=10-3-128, bf16)
@@ -22,7 +29,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            synthetic DeclareLab test split of 5 batches whose last one is
            cycle-padded. The attention kernel must launch 12 times per
            batch. The float32 forward through the kernel must match the
-           float32 forward through the plain attention route.
+           float32 forward through the plain attention route. The same
+           checkpoint is then served with ``use_pallas`` and ``quant int8``
+           set: 12 attention, 6 axis-MLP and 48 int8 GEMM launches per batch.
 4. train   ``mimrl_tpu_torch.cli.main`` trains the same config for 2
            epochs (3 train batches of 128, 1 valid, 1 test): epoch 0 is
            stage 2 without MI, epoch 1 is stage 1 (2 critic passes) and
@@ -34,6 +43,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            loss, and in every parameter's gradient the same step with the
            backward kernel's plain version in its place, and
            ``Predictor`` must score the checkpoint the run wrote.
+5. quant   the same run again with ``--use_pallas --quant int8``: launches
+           of all four kernels per epoch (a train step 12 + 12 attention,
+           6 axis-MLP, 96 int8 GEMM; a critic step or an eval batch
+           12 + 0, 6, 48), finite losses and MI channels, ``Predictor`` on
+           its checkpoint with the flags it recorded; one float32 train
+           step through the two new kernels against the same step through
+           their plain versions (bit-equal where only the int8 kernel is
+           exchanged); one bf16 train step each in ``int8_fwd`` (48 int8
+           launches) and ``int8_all`` (144).
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -56,7 +74,8 @@ SERVE_SHAPE = (BATCH, N_HEADS, TIME_LEN, HEAD_DIM)
 AVEC_SHAPE = (BATCH, N_HEADS, 150, HEAD_DIM)
 N_TEST = 4 * BATCH + 57  # 5 batches; the last one is cycle-padded
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # tensor cores; FP32 pipes
+# tensor cores (bf16, int8); FP32 pipes
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # kernel vs plain: float32 differs by summation order and the online
 # softmax; bf16 additionally by where P is rounded (unnormalised in the
 # kernel, normalised in the plain version), one bf16 step is 2^-8
@@ -83,6 +102,49 @@ TRAIN_F32_LOSS_TOL = 1e-4
 TRAIN_F32_GRAD_TOL = 1e-4
 GRAD_FLOOR = 1e-4
 N_TRAIN = 3 * BATCH  # 3 train batches; 1 valid and 1 test batch
+QUANT_FLAGS = ["--use_pallas", "--quant", "int8"]
+# the axis-MLP kernel vs its plain version (einsums), relative to the
+# largest magnitude of the plain result: both float32; they differ by
+# summation order, FMA contraction and the last bits of erf
+AXIS_MLP_TOL = 2e-5
+# the int8 kernel vs its plain version: int32 sums are exact and both sides
+# compute (float(acc) * sa) * sb in float32 and round once, so 0 in
+# float32 and in bf16
+INT8_TOL = 0.0
+# one float32 train step with the flags, kernels vs plain versions. With the
+# int8 kernel alone exchanged the step must not change at all (but for the
+# embedding tables, whose gradient is summed by atomics in an order that
+# changes from run to run: EMBEDDING_GRAD_TOL of their largest gradient).
+# With the axis-MLP kernel alone exchanged the forward changes in its last
+# bits (AXIS_MLP_TOL per launch); the loss is held to TRAIN_F32_LOSS_TOL.
+# The gradients are held twice. Under --use_pallas alone, where nothing
+# but float32 arithmetic lies between the kernel and a gradient, to
+# AXIS_MLP_GRAD_TOL of the parameter's largest gradient (floor as above):
+# that is the kernel's own tolerance, times the amplification at random
+# initialisation that TRAIN_F32_GRAD_TOL's note describes. Under
+# --use_pallas --quant int8 to QUANT_GRAD_TOL: there the gradient that
+# flows back into BERT is quantised to int8 for every weight gradient, a
+# last-bit change moves single values across a rounding boundary, and one
+# int8 step is 1/127 of a column's largest value.
+AXIS_MLP_GRAD_TOL = 1e-3
+QUANT_GRAD_TOL = 5e-2
+EMBEDDING_GRAD_TOL = 1e-5
+KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd",
+                "cubemlp_axis_mlp", "int8_matmul")
+# [bs, L, K, D], axis, d_hidden, d_out of the six AxisMLPs of the canonical
+# encoder (50-3-128=10-3-128 on [128, 100, 3, 128])
+AXIS_MLP_SHAPES = [
+    ((BATCH, 100, 3, 128), 1, 50, 50), ((BATCH, 50, 3, 128), 2, 3, 3),
+    ((BATCH, 50, 3, 128), 3, 128, 128), ((BATCH, 50, 3, 128), 1, 10, 10),
+    ((BATCH, 10, 3, 128), 2, 3, 3), ((BATCH, 10, 3, 128), 3, 128, 128)]
+AXIS_MLP_RAGGED = [((3, 37, 3, 50), 1, 33, 41), ((3, 7, 5, 70), 2, 9, 2),
+                   ((3, 7, 5, 70), 3, 45, 130)]
+AXIS_MLP_MAIN = AXIS_MLP_SHAPES[2]  # the D mix of block 0 heads the record
+# (K, N) of a BERT-base layer's four dense products; M = bs * time_len
+ROWS = BATCH * TIME_LEN
+INT8_LAYER_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
+INT8_MAIN = (ROWS, 768, 3072)
+INT8_RAGGED = (333, 1000, 77)
 
 CANONICAL_MOSI = [
     "--dataset", "mosi_Dec", "--log_scale", "0-0-0", "--normalize", "0-1-1",
@@ -117,8 +179,52 @@ def require(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def cuda_ms(fn, warmup: int = 5, reps: int = 25) -> float:
-    """Median device time of fn() in ms, CUDA events around each run."""
+def kernel_wrappers():
+    """The four wrappers that count their launches, in KERNEL_NAMES' order."""
+    from mimrl_tpu_torch.ops.cubemlp_kernel import fused_axis_mlp
+    from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul
+
+    return flash_attention, flash_attention_bwd, fused_axis_mlp, int8_matmul
+
+
+def counts():
+    return tuple(w.launches for w in kernel_wrappers())
+
+
+def zero_counts() -> None:
+    for w in kernel_wrappers():
+        w.launches = 0
+
+
+def sub(c1, c0):
+    return tuple(a - b for a, b in zip(c1, c0))
+
+
+def step_launches(kind: str, use_pallas: bool, quant: str, n: int = 1):
+    """Launches of the four kernels in ``n`` steps of one kind ('train',
+    'critic' or 'eval') at the canonical depth: 12 attention forwards, in a
+    train step 12 attention backwards; 6 axis MLPs (forward only: their
+    backward is einsums); 4 int8 products per layer and forward, and in a
+    train step as many again for dw ('int8') or twice as many for dw and
+    dx ('int8_all')."""
+    train = kind == "train"
+    int8 = 0 if quant == "none" else 48 + (
+        {"int8_fwd": 0, "int8": 48, "int8_all": 96}[quant] if train else 0)
+    return (12 * n, 12 * n if train else 0, 6 * n if use_pallas else 0,
+            int8 * n)
+
+
+def add(*cs):
+    return tuple(sum(xs) for xs in zip(*cs))
+
+
+def cuda_ms(fn, warmup: int = 5, reps: int = 25, inner: int = 1) -> float:
+    """Median device time of fn() in ms, CUDA events around each run of
+    ``inner`` calls. A kernel shorter than its wrapper's time on the host
+    is timed with ``inner`` > 1: the launches queue up behind the first and
+    the events see the device's time per call, not the host's."""
     import torch
 
     for _ in range(warmup):
@@ -129,11 +235,32 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 25) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def profiler_ms(fn, kernel_name: str, reps: int = 10):
+    """Median device time in ms of the kernel whose name contains
+    ``kernel_name`` over ``reps`` calls of fn(), from ``torch.profiler``'s
+    kernel records: the kernel alone, whatever the host takes to launch it.
+    None where the profiler gives no device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [getattr(e, "device_time", getattr(e, "cuda_time", 0.0))
+             for e in prof.events() if kernel_name in e.name]
+    times = [t for t in times if t > 0]
+    return 1e-3 * statistics.median(times) if times else None
 
 
 def attention_inputs(bs, nh, t, hd, dtype, seed):
@@ -300,6 +427,188 @@ def sdpa_backward_ms(q, k, v, mask, d_out) -> float:
                                                retain_graph=True))
 
 
+def axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias, seed):
+    """x and the parameters of one AxisMLP on the card from a seeded CPU
+    generator; the weights enter as an ``nn.Linear``'s do, as transposed
+    views of ``[out, in]`` tensors."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    d_in = shape[axis]
+    x = torch.randn(shape, generator=g).cuda()
+    fc1 = (torch.randn(d_hidden, d_in, generator=g) / d_in ** 0.5).cuda()
+    fc2 = (torch.randn(d_out, d_hidden, generator=g) / d_hidden ** 0.5).cuda()
+    b1 = torch.randn(d_hidden, generator=g).cuda() if use_bias else None
+    b2 = torch.randn(d_out, generator=g).cuda() if use_bias else None
+    return x, fc1.t(), fc2.t(), b1, b2
+
+
+def axis_mlp_bound(x, w1, w2, b1, b2, axis):
+    """(ms, 'bytes' | 'operations'): x, the weights and the biases read
+    once and y written once at the HBM rate, against
+    2 * positions * (d_in * d_hidden + d_hidden * d_out) float32 operations
+    at the FP32 rate."""
+    d_in, d_hidden = w1.shape
+    d_out = w2.shape[1]
+    positions = x.numel() // d_in
+    floats = (x.numel() + positions * d_out + w1.numel() + w2.numel()
+              + (0 if b1 is None else b1.numel() + b2.numel()))
+    t_bytes = 4 * floats / PEAK_BYTES_PER_S
+    t_ops = 2 * positions * (d_in * d_hidden + d_hidden * d_out) / PEAK_OPS["float32"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def axis_mlp_phase():
+    """The fused axis-MLP kernel against its plain version (float32, the
+    only type the encoder's input has): the six canonical shapes with and
+    without bias, timed, and one ragged shape per axis. Returns the record
+    for the kernels line."""
+    import torch
+
+    from mimrl_tpu_torch.ops.cubemlp_kernel import (fused_axis_mlp,
+                                                    fused_axis_mlp_plain)
+
+    main, per_shape, worst = None, [], 0.0
+    cases = [(c, True) for c in AXIS_MLP_SHAPES] + [(c, False) for c in AXIS_MLP_RAGGED]
+    for (shape, axis, d_hidden, d_out), timed in cases:
+        rec = dict(phase="kernel", kernel="cubemlp_axis_mlp", shape=list(shape),
+                   axis=axis, d_hidden=d_hidden, d_out=d_out, dtype="float32",
+                   activation="gelu", tol=AXIS_MLP_TOL)
+        for use_bias in (True, False):
+            args = axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias,
+                                   seed=sum(shape) + axis)
+            got = fused_axis_mlp(*args, axis, "gelu")
+            want = fused_axis_mlp_plain(*args, axis, "gelu")
+            torch.cuda.synchronize()
+            require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+                    f"cubemlp_axis_mlp {shape} axis {axis}: shape or non-finite")
+            err = rel_err(got, want)
+            require(err <= AXIS_MLP_TOL,
+                    f"cubemlp_axis_mlp {shape} axis {axis} bias {use_bias}: "
+                    f"relative error {err} > {AXIS_MLP_TOL}")
+            key = "bias" if use_bias else "no_bias"
+            rec[f"max_rel_err_{key}"] = err
+            rec[f"max_abs_err_{key}"] = (got - want).abs().max().item()
+            if timed:
+                rec[f"ms_{key}"] = cuda_ms(
+                    lambda: fused_axis_mlp(*args, axis, "gelu"), inner=20)
+            if timed and use_bias:
+                rec["ms_one_launch"] = cuda_ms(
+                    lambda: fused_axis_mlp(*args, axis, "gelu"))
+                rec["profiler_ms"] = profiler_ms(
+                    lambda: fused_axis_mlp(*args, axis, "gelu"),
+                    "axis_mlp_kernel")
+                rec["plain_ms"] = cuda_ms(
+                    lambda: fused_axis_mlp_plain(*args, axis, "gelu"), inner=20)
+                rec["bound_ms"], rec["bound_by"] = axis_mlp_bound(*args, axis)
+        if timed:
+            # canonical: the model's AxisMLPs have biases
+            rec.update(ms=rec["ms_bias"], max_abs_err=rec["max_abs_err_bias"],
+                       library_ms=None)  # no single PyTorch call computes it
+            worst = max(worst, rec["max_abs_err_bias"], rec["max_abs_err_no_bias"])
+            per_shape.append({k: rec[k] for k in (
+                "shape", "axis", "d_hidden", "d_out", "ms", "ms_no_bias",
+                "ms_one_launch", "profiler_ms", "plain_ms", "bound_ms",
+                "bound_by", "max_abs_err")})
+            if (shape, axis, d_hidden, d_out) == AXIS_MLP_MAIN:
+                main = dict(rec)
+        emit(**rec)
+    main.update(max_abs_err=worst, shapes=per_shape,
+                ms_six_shapes=sum(r["ms"] for r in per_shape),
+                profiler_ms_six_shapes=(
+                    sum(r["profiler_ms"] for r in per_shape)
+                    if all(r["profiler_ms"] for r in per_shape) else None),
+                plain_ms_six_shapes=sum(r["plain_ms"] for r in per_shape),
+                bound_ms_six_shapes=sum(r["bound_ms"] for r in per_shape))
+    return main
+
+
+def int8_inputs(m, k, n, seed):
+    """Random int8 operands in the layouts the forward hands the kernel (a
+    row-major, b the transposed view of a row-major [N, K]) and positive
+    float32 scales, on the card."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8).cuda()
+    bt = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8).cuda()
+    sa = (torch.rand(m, 1, generator=g) * 0.02 + 0.001).cuda()
+    sb = (torch.rand(1, n, generator=g) * 0.02 + 0.001).cuda()
+    return a, bt.t(), sa, sb
+
+
+def int8_bound(m, k, n, out_dtype):
+    """(ms, 'bytes' | 'operations'): a, b, both scale vectors read once and
+    out written once at the HBM rate, against 2 * M * N * K int8 operations
+    at the tensor cores' int8 rate."""
+    nbytes = m * k + k * n + 4 * (m + n) + m * n * out_dtype.itemsize
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, 2 * m * n * k / PEAK_OPS["int8"]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_phase():
+    """The int8 GEMM kernel against its plain version, bit for bit: the four
+    forward shapes of a BERT-base layer at M = 12800 with bf16 output, the
+    four weight-gradient shapes (M = K_fwd, K = 12800, N = N_fwd) with
+    float32 output, and one shape ragged in M, N and K with both outputs.
+    The library column is ``torch._int_mm`` plus the epilogue in tensor
+    ops, timed only. Returns the record for the kernels line."""
+    import torch
+
+    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    cases = [("forward", (ROWS, k, n), torch.bfloat16) for k, n in INT8_LAYER_SHAPES]
+    cases += [("dw", (k, ROWS, n), torch.float32) for k, n in INT8_LAYER_SHAPES]
+    cases += [("ragged", INT8_RAGGED, torch.float32),
+              ("ragged", INT8_RAGGED, torch.bfloat16)]
+    main, per_shape, worst = None, [], 0.0
+    for role, (m, k, n), out_dtype in cases:
+        name = str(out_dtype).replace("torch.", "")
+        a, b, sa, sb = int8_inputs(m, k, n, seed=m + k + n)
+        got = int8_matmul(a, b, sa, sb, out_dtype)
+        want = int8_matmul_plain(a, b, sa, sb, out_dtype)
+        torch.cuda.synchronize()
+        require(got.shape == (m, n) and got.dtype == out_dtype
+                and bool(torch.isfinite(got).all()),
+                f"int8_matmul {role} {(m, k, n)} {name}: shape, type or non-finite")
+        err = (got.float() - want.float()).abs().max().item()
+        require(torch.equal(got, want) and err <= INT8_TOL,
+                f"int8_matmul {role} {(m, k, n)} {name}: differs from the "
+                f"plain version by {err}")
+        rec = dict(phase="kernel", kernel="int8_matmul", role=role,
+                   shape=[m, k, n], out_dtype=name, max_abs_err=err,
+                   bit_equal=True, tol=INT8_TOL)
+        if role != "ragged":
+            rec["ms"] = cuda_ms(lambda: int8_matmul(a, b, sa, sb, out_dtype),
+                                inner=10)
+            rec["ms_one_launch"] = cuda_ms(
+                lambda: int8_matmul(a, b, sa, sb, out_dtype))
+            rec["profiler_ms"] = profiler_ms(
+                lambda: int8_matmul(a, b, sa, sb, out_dtype),
+                "int8_matmul_kernel")
+            rec["plain_ms"] = cuda_ms(
+                lambda: int8_matmul_plain(a, b, sa, sb, out_dtype), 2, 5)
+            rec["library_ms"] = cuda_ms(lambda: (
+                torch._int_mm(a, b).float() * sa * sb).to(out_dtype), inner=10)
+            rec["int_mm_only_ms"] = cuda_ms(lambda: torch._int_mm(a, b),
+                                            inner=10)
+            rec["bound_ms"], rec["bound_by"] = int8_bound(m, k, n, out_dtype)
+            rec["tops"] = 2 * m * n * k / (1e-3 * rec["ms"]) / 1e12
+            worst = max(worst, err)
+            per_shape.append({key: rec[key] for key in (
+                "role", "shape", "out_dtype", "ms", "ms_one_launch",
+                "profiler_ms", "plain_ms",
+                "library_ms", "int_mm_only_ms", "bound_ms", "bound_by", "tops",
+                "max_abs_err")})
+            if (m, k, n) == INT8_MAIN and role == "forward":
+                main = dict(rec)
+        emit(**rec)
+    main.update(max_abs_err=worst, shapes=per_shape, dtype="int8 -> bfloat16",
+                ms_forward_layer=sum(r["ms"] for r in per_shape if r["role"] == "forward"),
+                ms_dw_layer=sum(r["ms"] for r in per_shape if r["role"] == "dw"))
+    return main
+
+
 def write_run(root: str):
     """Synthetic Dec data, the canonical config and seeded random weights
     saved as a port run directory; returns the task_dir."""
@@ -329,17 +638,17 @@ def write_run(root: str):
     return task
 
 
-def serve_phase(task: str):
-    """Predictor end to end; returns the (forward, backward) launches of
-    the counted run."""
+def timed_serve(task: str, step: str, overrides: dict, per_batch):
+    """``Predictor`` over the test split, every batch timed on the host
+    clock with a synchronise on each side; the four launch counts are set
+    to 0 just before the counted run and read just after, and must be
+    ``per_batch`` times the number of batches. Returns (predictor, counts)."""
     import numpy as np
     import torch
 
     from mimrl_tpu_torch.eval.predict import Predictor
-    from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
 
-    predictor = Predictor(task)  # CUDA, bf16, flash_attn 'auto' -> kernel
+    predictor = Predictor(task, config_overrides=overrides)  # CUDA, bf16
     n_batches = len(predictor.test_loader)
     require(n_batches == 5, f"expected 5 test batches, got {n_batches}")
     predictor.evaluate_split("test")  # warm-up: cuBLAS / cuDNN set-up
@@ -357,27 +666,36 @@ def serve_phase(task: str):
 
     predictor.forward = timed_forward
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = flash_attention_bwd.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     metrics = predictor.evaluate_split("test")
     wall = time.perf_counter() - t0
-    launches = flash_attention.launches
-    bwd_launches = flash_attention_bwd.launches
+    launches = counts()
     predictor.forward = forward
-    require(launches == 12 * n_batches,
-            f"flash_attention_fwd launched {launches} times, want 12 x {n_batches}")
-    require(bwd_launches == 0,
-            f"flash_attention_bwd launched {bwd_launches} times while serving")
+    want = tuple(n * n_batches for n in per_batch)
+    require(launches == want,
+            f"{step}: launches {dict(zip(KERNEL_NAMES, launches))}, want {want}")
     require(all(np.isfinite(v) for v in metrics.values()),
             f"non-finite metrics {metrics}")
-    emit(phase="serve", step="predictor_bf16", metrics=metrics,
-         batches=n_batches, kernel_launches=launches,
-         bwd_kernel_launches=bwd_launches,
+    emit(phase="serve", step=step, metrics=metrics, overrides=overrides,
+         batches=n_batches, launches=dict(zip(KERNEL_NAMES, launches)),
          batch_ms_median=statistics.median(batch_ms), batch_ms=batch_ms,
          samples_per_s=N_TEST / wall, evaluate_s=wall,
          forward_samples_per_s=BATCH / (1e-3 * statistics.median(batch_ms)),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return predictor, launches
 
+
+def serve_phase(task: str):
+    """Predictor end to end, without and with the two flags; returns the
+    launch counts of the two counted runs."""
+    import numpy as np
+
+    from mimrl_tpu_torch.eval.predict import Predictor
+
+    # flash_attn 'auto' -> the attention kernel; no other kernel on this path
+    predictor, launches = timed_serve(task, "predictor_bf16", {},
+                                      step_launches("eval", False, "none"))
     preds = {"bf16_kernel": predictor.predict_loader(predictor.test_loader)[0]}
     for name, overrides in (("f32_kernel", {"compute_dtype": "float32"}),
                             ("f32_plain", {"compute_dtype": "float32",
@@ -395,11 +713,24 @@ def serve_phase(task: str):
          pred_abs_max=float(np.abs(preds["f32_plain"]).max()))
     require(f32_diff <= SERVE_F32_TOL,
             f"float32 kernel route vs plain route: {f32_diff} > {SERVE_F32_TOL}")
-    breakdown(predictor)
-    return launches, bwd_launches
+    breakdown(predictor, "breakdown_ms")
+    del predictor
+
+    # the same checkpoint with both flags: all of the serving path's kernels
+    flags = {"use_pallas": True, "quant": "int8"}
+    predictor, quant_launches = timed_serve(
+        task, "predictor_bf16_quant", flags, step_launches("eval", True, "int8"))
+    quant = predictor.predict_loader(predictor.test_loader)[0]
+    require(quant.shape == (N_TEST, 1) and bool(np.isfinite(quant).all()),
+            "quantised predictions: shape or non-finite values")
+    emit(phase="serve", step="quant_vs_bf16",
+         max_abs_diff=float(np.abs(quant - preds["bf16_kernel"]).max()),
+         pred_abs_max=float(np.abs(preds["bf16_kernel"]).max()))
+    breakdown(predictor, "breakdown_ms_quant")
+    return launches, quant_launches
 
 
-def breakdown(predictor) -> None:
+def breakdown(predictor, step: str) -> None:
     """Device time of the forward's parts on one bf16 batch (CUDA events;
     median of 25): BERT, the two bi-GRUs, CubeMLP, and the 12 attention
     kernel calls inside BERT."""
@@ -428,28 +759,36 @@ def breakdown(predictor) -> None:
             bigru_a_v=cuda_ms(lambda: (m.rnn_a(a, la), m.rnn_v(v, lv))),
             cubemlp=cuda_ms(lambda: m.mlp_encoder(x)),
         )
-    emit(phase="serve", step="breakdown_ms", **parts)
+    emit(phase="serve", step=step, **parts)
 
 
-def train_phase(root: str):
-    """``cli.main`` for 2 epochs at full width and depth; returns the
-    (forward, backward) launches of the counted run."""
+def train_phase(root: str, name: str = "train", use_pallas: bool = False,
+                quant: str = "none"):
+    """``cli.main`` for 2 epochs at full width and depth, without flags
+    (phase 'train') or with ``--use_pallas --quant <mode>`` (phase 'quant');
+    returns the four launch counts of the counted run."""
+    import os
+
     import numpy as np
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
     from mimrl_tpu_torch.data.synthetic import make_dec_fixture
     from mimrl_tpu_torch.eval.predict import Predictor
-    from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
-                                                     flash_attention_bwd)
     from mimrl_tpu_torch.train import steps
     from mimrl_tpu_torch.train.solver import Solver
 
     data = f"{root}/train_data"
-    make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
-                     d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
-    argv = CANONICAL_MOSI + CANONICAL_TRAIN + [
-        "--data_dir", data, "--task_dir", f"{root}/runs", "--task_name", "train"]
+    if not os.path.isdir(data):
+        make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
+                         d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
+    flags = (["--use_pallas"] if use_pallas else []) + (
+        ["--quant", quant] if quant != "none" else [])
+    argv = CANONICAL_MOSI + CANONICAL_TRAIN + flags + [
+        "--data_dir", data, "--task_dir", f"{root}/runs", "--task_name", name]
+
+    def launches_of(kind, n):
+        return step_launches(kind, use_pallas, quant, n)
 
     # The run goes through the normal entry; what it did is read off by
     # wrapping the Solver's methods and the step functions for its duration:
@@ -460,9 +799,6 @@ def train_phase(root: str):
     originals = dict(train=Solver.train, evaluate=Solver.evaluate,
                      solve=Solver.solve,
                      **{n: getattr(steps, n) for n in log["steps"]})
-
-    def counts():
-        return flash_attention.launches, flash_attention_bwd.launches
 
     def probe(model):
         """One tensor of each parameter group."""
@@ -476,17 +812,17 @@ def train_phase(root: str):
             vcmi="vcmi_estimator_ac_t.classifier.fc0.weight")
         return {k: sd[n].detach().clone() for k, n in names.items()}
 
-    def timed_step(name):
+    def timed_step(fn_name):
         def wrapper(model, *args, **kwargs):
-            before = probe(model) if name in log["moved"] else None
+            before = probe(model) if fn_name in log["moved"] else None
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = originals[name](model, *args, **kwargs)
+            out = originals[fn_name](model, *args, **kwargs)
             torch.cuda.synchronize()
-            log["steps"][name].append(1e3 * (time.perf_counter() - t0))
+            log["steps"][fn_name].append(1e3 * (time.perf_counter() - t0))
             if before is not None:
                 after = probe(model)
-                log["moved"][name].append(
+                log["moved"][fn_name].append(
                     {k: not torch.equal(before[k], after[k]) for k in before})
             return out
         return wrapper
@@ -498,8 +834,8 @@ def train_phase(root: str):
         c1 = counts()
         log["epochs"].append(dict(
             epoch=epoch, train_s=time.perf_counter() - t0,
-            train_fwd=c1[0] - c0[0], train_bwd=c1[1] - c0[1],
-            eval_fwd=0, eval_bwd=0, train_loss=result[0],
+            train_launches=sub(c1, c0), eval_launches=(0, 0, 0, 0),
+            train_loss=result[0],
             critic_loss=result[1], train_mis=result[2],
             stage1_pass_losses=list(self.stage1_pass_losses),
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9))
@@ -509,8 +845,8 @@ def train_phase(root: str):
         c0 = counts()
         result = originals["evaluate"](self, loader)
         c1 = counts()
-        log["epochs"][-1]["eval_fwd"] += c1[0] - c0[0]
-        log["epochs"][-1]["eval_bwd"] += c1[1] - c0[1]
+        log["epochs"][-1]["eval_launches"] = add(
+            log["epochs"][-1]["eval_launches"], sub(c1, c0))
         log["epochs"][-1].setdefault("eval_losses", []).append(result[0])
         log["epochs"][-1].setdefault("eval_mis", []).append(result[1])
         return result
@@ -519,10 +855,10 @@ def train_phase(root: str):
         log["solver"] = self
         return originals["solve"](self)
 
-    flash_attention.launches = flash_attention_bwd.launches = 0
+    zero_counts()
     Solver.train, Solver.evaluate, Solver.solve = train, evaluate, solve
-    for name in log["steps"]:
-        setattr(steps, name, timed_step(name))
+    for fn_name in log["steps"]:
+        setattr(steps, fn_name, timed_step(fn_name))
     try:
         t0 = time.perf_counter()
         scores = cli_main(argv)
@@ -530,19 +866,25 @@ def train_phase(root: str):
     finally:
         Solver.train, Solver.evaluate, Solver.solve = (
             originals["train"], originals["evaluate"], originals["solve"])
-        for name in log["steps"]:
-            setattr(steps, name, originals[name])
+        for fn_name in log["steps"]:
+            setattr(steps, fn_name, originals[fn_name])
     launches = counts()
 
-    # ---- launch counts, exactly, per epoch ----
+    # ---- launch counts of the four kernels, exactly, per epoch: epoch 0
+    # is 3 train steps, epoch 1 is 6 critic steps and 3 train steps; each
+    # epoch evaluates one valid and one test batch ----
     e0, e1 = log["epochs"]
-    want = [dict(train_fwd=36, train_bwd=36, eval_fwd=24, eval_bwd=0),
-            dict(train_fwd=72 + 36, train_bwd=36, eval_fwd=24, eval_bwd=0)]
+    want = [dict(train_launches=launches_of("train", 3),
+                 eval_launches=launches_of("eval", 2)),
+            dict(train_launches=add(launches_of("critic", 6),
+                                    launches_of("train", 3)),
+                 eval_launches=launches_of("eval", 2))]
     for e, w in zip((e0, e1), want):
         got = {k: e[k] for k in w}
-        require(got == w, f"epoch {e['epoch']} launches {got}, want {w}")
-    require(launches == (36 + 24 + 108 + 24, 72),
-            f"launches of the run {launches}")
+        require(got == w, f"{name}: epoch {e['epoch']} launches {got}, want "
+                f"{w} (order {KERNEL_NAMES})")
+    require(launches == add(*(w[k] for w in want for k in w)),
+            f"{name}: launches of the run {launches}")
 
     # ---- values ----
     for e in (e0, e1):
@@ -576,7 +918,8 @@ def train_phase(root: str):
     train_ms = log["steps"]["train_step"][3:]
     critic_ms = log["steps"]["critic_step"][3:]
     eval_ms = log["steps"]["eval_step"][2:]
-    emit(phase="train", step="solver_bf16", epochs=log["epochs"], wall_s=wall,
+    emit(phase=name, step="solver_bf16", flags=flags, epochs=log["epochs"],
+         wall_s=wall, kernel_order=KERNEL_NAMES,
          train_step_ms=train_ms, critic_step_ms=critic_ms, eval_batch_ms=eval_ms,
          train_step_ms_median=statistics.median(train_ms),
          critic_step_ms_median=statistics.median(critic_ms),
@@ -584,29 +927,34 @@ def train_phase(root: str):
          train_epoch_samples_per_s=N_TRAIN / e1["train_s"],
          stage2_samples_per_s=N_TRAIN / (1e-3 * sum(train_ms)),
          peak_mem_gb=max(e["peak_mem_gb"] for e in log["epochs"]),
-         fwd_launches=launches[0], bwd_launches=launches[1],
-         best_valid=scores[0])
+         launches=dict(zip(KERNEL_NAMES, launches)), best_valid=scores[0])
 
     solver = log["solver"]
-    train_breakdown(solver)
+    train_breakdown(solver, name)
     del solver
     log["solver"] = None
     torch.cuda.empty_cache()
 
-    # ---- the run's best_valid slot serves ----
-    predictor = Predictor(f"{root}/runs/train")
+    # ---- the run's best_valid slot serves, with the flags the run's
+    # config.json recorded (outside the counted run) ----
+    predictor = Predictor(f"{root}/runs/{name}")
+    require(predictor.cfg.use_pallas == use_pallas and predictor.cfg.quant == quant,
+            f"{name}: the run's config lost its flags")
+    c0 = counts()
     metrics = predictor.evaluate_split("test")
+    served = sub(counts(), c0)
+    require(served == launches_of("eval", 1),
+            f"{name}: Predictor launched {served} on one batch")
     require(all(np.isfinite(v) for v in metrics.values()),
             f"non-finite metrics of the trained checkpoint {metrics}")
-    emit(phase="train", step="predictor_on_best_valid", metrics=metrics)
+    emit(phase=name, step="predictor_on_best_valid", metrics=metrics,
+         launches=dict(zip(KERNEL_NAMES, served)))
     del predictor
     torch.cuda.empty_cache()
-
-    train_route_check(argv)
-    return launches
+    return launches, argv
 
 
-def train_breakdown(solver) -> None:
+def train_breakdown(solver, name: str) -> None:
     """Device time of one bf16 ``train_step`` with MI and of its parts
     (CUDA events; median of 10 after 2 warm-up runs): forward, backward,
     optimizer; and the 12 + 12 attention launches at the step's shape."""
@@ -656,11 +1004,11 @@ def train_breakdown(solver) -> None:
         attention_bwd_kernel_x12=12 * cuda_ms(
             lambda: flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P)),
     )
-    emit(phase="train", step="breakdown_ms", **parts)
-    train_profile(solver, mb, labels)
+    emit(phase=name, step="breakdown_ms", **parts)
+    train_profile(solver, mb, labels, name)
 
 
-def train_profile(solver, mb, labels) -> None:
+def train_profile(solver, mb, labels, name: str) -> None:
     """torch.profiler over three bf16 train steps: device time by kernel
     name (the twelve largest), the device's busy time per step (the sum over
     kernels and copies), the device's span of the same three steps (CUDA
@@ -699,7 +1047,7 @@ def train_profile(solver, mb, labels) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 3e3
-    emit(phase="train", step="profile_train_step", steps=3,
+    emit(phase=name, step="profile_train_step", steps=3,
          wall_ms_per_step_profiled=wall_ms, device_busy_ms_per_step=busy_ms,
          device_span_ms_per_step_profiled=span_ms,
          device_idle_share_profiled=(1.0 - busy_ms / span_ms) if rows else None,
@@ -826,6 +1174,157 @@ def train_route_check(argv, routes=ROUTES) -> None:
             f"the floor")
 
 
+def recorded_train_step(cfg, patches=()):
+    """One ``train_step`` of a fresh ``Solver`` for ``cfg`` on the first
+    train batch, with ``patches`` ((module, attribute, replacement), ...)
+    in place for its duration. Returns (loss, outputs, the gradients the
+    step handed its optimizer by parameter name, launch counts)."""
+    import torch
+
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    solver = Solver(cfg)
+    opt_main = solver.opt_main
+    names = {id(p): n for n, p in solver.model.named_parameters()}
+    grads = {}
+    step = opt_main.step
+
+    def recording_step(gs):
+        grads.update({names[id(p)]: g.detach().clone()
+                      for p, g in zip(opt_main.params, gs)})
+        return step(gs)
+
+    opt_main.step = recording_step
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+    c0 = counts()
+    for mod, attr, replacement in patches:
+        setattr(mod, attr, replacement)
+    try:
+        loss, _, out = steps.train_step(
+            solver.model, opt_main, cfg, mb, labels, solver.bank,
+            solver.new_bank, 0, solver.generator, False)
+    finally:
+        for mod, attr, original in saved:
+            setattr(mod, attr, original)
+    torch.cuda.synchronize()
+    launches = sub(counts(), c0)
+    require(len(grads) == len(opt_main.params), "train_step took no step")
+    solver.writer.close()
+    return loss.item(), out, grads, launches
+
+
+def quant_route_check(argv) -> None:
+    """One float32 ``train_step`` with ``--use_pallas --quant int8`` and
+    every dropout rate 0, from the same weights and batch, three times:
+    through all four kernels; with the int8 kernel's plain version in its
+    place; with the axis-MLP kernel's plain version in its place. The int8
+    kernel is exact, so the second must repeat the first bit for bit (loss,
+    outputs, every gradient but the embedding tables', whose atomics sum in
+    a changing order). The third differs by the axis-MLP kernel alone. So
+    does a second pair of steps, under ``--use_pallas`` without
+    quantisation, which holds that kernel's effect on the gradients apart
+    from the int8 roundings behind it. Tolerances: the top of this file."""
+    import torch
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.ops import cubemlp_kernel, quant
+    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul_plain
+
+    def plain_axis_mlp(x, w1, w2, b1, b2, axis, activate):
+        return cubemlp_kernel.fused_axis_mlp_plain(x, w1, w2, b1, b2, axis,
+                                                   activate)
+
+    axis_patch = ((cubemlp_kernel, "_forward", plain_axis_mlp),)
+    routes = (  # name, quant, patches
+        ("kernels", "int8", ()),
+        ("plain_int8", "int8", ((quant, "int8_matmul", int8_matmul_plain),)),
+        ("plain_axis_mlp", "int8", axis_patch),
+        ("no_quant_kernel", "none", ()),
+        ("no_quant_plain_axis_mlp", "none", axis_patch))
+    results = {}
+    for route, mode, patches in routes:
+        cfg = parse_args(argv).replace(
+            compute_dtype="float32", bert_dropout=0.0, dropout=[0.0] * 4,
+            dropout_mlp=[0.0] * 3, moment_dtype="float32", quant=mode,
+            task_name=f"quant_route_{route}", save_models=False)
+        results[route] = recorded_train_step(cfg, patches)
+        want = list(step_launches("train", True, mode))
+        if route == "plain_int8":
+            want[3] = 0
+        if patches is axis_patch:
+            want[2] = 0
+        require(results[route][3] == tuple(want),
+                f"route {route}: launches {results[route][3]}, want {want}")
+    l_k, o_k, g_k, _ = results["kernels"]
+    require(all(torch.isfinite(g).all() for g in g_k.values()),
+            "non-finite gradient on the kernel route")
+
+    # the int8 kernel against its plain version inside the step: no change
+    l_i, o_i, g_i, _ = results["plain_int8"]
+    require(l_k == l_i and torch.equal(o_k, o_i),
+            f"the int8 kernel changed the step's forward: loss {l_k} vs {l_i}")
+    tables = [n for n in g_k if "embeddings" in n and "LayerNorm" not in n]
+    unequal = [n for n in g_k if n not in tables and not torch.equal(g_k[n], g_i[n])]
+    require(not unequal, f"the int8 kernel changed the gradient of {unequal[:3]}")
+    table_gap = max(rel_err(g_k[n], g_i[n]) for n in tables)
+    require(table_gap <= EMBEDDING_GRAD_TOL,
+            f"embedding tables' gradients differ by {table_gap}")
+
+    # the axis-MLP kernel against its plain version inside the step, with
+    # the int8 products behind it and without them
+    l_a, o_a, g_a, _ = results["plain_axis_mlp"]
+    l_n, o_n, g_n, _ = results["no_quant_kernel"]
+    l_p, o_p, g_p, _ = results["no_quant_plain_axis_mlp"]
+    rel = abs(l_k - l_a) / max(abs(l_a), 1e-30)
+    rel_n = abs(l_n - l_p) / max(abs(l_p), 1e-30)
+    gap, gap_n = grad_gap(g_k, g_a), grad_gap(g_n, g_p)
+    emit(phase="quant", step="route_check", loss_kernels=l_k,
+         loss_plain_int8=l_i, loss_plain_axis_mlp=l_a,
+         bit_equal_with_plain_int8=len(g_k) - len(tables),
+         embedding_tables_rel_diff=table_gap,
+         embedding_tol=EMBEDDING_GRAD_TOL, loss_rel_diff=rel,
+         tol=TRAIN_F32_LOSS_TOL,
+         out_max_abs_diff=(o_k - o_a).abs().max().item(),
+         grad_tol=QUANT_GRAD_TOL, grads_vs_plain_axis_mlp=gap,
+         no_quant=dict(loss_kernel=l_n, loss_plain_axis_mlp=l_p,
+                       loss_rel_diff=rel_n,
+                       out_max_abs_diff=(o_n - o_p).abs().max().item(),
+                       grad_tol=AXIS_MLP_GRAD_TOL,
+                       grads_vs_plain_axis_mlp=gap_n))
+    require(max(rel, rel_n) <= TRAIN_F32_LOSS_TOL,
+            f"float32 train step, axis-MLP kernel vs plain: loss {l_k} vs "
+            f"{l_a} with int8, {l_n} vs {l_p} without")
+    for what, g, tol in (("--use_pallas", gap_n, AXIS_MLP_GRAD_TOL),
+                         ("--use_pallas --quant int8", gap, QUANT_GRAD_TOL)):
+        worst = g["worst"][0]
+        require(worst["rel_diff"] <= tol,
+                f"float32 train step under {what}, axis-MLP kernel vs its "
+                f"plain version: the gradient of {worst['name']} differs by "
+                f"{worst['rel_diff']} of its size (tolerance {tol})")
+
+
+def quant_mode_steps(argv) -> None:
+    """One bf16 ``train_step`` each in ``int8_fwd`` and ``int8_all`` (with
+    ``--use_pallas``): the int8 kernel launches 48 and 144 times."""
+    import math
+
+    from mimrl_tpu_torch.core.config import parse_args
+
+    for mode in ("int8_fwd", "int8_all"):
+        cfg = parse_args(argv).replace(quant=mode, task_name=f"quant_{mode}",
+                                       save_models=False)
+        loss, _, grads, launches = recorded_train_step(cfg)
+        want = step_launches("train", True, mode)
+        require(launches == want, f"{mode}: launches {launches}, want {want}")
+        require(math.isfinite(loss) and all(
+            bool(g.isfinite().all()) for g in grads.values()),
+            f"{mode}: non-finite loss or gradient")
+        emit(phase="quant", step=f"train_step_{mode}", loss=loss,
+             launches=dict(zip(KERNEL_NAMES, launches)))
+
+
 def main() -> int:
     import torch
 
@@ -843,30 +1342,47 @@ def main() -> int:
          libraries=sorted(v.name for v in libs.values()))
 
     fwd, bwd = kernel_phase()
+    axis_mlp = axis_mlp_phase()
+    int8 = int8_phase()
     with tempfile.TemporaryDirectory() as root:
         task = write_run(root)
-        serve_launches = serve_phase(task)
-        train_launches = train_phase(root)
+        serve, serve_quant = serve_phase(task)
+        train, argv = train_phase(root)
+        train_route_check(argv)
+        quant, quant_argv = train_phase(root, "quant", True, "int8")
+        quant_route_check(quant_argv)
+        quant_mode_steps(quant_argv)
 
-    # launches: each path was driven with both counts set to 0 just before
-    # it and both read just after; the forward kernel is on both paths
-    fwd.update(name="flash_attention_fwd", route="cuda",
-               source="mimrl_tpu_torch/ops/csrc/flash_attention_fwd.cu",
-               replaces="mimrl_tpu/ops/pallas/flash_attention.py:225",
-               launches=serve_launches[0] + train_launches[0],
-               launches_serve=serve_launches[0],
-               launches_train=train_launches[0])
-    bwd.update(name="flash_attention_bwd", route="cuda",
-               source="mimrl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-               replaces="mimrl_tpu/ops/pallas/flash_attention.py:458",
-               launches=serve_launches[1] + train_launches[1],
-               launches_serve=serve_launches[1],
-               launches_train=train_launches[1])
+    # launches: each path was driven with all four counts set to 0 just
+    # before it and read just after: serving and training without flags,
+    # serving and training with --use_pallas --quant int8
+    paths = dict(serve=serve, train=train, serve_quant=serve_quant,
+                 train_quant=quant)
+    records = (fwd, bwd, axis_mlp, int8)
+    sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
+               "cubemlp_axis_mlp.cu", "int8_matmul.cu")
+    replaces = ("mimrl_tpu/ops/pallas/flash_attention.py:225",
+                "mimrl_tpu/ops/pallas/flash_attention.py:458",
+                "mimrl_tpu/ops/pallas/cubemlp_kernel.py:109",
+                "mimrl_tpu/ops/pallas/int8_matmul.py:63")
+    for i, rec in enumerate(records):
+        rec.update(name=KERNEL_NAMES[i], route="cuda",
+                   source=f"mimrl_tpu_torch/ops/csrc/{sources[i]}",
+                   replaces=replaces[i],
+                   launches=sum(c[i] for c in paths.values()),
+                   **{f"launches_{k}": c[i] for k, c in paths.items()})
+        rec.setdefault("ms_dropout", None)
+        rec.setdefault("shapes", None)
+    require(all(r["launches"] > 0 for r in records),
+            f"a kernel was never launched: {[r['launches'] for r in records]}")
+    require(serve[2:] == (0, 0) and train[2:] == (0, 0),
+            "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "dtype", "ms_dropout", "launches_serve", "launches_train")
+            "dtype", "ms_dropout", "launches_serve", "launches_train",
+            "launches_serve_quant", "launches_train_quant", "shapes")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in (fwd, bwd)]}), flush=True)
+                                  for rec in records]}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)

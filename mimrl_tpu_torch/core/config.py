@@ -131,12 +131,14 @@ class MimrlConfig:
     seq_shard: bool = False
     compute_dtype: str = "float32"  # float32 | bfloat16 (matmul inputs)
     # int8 quantized BERT dense GEMMs (ops/quant.py): none | int8_fwd
-    # (forward only) | int8 (+ int8 weight grads, recommended) | int8_all
-    # (+ int8 activation grads, fastest). TPU MXUs run s8xs8->s32 at 2x
-    # the bf16 rate; the training step is BERT-GEMM-bound, so this is
-    # the main single-chip throughput lever past the bf16 roofline.
+    # (forward only) | int8 (+ int8 weight grads) | int8_all (+ int8
+    # activation grads). Every int8 product is the hand-written CUDA GEMM
+    # of ops/int8_matmul.py on the card (its plain version on the CPU);
+    # what the modes cost there is measured in PERF.md.
     quant: str = "none"
-    use_pallas: bool = False  # fused Pallas CubeMLP kernel
+    # the fused CubeMLP axis-MLP kernel (ops/cubemlp_kernel.py) for all
+    # three axes; the flag keeps the JAX package's name
+    use_pallas: bool = False
     # fused Pallas attention: 'on' | 'off' | 'auto' (= on for TPU
     # training, off on CPU/under --seq_shard; +3.2% at T=100, +31.5%
     # at T=150 — see models/bert.py::BertConfig.flash_attn and

@@ -11,6 +11,14 @@ Dtype policy (``BertConfig.dtype``): parameters stay float32; embedding
 lookups and the inputs of every matmul are cast to the compute dtype;
 LayerNorm and softmax run in float32; the tower returns float32.
 
+Quantisation (``BertConfig.quant``: none | int8_fwd | int8 | int8_all):
+with a mode other than 'none' the four dense products of a layer (fused
+QKV, attention output, FFN up and down) go through
+``ops/quant.py::quant_linear``: operands quantised to int8 on the fly and
+multiplied by the hand-written int8 GEMM kernel on a CUDA tensor (its plain
+version on a CPU tensor), four launches per layer and forward. Parameter
+names and shapes are the same for every mode.
+
 Attention has two routes. ``flash_attn`` 'on' or 'auto' goes through
 ``ops/flash_attention.py::flash_attention``: on a CUDA tensor it launches
 the hand-written forward kernel, and the backward kernel when a gradient
@@ -32,6 +40,7 @@ from torch import nn
 
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from mimrl_tpu_torch.ops.quant import MODES, quant_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +57,7 @@ class BertConfig:
     attention_probs_dropout_prob: float = 0.1
     # matmul compute dtype; params stay float32, LayerNorm/softmax float32
     dtype: torch.dtype = torch.float32
-    # only 'none' is ported: the int8 GEMM kernel waits (ROADMAP.md)
+    # 'none' | 'int8_fwd' | 'int8' | 'int8_all' (ops/quant.py)
     quant: str = "none"
     # 'on' | 'off' | 'auto' (= on for CUDA tensors, off on the CPU)
     flash_attn: str = "auto"
@@ -67,8 +76,14 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
                         ln.eps).to(dtype)
 
 
-def _linear(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           c: "BertConfig") -> torch.Tensor:
+    """``x @ weight.T + bias`` in the compute dtype, or through the int8
+    product when the config quantises."""
+    if c.quant != "none":
+        return quant_linear(x.to(c.dtype), weight, bias, c.quant, c.dtype)
+    return F.linear(x.to(c.dtype), weight.to(c.dtype), bias.to(c.dtype))
+
 
 
 class BertEmbeddings(nn.Module):
@@ -110,14 +125,16 @@ class BertSelfOutput(nn.Module):
 
     def __init__(self, d_in: int, c: BertConfig, device=None):
         super().__init__()
+        self.config = c
         self.dense = nn.Linear(d_in, c.hidden_size, device=device)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device)
         self.dropout = nn.Dropout(c.hidden_dropout_prob)
 
-    def forward(self, h, residual, dtype):
-        h = self.dropout(_linear(self.dense, h, dtype))
-        return _layer_norm(self.LayerNorm, h + residual, dtype)
+    def forward(self, h, residual):
+        c = self.config
+        h = self.dropout(_dense(h, self.dense.weight, self.dense.bias, c))
+        return _layer_norm(self.LayerNorm, h + residual, c.dtype)
 
 
 class BertAttention(nn.Module):
@@ -133,10 +150,11 @@ class BertAttention(nn.Module):
         nh = c.num_attention_heads
         hd = H // nh
         s = self.self
-        # fused QKV projection: one [H, 3H] matmul instead of three
+        # fused QKV projection: one [H, 3H] matmul instead of three (and, when
+        # quantised, one [H, 3H] matrix with per-column scales)
         w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
         b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
-        qkv = F.linear(x.to(c.dtype), w.to(c.dtype), b.to(c.dtype))
+        qkv = _dense(x, w, b, c)
         q, k, v = (y.reshape(bs, T, nh, hd).transpose(1, 2).contiguous()
                    for y in qkv.split(H, dim=-1))
         p_rate = float(c.attention_probs_dropout_prob)
@@ -153,7 +171,7 @@ class BertAttention(nn.Module):
         else:
             ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate)
         ctx = ctx.transpose(1, 2).reshape(bs, T, H).to(c.dtype)
-        return self.output(ctx, x, c.dtype)
+        return self.output(ctx, x)
 
 
 class BertIntermediate(nn.Module):
@@ -172,10 +190,11 @@ class BertLayer(nn.Module):
         self.output = BertSelfOutput(c.intermediate_size, c, device)
 
     def forward(self, x, attn_bias, generator=None):
-        dt = self.config.dtype
         x = self.attention(x, attn_bias, generator)
-        h = F.gelu(_linear(self.intermediate.dense, x, dt), approximate="none")
-        return self.output(h, x, dt)
+        up = self.intermediate.dense
+        h = F.gelu(_dense(x, up.weight, up.bias, self.config),
+                   approximate="none")
+        return self.output(h, x)
 
 
 class BertEncoder(nn.Module):
@@ -193,10 +212,9 @@ class BertModel(nn.Module):
 
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
-        if c.quant != "none":
-            raise NotImplementedError(
-                f"BertConfig.quant={c.quant!r}: the int8 GEMM kernel is not "
-                "ported yet (ROADMAP.md)")
+        if c.quant not in MODES:
+            raise ValueError(f"BertConfig.quant={c.quant!r} (want one of "
+                             f"{MODES})")
         self.config = c
         self.embeddings = BertEmbeddings(c, device)
         self.encoder = BertEncoder(c, device)

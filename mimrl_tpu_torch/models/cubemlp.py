@@ -1,5 +1,5 @@
 """CubeMLP axis-mixing fusion encoder (PyTorch port of
-``mimrl_tpu.models.cubemlp``, einsum route).
+``mimrl_tpu.models.cubemlp``).
 
 Each block mixes the L (time), K (modality) and D (channel) axes of a
 ``[bs, l, k, d]`` tensor in turn with a 2-layer MLP that contracts the
@@ -8,8 +8,14 @@ over that axis, in pre- (``ln_first``) or post- order
 (ref: MLPProcess.py:25-122). Weights are ``nn.Linear`` modules named as
 the reference's (``mlp_l.fc1``, ``ln_l``, ``res_projection_l``, ...).
 
-The Pallas CubeMLP kernel of the JAX package (``--use_pallas``) is not
-ported yet, so ``use_pallas=True`` raises.
+An ``AxisMLP`` has two routes. By default its two contractions are
+einsums. With ``use_pallas`` (the JAX package's name for the flag,
+``--use_pallas``) they go through ``ops/cubemlp_kernel.py::fused_axis_mlp``:
+on a CUDA tensor the hand-written fused kernel, for all three axes (the TPU
+module sends only the D mix to its kernel, a Mosaic tiling limit); on a CPU
+tensor the kernel's plain version. Parameters and their names are the same
+on both routes, and so are the values to float32 rounding: the kernel
+applies the activation registry exactly.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from mimrl_tpu_torch.ops.cubemlp_kernel import (check_activation,
+                                                fused_axis_mlp)
 from mimrl_tpu_torch.utils.activations import get_activation_fn
 
 # axis of [bs, l, k, d] -> einsum contracting it with a Linear weight [out, in]
@@ -48,14 +56,23 @@ class AxisMLP(nn.Module):
     """2-layer MLP over one axis (ref: MLPProcess.py:9-21)."""
 
     def __init__(self, axis: int, d_in: int, d_hidden: int, d_out: int,
-                 activate: str, use_bias: bool, device=None):
+                 activate: str, use_bias: bool, use_pallas: bool = False,
+                 device=None):
         super().__init__()
+        if use_pallas:
+            check_activation(activate)  # raises for one the kernel lacks
         self.axis = axis
+        self.activate = activate
+        self.use_pallas = use_pallas
         self.act = get_activation_fn(activate)
         self.fc1 = nn.Linear(d_in, d_hidden, bias=use_bias, device=device)
         self.fc2 = nn.Linear(d_hidden, d_out, bias=use_bias, device=device)
 
     def forward(self, x):
+        if self.use_pallas:
+            return fused_axis_mlp(x, self.fc1.weight.t(), self.fc2.weight.t(),
+                                  self.fc1.bias, self.fc2.bias, self.axis,
+                                  self.activate)
         h = self.act(_axis_linear(x, self.fc1, self.axis))
         return _axis_linear(h, self.fc2, self.axis)
 
@@ -98,7 +115,7 @@ class MLPsBlock(nn.Module):
                  d_hiddens: Sequence[int], d_outs: Sequence[int],
                  dropouts: Sequence[float], use_bias: bool,
                  ln_first: bool = False, res_project: bool = False,
-                 device=None):
+                 use_pallas: bool = False, device=None):
         super().__init__()
         if not res_project and tuple(d_ins) != tuple(d_outs):
             raise ValueError("without a residual projection d_in must equal "
@@ -109,7 +126,7 @@ class MLPsBlock(nn.Module):
         for i, (axis, n) in enumerate(zip(_AXES, _NAMES)):
             self.add_module(f"mlp_{n}", AxisMLP(
                 axis, d_ins[i], d_hiddens[i], d_outs[i], activate, use_bias,
-                device))
+                use_pallas, device))
             self.add_module(f"ln_{n}", AxisLayerNorm(axis, ln_dims[i],
                                                      device=device))
             if res_project:
@@ -140,17 +157,13 @@ class MLPEncoder(nn.Module):
                  res_project: Sequence[bool] = (False, False, True),
                  use_pallas: bool = False, device=None):
         super().__init__()
-        if use_pallas:
-            raise NotImplementedError(
-                "use_pallas: the fused CubeMLP kernel is not ported yet "
-                "(ROADMAP.md kernel 3)")
         if not len(d_hiddens) == len(d_outs) == len(res_project):
             raise ValueError("d_hiddens, d_outs and res_project must have "
                              "the same depth")
         self.layers_stack = nn.ModuleList([
             MLPsBlock(activate, d_in if i == 0 else d_outs[i - 1],
                       d_hiddens[i], d_outs[i], dropouts, use_bias, ln_first,
-                      res_project[i], device)
+                      res_project[i], use_pallas, device)
             for i in range(len(d_hiddens))
         ])
 

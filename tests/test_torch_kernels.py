@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from mimrl_tpu_torch.ops import flash_attention as fa_mod
+from mimrl_tpu_torch.ops.cubemlp_kernel import (fused_axis_mlp,
+                                                fused_axis_mlp_plain)
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 
 torch.set_num_threads(1)
 
@@ -197,3 +200,254 @@ def test_autograd_function_runs_both_kernels_on_card(cuda):
     want = flash_attention_bwd_plain(q, k, v, bias, seed, d_out, 0.1)
     for g, w in zip(got, want):
         assert _rel_err(g, w) <= 2e-5
+
+
+# --------------------------------------------------------------------- #
+# the fused CubeMLP axis MLP
+# --------------------------------------------------------------------- #
+
+def _axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias, seed=0,
+                     linear_layout=False):
+    """x and the weights in the JAX layout ([d_in, d_hidden],
+    [d_hidden, d_out]) from a numpy seed; with ``linear_layout`` the weights
+    are transposed views, as an ``nn.Linear`` weight enters."""
+    rng = np.random.default_rng(seed)
+
+    def t(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32))
+
+    d_in = shape[axis]
+    x = t(*shape)
+    w1, w2 = t(d_in, d_hidden) / d_in ** 0.5, t(d_hidden, d_out) / d_hidden ** 0.5
+    if linear_layout:
+        w1, w2 = w1.t().contiguous().t(), w2.t().contiguous().t()
+    b1, b2 = (t(d_hidden), t(d_out)) if use_bias else (None, None)
+    return x, w1, w2, b1, b2
+
+
+@pytest.mark.parametrize("axis", [1, 2, 3])
+@pytest.mark.parametrize("use_bias", [True, False])
+def test_axis_mlp_wrapper_takes_plain_route_on_cpu(axis, use_bias):
+    """On CPU tensors the autograd Function runs the plain forward and its
+    einsum backward equals autograd through the plain version; no launch
+    is counted."""
+    args = _axis_mlp_inputs((3, 7, 3, 10), axis, 5, 4, use_bias, seed=axis)
+    leaves = [a.requires_grad_() for a in args if a is not None]
+    before = fused_axis_mlp.launches
+    got = fused_axis_mlp(*args, axis, "gelu")
+    want = fused_axis_mlp_plain(*args, axis, "gelu")
+    assert torch.equal(got, want)
+    d_y = torch.from_numpy(np.random.default_rng(9).normal(
+        size=tuple(got.shape)).astype(np.float32))
+    for g, w in zip(torch.autograd.grad(got, leaves, d_y),
+                    torch.autograd.grad(want, leaves, d_y)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    assert fused_axis_mlp.launches == before
+
+
+@pytest.mark.parametrize("case", ["activation", "axis", "dtype", "chain",
+                                  "one_bias", "bias_shape", "x_rank"])
+def test_axis_mlp_wrapper_checks_inputs(case):
+    x, w1, w2, b1, b2 = _axis_mlp_inputs((2, 6, 3, 8), 1, 5, 4, True)
+    axis, act = 1, "gelu"
+    if case == "activation":
+        act = "swish"
+    elif case == "axis":
+        axis = 0
+    elif case == "dtype":
+        x = x.to(torch.bfloat16)
+    elif case == "chain":
+        w2 = w2[:-1]
+    elif case == "one_bias":
+        b2 = None
+    elif case == "bias_shape":
+        b1 = b1[:-1]
+    else:
+        x = x[0]
+    with pytest.raises((TypeError, ValueError)):
+        fused_axis_mlp(x, w1, w2, b1, b2, axis, act)
+
+
+# [bs, L, K, D], axis, d_hidden, d_out: the canonical six at a small batch,
+# then ragged sizes (positions not a multiple of 64, units not a multiple of
+# 8 or 32, a contraction of 1, more than 32 units over a strided axis)
+_AXIS_MLP_CASES = [
+    ((4, 100, 3, 128), 1, 50, 50), ((4, 50, 3, 128), 2, 3, 3),
+    ((4, 50, 3, 128), 3, 128, 128), ((4, 50, 3, 128), 1, 10, 10),
+    ((4, 10, 3, 128), 2, 3, 3), ((4, 10, 3, 128), 3, 128, 128),
+    ((3, 37, 3, 50), 1, 33, 41), ((3, 7, 5, 70), 2, 9, 2),
+    ((3, 7, 5, 70), 3, 45, 130), ((2, 1, 1, 5), 3, 1, 1),
+    ((5, 1, 3, 2), 1, 4, 6), ((2, 130, 3, 17), 1, 70, 130),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_bias", [True, False])
+@pytest.mark.parametrize("shape,axis,d_hidden,d_out", _AXIS_MLP_CASES)
+def test_axis_mlp_kernel_matches_plain_on_card(cuda, shape, axis, d_hidden,
+                                               d_out, use_bias):
+    """Tolerance 2e-5 of the largest magnitude of the plain result: both
+    sides are float32 and differ by summation order, FMA contraction and
+    the last bits of erf."""
+    args = [a if a is None else a.to(cuda) for a in _axis_mlp_inputs(
+        shape, axis, d_hidden, d_out, use_bias, seed=sum(shape),
+        linear_layout=True)]
+    before = fused_axis_mlp.launches
+    got = fused_axis_mlp(*args, axis, "gelu")
+    torch.cuda.synchronize()
+    assert fused_axis_mlp.launches == before + 1
+    want = fused_axis_mlp_plain(*args, axis, "gelu")
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert _rel_err(got, want) <= 2e-5
+    # contiguous weights in the JAX layout give the same bits
+    again = fused_axis_mlp(args[0], args[1].contiguous(), args[2].contiguous(),
+                           *args[3:], axis, "gelu")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("activate", ["elu", "gelu", "hardshrink", "hardtanh",
+                                      "leakyrelu", "prelu", "relu", "rrelu",
+                                      "tanh"])
+def test_axis_mlp_kernel_has_every_activation_on_card(cuda, activate):
+    """Every activation of the registry, against the registry's own
+    function in the plain version (2e-5 of the largest magnitude)."""
+    args = [a.to(cuda) for a in _axis_mlp_inputs((3, 20, 3, 40), 3, 24, 40,
+                                                 True, seed=3)]
+    args[0] = args[0] * 3.0  # reach the saturated and the negative branches
+    got = fused_axis_mlp(*args, 3, activate)
+    want = fused_axis_mlp_plain(*args, 3, activate)
+    assert _rel_err(got, want) <= 2e-5
+
+
+@pytest.mark.gpu
+def test_axis_mlp_gradients_on_card(cuda):
+    """Kernel forward + einsum backward against autograd through the plain
+    version, for every input (2e-5 of each gradient's largest magnitude)."""
+    for axis in (1, 2, 3):
+        args = [a.to(cuda).requires_grad_() for a in _axis_mlp_inputs(
+            (4, 12, 3, 16), axis, 7, 5, True, seed=axis)]
+        got = fused_axis_mlp(*args, axis, "gelu")
+        want = fused_axis_mlp_plain(*args, axis, "gelu")
+        d_y = torch.randn(got.shape, device=cuda,
+                          generator=torch.Generator(cuda).manual_seed(axis))
+        for g, w in zip(torch.autograd.grad(got, args, d_y),
+                        torch.autograd.grad(want, args, d_y)):
+            assert _rel_err(g, w) <= 2e-5
+
+
+# --------------------------------------------------------------------- #
+# the int8 GEMM with its dequantisation epilogue
+# --------------------------------------------------------------------- #
+
+def _int8_inputs(m, k, n, seed=0):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
+    sa = torch.from_numpy(rng.uniform(0.001, 0.02, size=(m, 1)).astype(np.float32))
+    sb = torch.from_numpy(rng.uniform(0.001, 0.02, size=(1, n)).astype(np.float32))
+    return a, b, sa, sb
+
+
+def test_int8_matmul_wrapper_takes_plain_route_on_cpu():
+    a, b, sa, sb = _int8_inputs(9, 300, 7)
+    before = int8_matmul.launches
+    got = int8_matmul(a, b, sa, sb, torch.float32)
+    want = (a.long() @ b.long()).float() * sa * sb  # exact integer sums
+    assert torch.equal(got, want) and got.dtype == torch.float32
+    assert torch.equal(int8_matmul(a, b, sa, sb, torch.bfloat16),
+                       want.to(torch.bfloat16))
+    assert int8_matmul.launches == before
+    # the extreme sum: every product 127 * 127, past one float64 chunk
+    ones = torch.full((2, 5000), 127, dtype=torch.int8)
+    got = int8_matmul_plain(ones, ones.t(), torch.ones(2, 1), torch.ones(1, 2),
+                            torch.float32)
+    assert torch.equal(got, torch.full((2, 2), float(5000 * 127 * 127)))
+
+
+@pytest.mark.parametrize("case", ["a_dtype", "out_dtype", "inner", "sa_size",
+                                  "sb_dtype", "rank", "k_overflow"])
+def test_int8_matmul_wrapper_checks_inputs(case):
+    a, b, sa, sb = _int8_inputs(4, 6, 5)
+    out_dtype = torch.float32
+    if case == "a_dtype":
+        a = a.int()
+    elif case == "out_dtype":
+        out_dtype = torch.float16
+    elif case == "inner":
+        b = b[:-1]
+    elif case == "sa_size":
+        sa = sa[:-1]
+    elif case == "sb_dtype":
+        sb = sb.double()
+    elif case == "rank":
+        a = a[None]
+    else:
+        a, b = a[:, :1].expand(4, 140000), b[:1].expand(140000, 5)
+    with pytest.raises((TypeError, ValueError)):
+        int8_matmul(a, b, sa, sb, out_dtype)
+
+
+# M, K, N: tile multiples, ragged edges in every dimension, K not a
+# multiple of 16 (the byte-load route), a single element, a long K
+_INT8_CASES = [(256, 128, 256), (128, 64, 128), (200, 96, 136), (77, 100, 45),
+               (1, 1, 1), (130, 33, 7), (64, 4096 + 48, 72), (300, 768, 2304)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["kernel", "transposed"])
+@pytest.mark.parametrize("m,k,n", _INT8_CASES)
+def test_int8_matmul_kernel_equals_plain_on_card(cuda, m, k, n, layout):
+    """Integer accumulation is exact and both sides compute
+    ``(float(acc) * sa) * sb`` in float32, so the kernel equals the plain
+    version bit for bit with float32 output, and after the one
+    round-to-nearest-even with bfloat16 output. 'kernel' hands over the
+    layouts the kernel reads (a row-major, b as a transposed view of a
+    row-major [N, K]); 'transposed' hands over the opposite ones, which the
+    wrapper copies as int8."""
+    a, b, sa, sb = (x.to(cuda) for x in _int8_inputs(m, k, n, seed=m + k + n))
+    if layout == "kernel":
+        b = b.t().contiguous().t()
+    else:
+        a = a.t().contiguous().t()
+    before = int8_matmul.launches
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = int8_matmul(a, b, sa, sb, out_dtype)
+        torch.cuda.synchronize()
+        want = int8_matmul_plain(a, b, sa, sb, out_dtype)
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        assert torch.equal(got, want), (
+            f"{out_dtype}: {(got.float() - want.float()).abs().max().item()}")
+    assert int8_matmul.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,launches", [("int8_fwd", 1), ("int8", 2),
+                                           ("int8_all", 3)])
+def test_int8_dot_launches_and_gradients_on_card(cuda, mode, launches):
+    """``int8_dot`` on the card: the mode's launch count (forward, dw, dx),
+    and values and gradients bit-equal to the same function through the
+    kernel's plain version (the int8 route is exact; the full-precision
+    products of a mode are the same torch calls on both sides)."""
+    from mimrl_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=(3, 50, 40)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.normal(size=(24, 40)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=(3, 50, 24)).astype(np.float32)).to(cuda)
+    results = []
+    for route in ("kernel", "plain"):
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        before = int8_matmul.launches
+        if route == "plain":
+            quant.int8_matmul = int8_matmul_plain
+        try:
+            y = quant.int8_dot(xr, wr.t(), mode, torch.float32)
+            dx, dw = torch.autograd.grad(y, (xr, wr), g)
+        finally:
+            quant.int8_matmul = int8_matmul
+        torch.cuda.synchronize()
+        assert int8_matmul.launches - before == (launches if route == "kernel" else 0)
+        results.append((y.detach(), dx, dw))
+    for got, want in zip(*results):
+        assert torch.equal(got, want)

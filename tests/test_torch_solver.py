@@ -4,7 +4,8 @@ DeclareLab split (tiny widths, 3 train batches of 8 whose last one is
 cycle-padded). Epoch 0 is stage 2 without MI, epoch 1 is stage 1 (two
 critic passes) and stage 2 with MI. The artifacts exist, the telemetry has
 the reference's channels, and ``Predictor`` loads the ``best_valid`` slot
-the run wrote. Flags whose path is not ported raise.
+the run wrote. Flags whose path is not ported raise; the two kernel flags
+(``--use_pallas``, ``--quant``) train and serve through the plain versions.
 """
 
 import json
@@ -125,12 +126,51 @@ def test_unported_flags_raise(run, flags):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--optm", "SAM"], NotImplementedError),
-    (["--use_pallas"], NotImplementedError),
-    (["--quant", "int8"], NotImplementedError)])
+    (["--optm", "SAM"], NotImplementedError)])
 def test_unported_kernels_and_sam_raise(run, flags, error):
     with pytest.raises(error):
         main(_argv(run[0], "--task_name", "refused", *flags))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--use_pallas"], ["--quant", "int8"], ["--quant", "int8_fwd"],
+    ["--use_pallas", "--quant", "int8_all"]])
+def test_kernel_flags_train_and_serve_on_the_cpu(run, flags):
+    """``--use_pallas`` and ``--quant int8*`` no longer raise: a two-epoch
+    run (stage 2, then stage 1 + stage 2 with MI) goes through the plain
+    versions of the two kernels on the CPU, and ``Predictor`` loads its
+    checkpoint with the flags the run recorded and repeats its score."""
+    root = run[0]
+    name = "flags_" + "_".join(f.strip("-") for f in flags)
+    scores = main(_argv(root, "--task_name", name, *flags))
+    assert all(np.isfinite(v) for s in scores for v in s.values())
+    rows = [json.loads(line) for line in open(f"{root}/runs/{name}/scalars.jsonl")]
+    assert np.isfinite([r["value"] for r in rows]).all()
+    mi = [r["value"] for r in rows if r["step"] == 1
+          and r["tag"].startswith("Train/MI_")]
+    assert len(mi) == 8 and any(v != 0.0 for v in mi)
+    predictor = Predictor(f"{root}/runs/{name}", device="cpu")
+    assert predictor.cfg.use_pallas == ("--use_pallas" in flags)
+    assert predictor.cfg.quant == (flags[-1] if "--quant" in flags else "none")
+    encoder = predictor.model.mlp_encoder.layers_stack[0]
+    assert encoder.mlp_l.use_pallas == encoder.mlp_d.use_pallas == (
+        "--use_pallas" in flags)
+    assert predictor.model.bertmodel.config.quant == predictor.cfg.quant
+    got = predictor.evaluate_split("valid")
+    assert got["mae"] == pytest.approx(scores[0]["mae"], rel=1e-5)
+
+
+def test_kernel_flags_keep_parameter_names(run):
+    """The flags change routes, not parameters: a checkpoint written
+    without them loads strictly with them (``Predictor`` loads strictly),
+    and the quantised model's score moves away from the float32 one."""
+    _, task, scores = run
+    flagged = Predictor(task, device="cpu", config_overrides={
+        "use_pallas": True, "quant": "int8"})
+    got = flagged.evaluate_split("valid")
+    assert np.isfinite(got["mae"])
+    assert got["mae"] == pytest.approx(scores[0]["mae"], rel=0.2)
+    assert got["mae"] != pytest.approx(scores[0]["mae"], rel=1e-7)
 
 
 def test_solver_needs_cuda_unless_asked(run, monkeypatch):

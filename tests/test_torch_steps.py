@@ -101,16 +101,17 @@ class Pair:
     def __init__(self, **cfg_kw):
         self.jcfg, self.cfg = _cfg(JaxConfig, **cfg_kw), _cfg(MimrlConfig, **cfg_kw)
         self.batch, self.labels = _batch()
+        c = self.jcfg
         bert = dataclasses.replace(
             jbert.BertConfig.tiny(), vocab_size=VOCAB, flash_attn="on",
             hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-            max_position_embeddings=512)
-        c = self.jcfg
+            max_position_embeddings=512, quant=c.quant)
         self.jmodel = JaxMimrlModel(
             d_t=768, d_a=D_A, d_v=D_V, d_common=D_C, time_len=T,
             d_hiddens=tuple(map(tuple, c.d_hiddens)),
             d_outs=tuple(map(tuple, c.d_outs)), dropout_mlp=(0.0,) * 3,
             dropout=(0.0,) * 4, bias=True, k_neighbor=K,
+            activate=c.activate, use_pallas=c.use_pallas,
             fused_estimators=False, bert_config=bert)
         inputs = [jnp.asarray(self.batch[k]) for k in INPUTS]
         params = init_full(self.jmodel, {"params": jax.random.PRNGKey(0)},
