@@ -9,27 +9,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            (four sources, six libraries), one process per source and
            variant, all started together.
 2. kernel  each kernel against its plain PyTorch version on the card, at
-           the canonical shape, at T 150 and at ragged small shapes, with
-           random key padding and a fully padded row: the attention forward
-           without and with dropout (same Philox mask on both sides, keep
-           rate, same seed same bits), the attention backward without and
-           with dropout; the fused CubeMLP axis MLP at the six shapes of the
+           the canonical shape, at T 150, at ragged small shapes, at the
+           tensor-core backward's T limit and one past it, and at hd 128,
+           with random key padding and a fully padded row, in bf16 (the
+           tensor-core instances, but past the limit) and float32 (the SIMT
+           ones): the attention forward without and with dropout (same
+           Philox mask on both sides, keep rate, same seed same bits), the
+           attention backward without and with dropout (two runs bit-equal);
+           the fused CubeMLP axis MLP at the six shapes of the
            canonical encoder with and without bias and at one ragged shape
            per axis; the int8 GEMM at the four forward shapes of a BERT
            layer (bf16 out), the four weight-gradient shapes (float32 out)
            and one shape ragged in M, N and K, bit for bit; times with CUDA
-           events (median of 25 after 5 warm-up runs; the two short
-           kernels with 10-20 queued launches per pair of events, and by
-           the profiler's kernel records as well) beside the plain version,
-           the one-call PyTorch equivalent (timed only) and the bound.
+           events (median of 25 after 5 warm-up runs, 10-20 queued launches
+           per pair of events) and by the profiler's kernel records, beside
+           the plain version, the one-call PyTorch equivalent (timed only,
+           both ways) and the bound.
 3. serve   ``Predictor`` on the canonical MOSI config at full width
            (README quick start: bs 128, time_len 100, BERT-base
            12 x 768 x 12 heads, bi-GRU, CubeMLP 50-3-128=10-3-128, bf16)
            with seeded random weights saved as a port checkpoint, over a
            synthetic DeclareLab test split of 5 batches whose last one is
            cycle-padded. The attention kernel must launch 12 times per
-           batch. The float32 forward through the kernel must match the
-           float32 forward through the plain attention route. The same
+           batch. The bf16 and the float32 forward through the kernel must
+           match the same forward through the plain attention route. The same
            checkpoint is then served with ``use_pallas`` and ``quant int8``
            set: 12 attention, 6 axis-MLP and 48 int8 GEMM launches per batch.
 4. train   ``mimrl_tpu_torch.cli.main`` trains the same config for 2
@@ -41,7 +44,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            each stage must move its own parameter group only, one float32
            train step through the kernels must match the plain route in its
            loss, and in every parameter's gradient the same step with the
-           backward kernel's plain version in its place, and
+           backward kernel's plain version in its place, one bf16 train
+           step (dropout on) must match the plain route in its loss, and
            ``Predictor`` must score the checkpoint the run wrote.
 5. quant   the same run again with ``--use_pallas --quant int8``: launches
            of all four kernels per epoch (a train step 12 + 12 attention,
@@ -61,6 +65,8 @@ status 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -91,6 +97,36 @@ KEEP_RATE_TOL = 0.005  # measured keep rate within 0.5% of 1 - p
 SERVE_F32_TOL = 1e-3
 # one float32 train step, kernel route vs plain route: relative loss gap
 TRAIN_F32_LOSS_TOL = 1e-4
+# the bf16 main path, tensor-core kernels vs the plain attention route (same
+# weights, batch and Philox masks). Both round P, Pd, dS and every layer's
+# output to bf16 (2^-8 relative), in other places (the kernel rounds the
+# unnormalised P of its online softmax, the plain version the normalised
+# one), and twelve randomly initialised layers, the bi-GRUs and CubeMLP
+# carry such differences forward: the served split's predictions (largest
+# 0.23) differed by 0.069-0.079 between the two routes, as much as bf16
+# differs from float32 on the plain route, and one train step's loss by
+# 2.5e-3-2.8e-3 of itself. These two limits catch gross faults only; the
+# fine gates are the two below.
+SERVE_BF16_TOL = 0.1
+TRAIN_BF16_LOSS_TOL = 5e-3
+# every attention launch of the bf16 main path (the served split, one train
+# step with dropout) against its plain version on the same inputs, the
+# largest error relative to the plain result's largest magnitude (over dq,
+# dk and dv for the backward): the two sides round P, Pd and dS to bf16 in
+# other places and then round the output, so they may differ by one bf16
+# step of the largest value, 2^-8 to 2^-7 of it. Read at most 7.8e-3 over
+# the 84 launches on an H100 80GB HBM3 at 700 W (the inputs are seeded, so
+# the reading repeats); limit 1.5 x 2^-7.
+LAUNCH_BF16_TOL = 1.2e-2
+# one bf16 train step's gradients through the backward kernel against the
+# same step with the backward's plain version behind the same forward
+# (grad_gap): read 1.14e-2 on the same card. The controls, the same step
+# with every backward launch's dq, dk and dv scaled by 1 + fault, read
+# 4.4e-2 at a fault of 2^-8 (one bf16 step), 0.11 at 2^-6 and 0.52 at
+# 2^-4; the gate sits between the sound reading and the smallest control,
+# which it must catch.
+TRAIN_BF16_GRAD_TOL = 2e-2
+CONTROL_FAULTS = (2.0 ** -4, 2.0 ** -6, 2.0 ** -8)
 # the same step's gradients, as train_step hands them to its optimizer,
 # through the backward kernel and through its plain version behind the same
 # forward: each parameter's largest difference relative to its largest
@@ -243,11 +279,13 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 25, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def profiler_ms(fn, kernel_name: str, reps: int = 10):
+def profiler_ms(fn, kernel_name: str = None, reps: int = 10):
     """Median device time in ms of the kernel whose name contains
     ``kernel_name`` over ``reps`` calls of fn(), from ``torch.profiler``'s
     kernel records: the kernel alone, whatever the host takes to launch it.
-    None where the profiler gives no device records."""
+    Without ``kernel_name``: the device time of all of one call's kernels
+    (their sum over the ``reps`` calls, divided by ``reps``). None where the
+    profiler gives no device records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -258,9 +296,13 @@ def profiler_ms(fn, kernel_name: str, reps: int = 10):
             fn()
         torch.cuda.synchronize()
     times = [getattr(e, "device_time", getattr(e, "cuda_time", 0.0))
-             for e in prof.events() if kernel_name in e.name]
+             for e in prof.events()
+             if kernel_name is None or kernel_name in e.name]
     times = [t for t in times if t > 0]
-    return 1e-3 * statistics.median(times) if times else None
+    if not times:
+        return None
+    return 1e-3 * (sum(times) / reps if kernel_name is None
+                   else statistics.median(times))
 
 
 def attention_inputs(bs, nh, t, hd, dtype, seed):
@@ -299,24 +341,89 @@ def rel_err(got, want) -> float:
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+@contextlib.contextmanager
+def patched(patches):
+    """``patches`` ((owner, attribute, replacement), ...) in place inside."""
+    saved = [(owner, attr, vars(owner)[attr]) for owner, attr, _ in patches]
+    for owner, attr, replacement in patches:
+        setattr(owner, attr, replacement)
+    try:
+        yield
+    finally:
+        for owner, attr, original in saved:
+            setattr(owner, attr, original)
+
+
+def checked_launches(errors):
+    """Patches under which every attention kernel launch also runs its
+    plain version on the same inputs and appends its ``rel_err`` (over dq,
+    dk and dv for the backward: the largest) to ``errors['fwd']`` or
+    ``errors['bwd']``. The kernels' outputs go on unchanged; the plain
+    versions count no launch."""
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    forward = fa._forward
+    backward = vars(fa._FlashAttention)["backward"].__func__
+
+    def checked_forward(q, k, v, bias, seed, dropout_p):
+        out = forward(q, k, v, bias, seed, dropout_p)
+        errors["fwd"].append(rel_err(out, fa.flash_attention_plain(
+            q, k, v, bias, seed, dropout_p)))
+        return out
+
+    def checked_backward(ctx, d_out):
+        grads = backward(ctx, d_out)
+        q, k, v, bias, seed = ctx.saved_tensors
+        want = fa.flash_attention_bwd_plain(q, k, v, bias, seed,
+                                            d_out.to(q.dtype), ctx.dropout_p)
+        errors["bwd"].append(max(rel_err(g, w) for g, w in zip(grads, want)))
+        return grads
+
+    return ((fa, "_forward", checked_forward),
+            (fa._FlashAttention, "backward", staticmethod(checked_backward)))
+
+
+def faulty_backward(fault: float):
+    """A control's patch: the backward kernel's dq, dk and dv, each scaled
+    by 1 + ``fault``."""
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    backward = vars(fa._FlashAttention)["backward"].__func__
+
+    def scaled_backward(ctx, d_out):
+        grads = backward(ctx, d_out)
+        return tuple(g * (1.0 + fault) for g in grads[:3]) + grads[3:]
+
+    return ((fa._FlashAttention, "backward", staticmethod(scaled_backward)),)
+
+
 def kernel_phase():
     """Both attention kernels against their plain versions; returns the
     canonical-shape bf16 records (forward, backward) for the kernels line."""
     import torch
     import torch.nn.functional as F
 
+    from mimrl_tpu_torch.ops import flash_attention as fa
     from mimrl_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
 
     main_fwd = main_bwd = None
-    shapes = [SERVE_SHAPE, AVEC_SHAPE, (3, 2, 37, 16), (2, 2, 512, HEAD_DIM)]
+    limit = fa.max_t_tensor_core_bwd(HEAD_DIM)
+    # timed: the canonical and the AVEC shapes; then ragged ones, the
+    # tensor-core backward's T limit and one past it (SIMT there), hd 128
+    shapes = [SERVE_SHAPE, AVEC_SHAPE, (3, 2, 37, 16), (2, 2, 512, HEAD_DIM),
+              (2, 2, limit, HEAD_DIM), (2, 2, limit + 1, HEAD_DIM),
+              (4, N_HEADS, TIME_LEN, 128)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype).replace("torch.", "")
             timed = shape in (SERVE_SHAPE, AVEC_SHAPE)
             q, k, v, bias = attention_inputs(*shape, dtype, seed=sum(shape))
             seed = torch.tensor([sum(shape)], device=q.device)
+            bs, nh, t, hd = shape
+            fwd_instance = fa._instance(dtype, t, hd, backward=False)
+            bwd_instance = fa._instance(dtype, t, hd, backward=True)
 
             # ---- forward, without and with dropout ----
             got = flash_attention(q, k, v, bias)
@@ -339,8 +446,9 @@ def kernel_phase():
             require(torch.equal(got_d, again), f"same seed, other bits {shape} {name}")
             require(not torch.equal(got_d, other), f"other seed, same bits {shape} {name}")
             rec = dict(phase="kernel", kernel="flash_attention_fwd",
-                       shape=list(shape), dtype=name, max_abs_err=err,
-                       max_abs_err_dropout=err_d, tol=KERNEL_TOL[name])
+                       shape=list(shape), dtype=name, instance=fwd_instance,
+                       max_abs_err=err, max_abs_err_dropout=err_d,
+                       tol=KERNEL_TOL[name])
             if timed:
                 # keep rate read off the kernel: with v = 1 in one column
                 # and no padding, that column of the output is
@@ -349,12 +457,13 @@ def kernel_phase():
                 require(abs(rec["keep_rate"] - (1.0 - DROPOUT_P)) <= KEEP_RATE_TOL,
                         f"keep rate {rec['keep_rate']} at {shape} {name}")
                 mask = bias.to(dtype)
-                rec["ms"] = cuda_ms(lambda: flash_attention(q, k, v, bias))
-                rec["ms_dropout"] = cuda_ms(
-                    lambda: flash_attention(q, k, v, bias, seed, DROPOUT_P))
-                rec["plain_ms"] = cuda_ms(lambda: flash_attention_plain(q, k, v, bias))
-                rec["library_ms"] = cuda_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+                kname = KERNEL_SYMBOLS[("fwd", fwd_instance)]
+                rec.update(timings(
+                    lambda: flash_attention(q, k, v, bias),
+                    lambda: flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                    lambda: flash_attention_plain(q, k, v, bias),
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+                    kname))
                 rec["bound_ms"], rec["bound_by"] = attention_bound(q, bias)
                 if shape == SERVE_SHAPE and dtype == torch.bfloat16:
                     main_fwd = rec
@@ -364,15 +473,20 @@ def kernel_phase():
             g = torch.Generator(device=q.device).manual_seed(sum(shape))
             d_out = torch.randn(q.shape, device=q.device, generator=g).to(dtype)
             rec = dict(phase="kernel", kernel="flash_attention_bwd",
-                       shape=list(shape), dtype=name, tol=BWD_TOL[name])
+                       shape=list(shape), dtype=name, instance=bwd_instance,
+                       tol=BWD_TOL[name])
             for p_drop, key in ((0.0, "max_rel_err"), (DROPOUT_P, "max_rel_err_dropout")):
                 got3 = flash_attention_bwd(q, k, v, bias, seed, d_out, p_drop)
+                again3 = flash_attention_bwd(q, k, v, bias, seed, d_out, p_drop)
                 want3 = flash_attention_bwd_plain(q, k, v, bias, seed, d_out, p_drop)
                 torch.cuda.synchronize()
                 errs = {}
-                for gname, gg, ww in zip(("dq", "dk", "dv"), got3, want3):
+                for gname, gg, aa, ww in zip(("dq", "dk", "dv"), got3, again3, want3):
                     require(bool(torch.isfinite(gg).all()),
                             f"non-finite {gname} {shape} {name} p={p_drop}")
+                    require(torch.equal(gg, aa),
+                            f"flash_attention_bwd {gname} {shape} {name} "
+                            f"p={p_drop}: two runs differ")
                     errs[gname] = rel_err(gg, ww)
                     require(errs[gname] <= BWD_TOL[name],
                             f"flash_attention_bwd {gname} {shape} {name} "
@@ -383,20 +497,56 @@ def kernel_phase():
                     rec["max_abs_err"] = max(
                         (gg.float() - ww.float()).abs().max().item()
                         for gg, ww in zip(got3, want3))
+            rec["bit_equal_twice"] = True
             if timed:
-                rec["ms"] = cuda_ms(lambda: flash_attention_bwd(
-                    q, k, v, bias, seed, d_out, 0.0))
-                rec["ms_dropout"] = cuda_ms(lambda: flash_attention_bwd(
-                    q, k, v, bias, seed, d_out, DROPOUT_P))
-                rec["plain_ms"] = cuda_ms(lambda: flash_attention_bwd_plain(
-                    q, k, v, bias, seed, d_out, 0.0))
-                rec["library_ms"] = sdpa_backward_ms(q, k, v, bias.to(dtype), d_out)
+                kname = KERNEL_SYMBOLS[("bwd", bwd_instance)]
+                qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+                out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias.to(dtype))
+                rec.update(timings(
+                    lambda: flash_attention_bwd(q, k, v, bias, seed, d_out, 0.0),
+                    lambda: flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P),
+                    lambda: flash_attention_bwd_plain(q, k, v, bias, seed, d_out, 0.0),
+                    # the backward alone: the forward's graph is built once
+                    lambda: torch.autograd.grad(out, (qq, kk, vv), d_out,
+                                                retain_graph=True),
+                    kname))
+                del out, qq, kk, vv
                 rec["bound_ms"], rec["bound_by"] = attention_bound(
                     q, bias, backward=True)
                 if shape == SERVE_SHAPE and dtype == torch.bfloat16:
                     main_bwd = rec
             emit(**rec)
     return main_fwd, main_bwd
+
+
+# the CUDA kernels' names, for the profiler's records
+KERNEL_SYMBOLS = {("fwd", "tensor_core"): "flash_fwd_tc_kernel",
+                  ("fwd", "simt"): "flash_fwd_kernel",
+                  ("bwd", "tensor_core"): "flash_bwd_tc_kernel",
+                  ("bwd", "simt"): "flash_bwd_kernel"}
+
+
+def timings(kernel, kernel_dropout, plain, library, kernel_name) -> dict:
+    """The times of one attention record, ms on the device: the kernel with
+    20 queued launches per pair of CUDA events ('ms', 'ms_dropout') and by
+    the profiler's kernel records ('profiler_ms', 'profiler_ms_dropout');
+    one launch per pair ('ms_one_launch', which reads the wrapper's host
+    time where that is longer); the plain version; the one-call PyTorch
+    yardstick by the profiler ('library_ms', the device time of all of its
+    kernels; queued events where the profiler gives no records) and by 20
+    queued calls per pair of events ('library_events_ms', which for the
+    backward reads autograd's time on the host)."""
+    library_events_ms = cuda_ms(library, inner=20)
+    library_ms = profiler_ms(library)
+    return dict(
+        ms=cuda_ms(kernel, inner=20),
+        ms_dropout=cuda_ms(kernel_dropout, inner=20),
+        profiler_ms=profiler_ms(kernel, kernel_name),
+        profiler_ms_dropout=profiler_ms(kernel_dropout, kernel_name),
+        ms_one_launch=cuda_ms(kernel),
+        plain_ms=cuda_ms(plain, inner=5),
+        library_ms=library_events_ms if library_ms is None else library_ms,
+        library_events_ms=library_events_ms)
 
 
 def keep_rate(shape, dtype, seed) -> float:
@@ -412,19 +562,6 @@ def keep_rate(shape, dtype, seed) -> float:
     bias = torch.zeros(bs, 1, 1, t, device="cuda")
     out = flash_attention(q, q, v, bias, seed, DROPOUT_P)
     return out.float().mean().item() * (1.0 - DROPOUT_P)
-
-
-def sdpa_backward_ms(q, k, v, mask, d_out) -> float:
-    """The library column of the backward: ``torch.autograd.grad`` through
-    ``F.scaled_dot_product_attention``, the backward alone (the forward's
-    graph is built once, outside the timed region)."""
-    import torch
-    import torch.nn.functional as F
-
-    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask)
-    return cuda_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), d_out,
-                                               retain_graph=True))
 
 
 def axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias, seed):
@@ -696,8 +833,13 @@ def serve_phase(task: str):
     # flash_attn 'auto' -> the attention kernel; no other kernel on this path
     predictor, launches = timed_serve(task, "predictor_bf16", {},
                                       step_launches("eval", False, "none"))
-    preds = {"bf16_kernel": predictor.predict_loader(predictor.test_loader)[0]}
-    for name, overrides in (("f32_kernel", {"compute_dtype": "float32"}),
+    errors = {"fwd": [], "bwd": []}
+    with patched(checked_launches(errors)):
+        preds = {"bf16_kernel": predictor.predict_loader(predictor.test_loader)[0]}
+    require(len(errors["fwd"]) == 60,
+            f"{len(errors['fwd'])} checked serving launches, want 60")
+    for name, overrides in (("bf16_plain", {"flash_attn": "off"}),
+                            ("f32_kernel", {"compute_dtype": "float32"}),
                             ("f32_plain", {"compute_dtype": "float32",
                                            "flash_attn": "off"})):
         p = Predictor(task, config_overrides=overrides)
@@ -707,12 +849,26 @@ def serve_phase(task: str):
         require(x.shape == (N_TEST, 1) and bool(np.isfinite(x).all()),
                 f"{name} predictions: shape {x.shape} or non-finite values")
     f32_diff = float(np.abs(preds["f32_kernel"] - preds["f32_plain"]).max())
-    bf16_diff = float(np.abs(preds["bf16_kernel"] - preds["f32_plain"]).max())
+    bf16_diff = float(np.abs(preds["bf16_kernel"] - preds["bf16_plain"]).max())
     emit(phase="serve", step="route_check", f32_kernel_vs_plain=f32_diff,
-         tol=SERVE_F32_TOL, bf16_kernel_vs_f32_plain=bf16_diff,
-         pred_abs_max=float(np.abs(preds["f32_plain"]).max()))
+         tol=SERVE_F32_TOL, bf16_kernel_vs_plain=bf16_diff,
+         bf16_tol=SERVE_BF16_TOL,
+         bf16_plain_vs_f32_plain=float(np.abs(
+             preds["bf16_plain"] - preds["f32_plain"]).max()),
+         bf16_kernel_vs_f32_plain=float(np.abs(
+             preds["bf16_kernel"] - preds["f32_plain"]).max()),
+         pred_abs_max=float(np.abs(preds["f32_plain"]).max()),
+         launches_checked=len(errors["fwd"]),
+         launch_rel_err_max=max(errors["fwd"]),
+         launch_rel_err_median=statistics.median(errors["fwd"]),
+         launch_tol=LAUNCH_BF16_TOL)
     require(f32_diff <= SERVE_F32_TOL,
             f"float32 kernel route vs plain route: {f32_diff} > {SERVE_F32_TOL}")
+    require(bf16_diff <= SERVE_BF16_TOL,
+            f"bf16 kernel route vs plain route: {bf16_diff} > {SERVE_BF16_TOL}")
+    require(max(errors["fwd"]) <= LAUNCH_BF16_TOL,
+            f"bf16 serving: an attention launch differs from its plain "
+            f"version by {max(errors['fwd'])} > {LAUNCH_BF16_TOL}")
     breakdown(predictor, "breakdown_ms")
     del predictor
 
@@ -755,7 +911,7 @@ def breakdown(predictor, step: str) -> None:
                                       return_features=False)),
             bert=cuda_ms(lambda: m.bertmodel(ids, types, mask)),
             attention_kernel_x12=12 * cuda_ms(
-                lambda: flash_attention(q, k, vv, bias)),
+                lambda: flash_attention(q, k, vv, bias), inner=10),
             bigru_a_v=cuda_ms(lambda: (m.rnn_a(a, la), m.rnn_v(v, lv))),
             cubemlp=cuda_ms(lambda: m.mlp_encoder(x)),
         )
@@ -777,6 +933,12 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
     from mimrl_tpu_torch.eval.predict import Predictor
     from mimrl_tpu_torch.train import steps
     from mimrl_tpu_torch.train.solver import Solver
+
+    # the route checks before this phase leave their Solvers in reference
+    # cycles (a patched optimizer step holds its optimizer); unless they are
+    # collected, this phase's peak memory counts their weights and moments
+    gc.collect()
+    torch.cuda.empty_cache()
 
     data = f"{root}/train_data"
     if not os.path.isdir(data):
@@ -1000,9 +1162,10 @@ def train_breakdown(solver, name: str) -> None:
             loss, params, retain_graph=True), 2, 10),
         optimizer=cuda_ms(lambda: solver.opt_main.step(grads), 2, 10),
         attention_fwd_kernel_x12=12 * cuda_ms(
-            lambda: flash_attention(q, k, v, bias, seed, DROPOUT_P)),
+            lambda: flash_attention(q, k, v, bias, seed, DROPOUT_P), inner=10),
         attention_bwd_kernel_x12=12 * cuda_ms(
-            lambda: flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P)),
+            lambda: flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P),
+            inner=10),
     )
     emit(phase=name, step="breakdown_ms", **parts)
     train_profile(solver, mb, labels, name)
@@ -1174,6 +1337,87 @@ def train_route_check(argv, routes=ROUTES) -> None:
             f"the floor")
 
 
+def train_bf16_route_check(argv) -> None:
+    """One bf16 ``train_step`` of the canonical recipe as it runs, dropout
+    included, from the same weights, batch and generator: through both
+    attention kernels (the tensor-core instances), every launch also held
+    against its plain version on the same inputs (LAUNCH_BF16_TOL); with
+    the backward kernel's plain version behind the same forward, so that
+    the gradients handed to the optimizer differ by the backward kernel
+    alone (TRAIN_BF16_GRAD_TOL); the controls, the backward kernel with a
+    fault of CONTROL_FAULTS in its outputs, each of which that gate must
+    catch; and through the plain attention route, which draws the same
+    Philox masks (loss within TRAIN_BF16_LOSS_TOL)."""
+    import math
+
+    import torch
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    errors = {"fwd": [], "bwd": []}
+    kernels = step_launches("train", False, "none")
+    routes = [  # name, flash_attn, patches, launches
+        ("kernels", "on", checked_launches(errors), kernels),
+        ("plain_backward", "on", ((fa, "flash_attention_bwd",
+                                   fa.flash_attention_bwd_plain),),
+         (12, 0, 0, 0)),
+        ("plain", "off", (), (0, 0, 0, 0))]
+    routes += [(f"control_{f}", "on", faulty_backward(f), kernels)
+               for f in CONTROL_FAULTS]
+    results = {}
+    for route, flash_attn, patches, want in routes:
+        cfg = parse_args(argv).replace(flash_attn=flash_attn, save_models=False,
+                                       task_name=f"bf16_route_{route}")
+        results[route] = recorded_train_step(cfg, patches)
+        require(results[route][3] == want,
+                f"bf16 route {route}: launches {results[route][3]}, want {want}")
+    grads = {r: {n: g.float() for n, g in res[2].items()}
+             for r, res in results.items()}
+    (l_k, o_k, _, _), (l_p, o_p, _, _) = results["kernels"], results["plain"]
+    l_b, o_b, _, _ = results["plain_backward"]
+    rel = abs(l_k - l_p) / max(abs(l_p), 1e-30)
+    gap = grad_gap(grads["kernels"], grads["plain_backward"])
+    controls = {f: grad_gap(grads[f"control_{f}"], grads["plain_backward"])
+                for f in CONTROL_FAULTS}
+    emit(phase="train", step="route_check_bf16", loss_kernel=l_k,
+         loss_plain=l_p, loss_rel_diff=rel, tol=TRAIN_BF16_LOSS_TOL,
+         out_max_abs_diff=(o_k.float() - o_p.float()).abs().max().item(),
+         out_abs_max=o_p.float().abs().max().item(),
+         launches_checked={k: len(e) for k, e in errors.items()},
+         launch_rel_err_max={k: max(e) for k, e in errors.items()},
+         launch_tol=LAUNCH_BF16_TOL, grad_tol=TRAIN_BF16_GRAD_TOL,
+         grads_vs_plain_backward=gap,
+         controls=[dict(fault=f, worst=c["worst"][0],
+                        attention_worst=c["attention_worst"][0])
+                   for f, c in controls.items()],
+         grads_vs_plain_route=grad_gap(grads["kernels"], grads["plain"]))
+    require(math.isfinite(l_k) and all(
+        bool(g.isfinite().all()) for g in grads["kernels"].values()),
+        "bf16 train step: non-finite loss or gradient on the kernel route")
+    require(rel <= TRAIN_BF16_LOSS_TOL,
+            f"bf16 train step, kernel vs plain route: loss {l_k} vs {l_p}, "
+            f"relative {rel} > {TRAIN_BF16_LOSS_TOL}")
+    require(all(len(e) == 12 for e in errors.values()),
+            f"checked launches {[len(e) for e in errors.values()]}, want 12")
+    for kind, e in errors.items():
+        require(max(e) <= LAUNCH_BF16_TOL,
+                f"bf16 train step: an attention {kind} launch differs from "
+                f"its plain version by {max(e)} > {LAUNCH_BF16_TOL}")
+    require(l_k == l_b and torch.equal(o_k, o_b),
+            "bf16: the forward kernel gave other bits on the same inputs")
+    worst = gap["worst"][0]
+    require(worst["rel_diff"] <= TRAIN_BF16_GRAD_TOL,
+            f"bf16 train step, backward kernel vs its plain version: the "
+            f"gradient of {worst['name']} differs by {worst['rel_diff']} of "
+            f"its size > {TRAIN_BF16_GRAD_TOL}")
+    for fault, c in controls.items():
+        caught = c["worst"][0]["rel_diff"]
+        require(caught > TRAIN_BF16_GRAD_TOL,
+                f"bf16 control: a fault of {fault} in the backward moved the "
+                f"gradients by {caught} only, within the gate")
+
+
 def recorded_train_step(cfg, patches=()):
     """One ``train_step`` of a fresh ``Solver`` for ``cfg`` on the first
     train batch, with ``patches`` ((module, attribute, replacement), ...)
@@ -1197,17 +1441,11 @@ def recorded_train_step(cfg, patches=()):
 
     opt_main.step = recording_step
     mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
     c0 = counts()
-    for mod, attr, replacement in patches:
-        setattr(mod, attr, replacement)
-    try:
+    with patched(patches):
         loss, _, out = steps.train_step(
             solver.model, opt_main, cfg, mb, labels, solver.bank,
             solver.new_bank, 0, solver.generator, False)
-    finally:
-        for mod, attr, original in saved:
-            setattr(mod, attr, original)
     torch.cuda.synchronize()
     launches = sub(counts(), c0)
     require(len(grads) == len(opt_main.params), "train_step took no step")
@@ -1349,6 +1587,7 @@ def main() -> int:
         serve, serve_quant = serve_phase(task)
         train, argv = train_phase(root)
         train_route_check(argv)
+        train_bf16_route_check(argv)
         quant, quant_argv = train_phase(root, "quant", True, "int8")
         quant_route_check(quant_argv)
         quant_mode_steps(quant_argv)
@@ -1371,15 +1610,17 @@ def main() -> int:
                    replaces=replaces[i],
                    launches=sum(c[i] for c in paths.values()),
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
-        rec.setdefault("ms_dropout", None)
-        rec.setdefault("shapes", None)
+        for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
+                    "ms_one_launch", "library_events_ms"):
+            rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
     require(serve[2:] == (0, 0) and train[2:] == (0, 0),
             "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "dtype", "ms_dropout", "launches_serve", "launches_train",
+            "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
+            "library_events_ms", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "shapes")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)

@@ -21,42 +21,65 @@
 // products, every product accumulates in float32. Nothing but q, k, v, bias
 // and the seed is kept from the forward: no mask, no P, no output.
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16) at the training shape
-// [128, 12, 100, 64] bf16: q, k, v, dO read and dq, dk, dv written once is
-// 7 x 19.7 MB = 137.6 MB -> 41 us; the five products are
-// 10 * bs * nh * T^2 * hd = 9.8 GFLOP -> 10 us on the tensor cores. The
+// Bound on the H100 SXM at its 700 W limit (3.35 TB/s, 989 TFLOP/s bf16)
+// at the training shape [128, 12, 100, 64] bf16: q, k, v, dO read and dq,
+// dk, dv written once is 7 x 19.7 MB = 137.6 MB -> 41 us; the five products
+// are 10 * bs * nh * T^2 * hd = 9.8 GFLOP -> 10 us on the tensor cores. The
 // function is bound by bytes.
 //
-// Design (the simple first version: FP32 pipes, no tensor cores, TMA or
-// warp specialisation, and no float atomics, so two runs give the same bits).
-// One block of 4 warps per (head, batch row) owns all of that head's dq, dk
-// and dv, in two phases over 64-query and 32-key tiles staged in shared
-// memory as float32:
+// Two instances, chosen by the wrapper (ops/flash_attention.py::_instance).
+// Neither uses a float atomic, so two runs give the same bits.
 //
-//   A. softmax statistics. The forward keeps none, so for each query tile
-//      the block walks the keys once with an online softmax and gets the row
-//      max m, the row sum l and, rescaled along with them,
-//      delta = rowsum(dP * P) = sum_k exp(s - m) * dP / l. Computing delta
-//      here from dP and P (two products: Q . K^T and dO . V^T) needs no saved
-//      output and is exact where rowsum(dO * O) would carry O's rounding.
-//      m, 1 / l and delta stay in shared memory, 12 bytes per query row. A
-//      log-sum-exp written by the forward would save the Q . K^T of this pass
-//      (one product of seven) at the price of a second forward output; the
-//      residuals stay those of the TPU kernel instead.
+// Tensor cores (bf16 up to max_t, the main path). All products on
+// mma.sync.m16n8k16 bf16 -> float32. One block per (head, batch row)
+// stages the whole head, Q, K, V and dO, once, as bf16 by 16-byte cp.async
+// (rows padded by 16 bytes against ldmatrix bank conflicts): every input is
+// read from device memory exactly once, and nothing but dq, dk, dv is
+// written. What bounds the instance is that shared memory: 4 x T x
+// (hd + 8) x 2 bytes, the bias and three statistics (16 bytes per row) and
+// the dropout mask (T^2 / 8 bytes) must fit the 227 KB a block may use, so
+// T <= max_t(hd): 352 at hd 64 (68 KB at T 100, three blocks an SM; 98 KB
+// at T 150), 192 at hd 128, 752 at hd 8 and 16. Longer T takes the SIMT
+// instance. Warps: ceil(T / 16) groups of 16 rows, up to 16 warps at
+// hd <= 64 and 8 at hd 128 (registers), evenly over rounds.
+//
+//   Pass 1, query rows (16 per warp, Q and dO fragments in registers).
+//     1a walks the keys in groups of 16 for S = Q . K^T and dPd = dO . V^T
+//     and keeps m, l and delta = rowsum(P * dP) with online rescaling:
+//     exact, from dP and P, with no saved output. It draws the dropout
+//     mask here, one Philox call per four (query, key) pairs (the pair
+//     trade of philox.cuh), and keeps it as bits in shared memory. m, 1 / l
+//     and delta go to shared memory too (12 bytes a row). 1b walks the keys
+//     again, forms dS and accumulates dQ = dS . K in registers, dS taken
+//     from the accumulators as the A fragment: dq is written once, in bf16.
+//     No dq_acc scratch, no read-modify-write in device memory.
+//   Pass 2, keys (16 per warp, K and V fragments read from shared memory
+//     at each step: in registers they would spill at hd 64). It recomputes
+//     S^T = K . Q^T and dPd^T = V . dO^T, forms
+//     Pd^T and dS^T from the shared statistics and mask, and accumulates
+//     dV = Pd^T . dO and dK = dS^T . Q in registers, written once.
+//
+//   The exponentials are ex2.approx (flash_common.cuh, softmax_exp).
+//
+//   Nine 16 x 16 x hd tile products per (16 rows, 16 keys) pair, where the
+//   algebra needs five: the price of recomputing instead of keeping P or
+//   dS (T^2 x 2 bytes each) in shared memory, which would cut max_t to
+//   about 160 at hd 64.
+//
+// SIMT (float32, whose 2e-5 tolerance rules out TF32; and bf16 past
+// max_t): the first port's kernel, FP32 pipes, one block of 4 warps per
+// (head, batch row) owning all of that head's dq, dk and dv, in two phases
+// over 64-query and 32-key tiles staged in shared memory as float32:
+//
+//   A. softmax statistics: for each query tile the block walks the keys
+//      once with an online softmax and gets m, l and delta as above.
 //   B. gradients. Keys outside, queries inside: for a key tile the block
-//      holds dK and dV in registers (a warp owns 8 keys, a lane hd/32
-//      columns) while it walks the query tiles. Per tile pair it recomputes
-//      S and dPd (a warp owns 16 query rows, a lane one key), forms Pd and dS,
-//      stores them in shared memory (transposed for the two products that
-//      contract over queries, as they are for dS . K), and adds the tile's
-//      dS . K into dq. dq is summed over key tiles in float32 in device
-//      memory (dq itself for float32, a scratch tensor the wrapper allocates
-//      for bfloat16); the thread that wrote an element is the one that reads
-//      it back, so there is no race and no atomic. The last key tile writes
-//      dq in the output dtype.
-//
-// Seven tile products in all (two in A, five in B) on the CUDA cores, so this
-// version is bound by operations there, not by bytes; PERF.md has the times.
+//      holds dK and dV in registers while it walks the query tiles,
+//      recomputes S and dPd, forms Pd and dS, and adds the tile's dS . K
+//      into dq. dq is summed over key tiles in float32 in device memory (dq
+//      itself for float32, a scratch dq_acc the wrapper allocates for
+//      bfloat16); the thread that wrote an element is the one that reads it
+//      back, so there is no race and no atomic.
 //
 // Masking, as in the forward: keys past T weigh 0 and query rows past T
 // contribute nothing; padded keys inside T keep their additive -1e9 bias, so
@@ -422,6 +445,396 @@ int dispatch_drop(const void* q, const void* k, const void* v,
                                stream);
 }
 
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
+// ---------------------------------------------------------------------------
+// The tensor-core instance (bf16 only): mma.sync.m16n8k16 bf16 -> float32.
+// ---------------------------------------------------------------------------
+
+constexpr size_t kTcSmemLimit = 232448;  // the 227 KB a block may use
+
+// 16 warps at hd <= 64 (at most 128 registers a thread), 8 at hd 128,
+// whose pass-1 fragments and accumulators need more. (8 warps at hd 64 were
+// as fast at T 100 without dropout, slower with it, which training runs,
+// and faster at T 150 without it: 16 suits the main path.)
+template <int HD>
+constexpr int tc_max_warps() {
+  return HD <= 64 ? 16 : 8;
+}
+
+template <int HD>
+struct TcBwdSmem {
+  static constexpr int kS = TcRow<HD>::kStride;
+  // Q, K, V, dO: t_pad rows each; bias, m, 1 / l, delta: t_pad floats each;
+  // with dropout the keep mask, t_pad rows of t_pad / 8 bytes
+  static size_t bytes(int t_pad, bool drop) {
+    return (size_t)4 * t_pad * kS * sizeof(bf16) +
+           (size_t)4 * t_pad * sizeof(float) +
+           (drop ? (size_t)t_pad * (t_pad / 8) : 0);
+  }
+  // the longest sequence whose head fits, mask included
+  static int max_t() {
+    int t = 16;
+    while (bytes(t + 16, true) <= kTcSmemLimit) t += 16;
+    return t;
+  }
+};
+
+template <int HD, bool kDrop>
+__global__ void __launch_bounds__(tc_max_warps<HD>() * 32)
+    flash_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ bias,
+                        const bf16* __restrict__ d_out,
+                        const long long* __restrict__ seed,
+                        bf16* __restrict__ dq, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int nh, int t_len, int t_pad,
+                        float scale, uint32_t threshold, float inv_keep) {
+  using R = TcRow<HD>;
+  constexpr int kS = R::kStride;
+  constexpr int kKS = R::kKSteps;
+  constexpr int kDT = R::kDTiles;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + t_pad * kS;
+  bf16* sV = sK + t_pad * kS;
+  bf16* sDO = sV + t_pad * kS;
+  float* sB = reinterpret_cast<float*>(sDO + t_pad * kS);
+  float* sM = sB + t_pad;
+  float* sInvL = sM + t_pad;
+  float* sDelta = sInvL + t_pad;
+  uint8_t* sMask = reinterpret_cast<uint8_t*>(sDelta + t_pad);
+  const int mstride = t_pad / 8;  // mask bytes per query row
+
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, h = blockIdx.x;
+  const size_t head = ((size_t)b * nh + h) * (size_t)t_len * HD;
+  const float* bias_row = bias + (size_t)b * t_len;
+  uint2 key = make_uint2(0u, 0u);
+  if (kDrop) key = philox_key(seed);
+
+  // the whole head, once: each input is read from device memory once
+  zero_pad_cols<HD>(sQ, 4 * t_pad);  // the copies below write other bytes
+  stage_rows<HD>(sQ, q + head, 0, t_pad, t_len);
+  stage_rows<HD>(sK, k + head, 0, t_pad, t_len);
+  stage_rows<HD>(sV, v + head, 0, t_pad, t_len);
+  stage_rows<HD>(sDO, d_out + head, 0, t_pad, t_len);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < t_pad; i += blockDim.x)
+    sB[i] = i < t_len ? bias_row[i] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  const int groups = t_pad / 16;
+
+  // ---- pass 1, query rows: 16 a warp ----
+  for (int rg = warp; rg < groups; rg += warps) {
+    const int r0 = rg * 16;
+    uint32_t qf[kKS][4], dof[kKS][4];
+#pragma unroll
+    for (int ks = 0; ks < kKS; ++ks) {
+      ldsm_x4(qf[ks], sQ + r0 * kS + a_addr<kS>(lane, ks * 16));
+      ldsm_x4(dof[ks], sDO + r0 * kS + a_addr<kS>(lane, ks * 16));
+    }
+    // S = Q . K^T and dPd = dO . V^T for the keys [kc, kc + 16); the score
+    // is s * scale + bias rounded twice, as the reference computes it, and
+    // -inf past T
+    auto products = [&](int kc, float (&s)[2][4], float (&dp)[2][4]) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        uint32_t r[4];
+        ldsm_x4(r, sK + kc * kS + bn_addr<kS>(lane, ks * 16));
+        mma_bf16(s[0], qf[ks], r[0], r[1]);
+        mma_bf16(s[1], qf[ks], r[2], r[3]);
+        ldsm_x4(r, sV + kc * kS + bn_addr<kS>(lane, ks * 16));
+        mma_bf16(dp[0], dof[ks], r[0], r[1]);
+        mma_bf16(dp[1], dof[ks], r[2], r[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = kc + 8 * j + 2 * t4 + (e & 1);
+          s[j][e] = kk < t_len ? __fadd_rn(__fmul_rn(s[j][e], scale), sB[kk])
+                               : -INFINITY;
+        }
+    };
+
+    // 1a: m, l and delta = rowsum(P * dP) with online rescaling; the keep
+    // mask is drawn here, one Philox call per four (query, key) pairs, and
+    // kept in shared memory as bits
+    float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f},
+          d_part[2] = {0.f, 0.f};
+    for (int kc = 0; kc < t_pad; kc += 16) {
+      float s[2][4], dp[2][4];
+      products(kc, s, dp);
+      if (kDrop) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          bool keep[4];
+          dropout_keep_frag(key, threshold, b, h, r0 + g, kc + 8 * j, lane,
+                            keep);
+          uint32_t lo = (keep[0] << (2 * t4)) | (keep[1] << (2 * t4 + 1));
+          uint32_t hi = (keep[2] << (2 * t4)) | (keep[3] << (2 * t4 + 1));
+          lo |= __shfl_xor_sync(0xffffffffu, lo, 1);
+          lo |= __shfl_xor_sync(0xffffffffu, lo, 2);
+          hi |= __shfl_xor_sync(0xffffffffu, hi, 1);
+          hi |= __shfl_xor_sync(0xffffffffu, hi, 2);
+          if (t4 == 0) sMask[(r0 + g) * mstride + kc / 8 + j] = (uint8_t)lo;
+          if (t4 == 1) sMask[(r0 + g + 8) * mstride + kc / 8 + j] = (uint8_t)hi;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = keep[e] ? dp[j][e] * inv_keep : 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                               fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+        const float m_new = fmaxf(m_run[r], quad_max(mx));
+        const float alpha = softmax_exp(m_run[r] - m_new);  // 0 on the first tile
+        m_run[r] = m_new;
+        l_part[r] *= alpha;
+        d_part[r] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ex = softmax_exp(s[j][e] - m_run[e >> 1]);
+          l_part[e >> 1] += ex;
+          d_part[e >> 1] += ex * dp[j][e];
+        }
+    }
+    float inv_l[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      inv_l[r] = 1.f / quad_sum(l_part[r]);
+      delta[r] = quad_sum(d_part[r]) * inv_l[r];
+      if (t4 == 0) {
+        const int row = r0 + g + 8 * r;
+        sM[row] = m_run[r];
+        sInvL[row] = inv_l[r];
+        sDelta[row] = delta[r];
+      }
+    }
+    __syncwarp();  // this warp's mask rows, for 1b
+
+    // 1b: dS, and dQ = dS . K summed in registers, written once
+    float dqa[kDT][4];
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
+    for (int kc = 0; kc < t_pad; kc += 16) {
+      float s[2][4], dp[2][4];
+      products(kc, s, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bits[2] = {0u, 0u};
+        if (kDrop) {
+          bits[0] = sMask[(r0 + g) * mstride + kc / 8 + j] >> (2 * t4);
+          bits[1] = sMask[(r0 + g + 8) * mstride + kc / 8 + j] >> (2 * t4);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = softmax_exp(s[j][e] - m_run[r]) * inv_l[r];  // 0 past T
+          float dpv = dp[j][e];
+          if (kDrop) dpv = (bits[r] >> (e & 1)) & 1u ? dpv * inv_keep : 0.f;
+          s[j][e] = p * (dpv - delta[r]) * scale;
+        }
+      }
+      uint32_t a[4];
+      c_to_a(a, s[0], s[1]);  // dS * scale rounded to bf16
+#pragma unroll
+      for (int dp2 = 0; dp2 < kDT / 2; ++dp2) {
+        uint32_t r[4];
+        ldsm_x4_t(r, sK + kc * kS + a_addr<kS>(lane, dp2 * 16));
+        mma_bf16(dqa[2 * dp2], a, r[0], r[1]);
+        mma_bf16(dqa[2 * dp2 + 1], a, r[2], r[3]);
+      }
+      if (kDT % 2) {  // hd 8
+        uint32_t r[2];
+        ldsm_x2_t(r, sK + kc * kS + a_addr<kS>(lane, 0));
+        mma_bf16(dqa[kDT - 1], a, r[0], r[1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row >= t_len) continue;
+      bf16* dst = dq + head + (size_t)row * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+            __floats2bfloat162_rn(dqa[d][2 * r], dqa[d][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // every row's m, 1 / l, delta and mask
+
+  // ---- pass 2, keys: 16 a warp; S^T = K . Q^T and dPd^T = V . dO^T
+  // recomputed, dV = Pd^T . dO and dK = dS^T . Q summed in registers ----
+  for (int kg = warp; kg < groups; kg += warps) {
+    const int k0 = kg * 16;
+    bool k_in[2];
+    float bk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = k0 + g + 8 * r;
+      k_in[r] = kr < t_len;
+      bk[r] = sB[kr];
+    }
+    float dka[kDT][4], dva[kDT][4];
+#pragma unroll
+    for (int d = 0; d < kDT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+    for (int qc = 0; qc < t_pad; qc += 16) {
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        // K and V fragments from shared memory at each step: holding them
+        // in registers would cost 32 at hd 64 and spill
+        uint32_t ka[4], va[4], r[4];
+        ldsm_x4(ka, sK + k0 * kS + a_addr<kS>(lane, ks * 16));
+        ldsm_x4(va, sV + k0 * kS + a_addr<kS>(lane, ks * 16));
+        ldsm_x4(r, sQ + qc * kS + bn_addr<kS>(lane, ks * 16));
+        mma_bf16(st[0], ka, r[0], r[1]);
+        mma_bf16(st[1], ka, r[2], r[3]);
+        ldsm_x4(r, sDO + qc * kS + bn_addr<kS>(lane, ks * 16));
+        mma_bf16(dpt[0], va, r[0], r[1]);
+        mma_bf16(dpt[1], va, r[2], r[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = qc + 8 * j + 2 * t4 + c;  // this column's query
+          const bool q_in = qi < t_len;
+          const float m = sM[qi], il = sInvL[qi], dl = sDelta[qi];
+          // keys k0 .. k0 + 15 of this query's mask row, one bit each
+          const uint32_t bits =
+              kDrop ? *reinterpret_cast<const uint16_t*>(sMask + qi * mstride + k0 / 8)
+                    : 0u;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const float x = __fadd_rn(__fmul_rn(st[j][e], scale), bk[r]);
+            const float p = k_in[r] && q_in ? softmax_exp(x - m) * il : 0.f;
+            float pd = p, dpv = dpt[j][e];
+            if (kDrop) {
+              const bool keep = (bits >> (g + 8 * r)) & 1u;
+              pd = keep ? p * inv_keep : 0.f;
+              dpv = keep ? dpv * inv_keep : 0.f;
+            }
+            st[j][e] = pd;                          // Pd^T
+            dpt[j][e] = p * (dpv - dl) * scale;     // dS^T * scale
+          }
+        }
+      uint32_t apd[4], ads[4];
+      c_to_a(apd, st[0], st[1]);  // rounded to bf16
+      c_to_a(ads, dpt[0], dpt[1]);
+#pragma unroll
+      for (int dp2 = 0; dp2 < kDT / 2; ++dp2) {
+        uint32_t r[4];
+        ldsm_x4_t(r, sDO + qc * kS + a_addr<kS>(lane, dp2 * 16));
+        mma_bf16(dva[2 * dp2], apd, r[0], r[1]);
+        mma_bf16(dva[2 * dp2 + 1], apd, r[2], r[3]);
+        ldsm_x4_t(r, sQ + qc * kS + a_addr<kS>(lane, dp2 * 16));
+        mma_bf16(dka[2 * dp2], ads, r[0], r[1]);
+        mma_bf16(dka[2 * dp2 + 1], ads, r[2], r[3]);
+      }
+      if (kDT % 2) {  // hd 8
+        uint32_t r[2];
+        ldsm_x2_t(r, sDO + qc * kS + a_addr<kS>(lane, 0));
+        mma_bf16(dva[kDT - 1], apd, r[0], r[1]);
+        ldsm_x2_t(r, sQ + qc * kS + a_addr<kS>(lane, 0));
+        mma_bf16(dka[kDT - 1], ads, r[0], r[1]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = k0 + g + 8 * r;
+      if (kr >= t_len) continue;
+      const size_t off = head + (size_t)kr * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * d) =
+            __floats2bfloat162_rn(dka[d][2 * r], dka[d][2 * r + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * d) =
+            __floats2bfloat162_rn(dva[d][2 * r], dva[d][2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int HD, bool kDrop>
+int launch_tc(const void* q, const void* k, const void* v, const void* bias,
+              const void* d_out, const void* seed, void* dq, void* dk,
+              void* dv, int bs, int nh, int t_len, float scale,
+              uint32_t threshold, float inv_keep, cudaStream_t stream) {
+  auto kern = flash_bwd_tc_kernel<HD, kDrop>;
+  const int t_pad = (t_len + 15) / 16 * 16;
+  if (t_pad > TcBwdSmem<HD>::max_t()) return (int)cudaErrorInvalidValue;
+  // ceil(T / 16) groups of 16 rows (pass 1) or keys (pass 2) over the
+  // fewest rounds of at most tc_max_warps warps, evenly
+  const int groups = t_pad / 16, max_warps = tc_max_warps<HD>();
+  const int rounds = (groups + max_warps - 1) / max_warps;
+  const int warps = (groups + rounds - 1) / rounds;
+  const size_t smem = TcBwdSmem<HD>::bytes(t_pad, kDrop);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(nh, bs), warps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<const bf16*>(d_out), static_cast<const long long*>(seed),
+      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      nh, t_len, t_pad, scale, threshold, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
+                const void* d_out, const void* seed, void* dq, void* dk,
+                void* dv, int bs, int nh, int t_len, int hd, float scale,
+                uint32_t threshold, float inv_keep, cudaStream_t stream) {
+#define MIMRL_BWD_TC_CASE(HD)                                                 \
+  case HD:                                                                    \
+    return launch_tc<HD, kDrop>(q, k, v, bias, d_out, seed, dq, dk, dv, bs,   \
+                                nh, t_len, scale, threshold, inv_keep, stream)
+  switch (hd) {
+    MIMRL_BWD_TC_CASE(8);
+    MIMRL_BWD_TC_CASE(16);
+    MIMRL_BWD_TC_CASE(32);
+    MIMRL_BWD_TC_CASE(64);
+    MIMRL_BWD_TC_CASE(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MIMRL_BWD_TC_CASE
+}
+
+int tc_max_t(int hd) {
+  switch (hd) {
+    case 8: return TcBwdSmem<8>::max_t();
+    case 16: return TcBwdSmem<16>::max_t();
+    case 32: return TcBwdSmem<32>::max_t();
+    case 64: return TcBwdSmem<64>::max_t();
+    case 128: return TcBwdSmem<128>::max_t();
+    default: return -1;
+  }
+}
+#endif  // the tensor-core instance
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; compiled with -DMIMRL_DTYPE=0 or 1 the
@@ -455,3 +868,28 @@ extern "C" int mimrl_flash_attention_bwd(
 #endif
   return (int)cudaErrorInvalidValue;
 }
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
+// The tensor-core instance: bf16 tensors, no dq_acc; arguments otherwise as
+// above without the dtype. T must not exceed mimrl_flash_attention_bwd_tc_max_t(hd),
+// and q, k, v, d_out must be 16-byte aligned (the wrapper checks both).
+extern "C" int mimrl_flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* bias,
+    const void* d_out, const void* seed, void* dq, void* dk, void* dv, int bs,
+    int nh, int t_len, int hd, float scale, int dropout,
+    unsigned int threshold, float inv_keep, void* stream) {
+  if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dropout)
+    return dispatch_tc<true>(q, k, v, bias, d_out, seed, dq, dk, dv, bs, nh,
+                             t_len, hd, scale, threshold, inv_keep, s);
+  return dispatch_tc<false>(q, k, v, bias, d_out, seed, dq, dk, dv, bs, nh,
+                            t_len, hd, scale, threshold, inv_keep, s);
+}
+
+// the longest T the tensor-core backward takes at head dim hd (-1: no such
+// instance), from the 227 KB of shared memory a block may use
+extern "C" int mimrl_flash_attention_bwd_tc_max_t(int hd) { return tc_max_t(hd); }
+#endif

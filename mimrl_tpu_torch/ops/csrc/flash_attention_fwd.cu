@@ -22,23 +22,45 @@
 // 1 / sum. The kernel without dropout is its own template instance, so
 // dropout_p = 0 compiles to the code it was before dropout existed.
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16) at the serving shape
-// [128, 12, 100, 64] bf16: the kernel must read q, k, v and write out,
+// Bound on the H100 SXM at its 700 W limit (3.35 TB/s, 989 TFLOP/s bf16)
+// at the serving shape [128, 12, 100, 64] bf16: the kernel must read q, k, v and write out,
 // 4 x 19.7 MB = 78.6 MB -> 23.5 us; the two products are
 // 4 * bs * nh * T^2 * hd = 3.9 GFLOP -> 4 us on the tensor cores. So the
 // function is bound by bytes.
 //
-// Design (the simple first version; no tensor cores, TMA or warp
-// specialisation yet). One block of 4 warps per (64-query tile, head,
-// batch row). The block stages its Q tile once, then walks the keys in
-// tiles of 64 staged in shared memory (K, V and the bias converted to
-// float32), with an online softmax: each warp owns 16 query rows, each
-// lane two keys of the tile for Q . K^T and hd/32 output columns for
-// P . V. Every element of q, k, v is read from device memory once per
-// query tile (k and v once per 64 queries, from L2 after the first), and
-// out is written once. The arithmetic runs on the FP32 pipes, so this
-// version is bound by operations on the CUDA cores, not by bytes: the gap
-// to the bound above is recorded in PERF.md.
+// Two instances, chosen by the wrapper (ops/flash_attention.py::_instance):
+//
+// Tensor cores (bf16, the main path). Both products on
+// mma.sync.m16n8k16 bf16 -> float32; the SIMT instance below would need
+// 58 us for the FLOPs alone at the same card's 67 TFLOP/s FP32 peak. Each warp owns 16 query
+// rows. One block per (head, batch row) holds ceil(T / 16) warps, split
+// over ceil(T / 128) blocks where T > 128 (T 100: one block of 7 warps;
+// T 150: two of 5), so K and V are read once per block and only the last
+// warp carries rows past T. (A grid of fixed 64-row blocks would read K
+// and V twice at T 100 and leave one warp of the second block idle.) Q is
+// staged once, K and V in 64-key tiles, double-buffered, all by 16-byte
+// cp.async into rows padded by 16 bytes, so that the eight rows an
+// ldmatrix phase reads fall into distinct banks. S = Q . K^T takes Q and K as they lie
+// (row-major [T, hd]: plain ldmatrix); P . V takes P from S's accumulator
+// registers (the C fragments of two n8 tiles are the A fragment of one k16
+// step; P is rounded to bf16 there and never goes to shared memory) and V
+// through ldmatrix.trans. Online softmax over the 64-key tiles, so any T;
+// keys are padded only to the mma's 16, keys past T get -inf, and a 16-key
+// group wholly past T is skipped. Dropout draws one Philox block per lane
+// per n8 tile: lanes 2j and 2j + 1 of a quad need the same four words for
+// rows g and g + 8, so each computes one row and they trade two words
+// (philox.cuh, dropout_keep_frag): one Philox call per four (query, key)
+// pairs, the bits of dropout_keep_mask. The exponentials are ex2.approx
+// (flash_common.cuh, softmax_exp). The output is stored from the
+// registers, a bf16 pair per lane.
+//
+// SIMT (float32, whose 2e-5 tolerance rules out TF32): the first port's
+// kernel. One block of 4 warps per (64-query tile, head, batch row) stages
+// its Q tile once, then walks the keys in tiles of 64 staged in shared
+// memory (K, V and the bias converted to float32), with an online softmax:
+// each warp owns 16 query rows, each lane two keys of the tile for Q . K^T
+// and hd/32 output columns for P . V. The arithmetic runs on the FP32
+// pipes, so it is bound by operations there (PERF.md).
 //
 // Masking. Keys past T (the ragged edge of the last tile) get -inf and
 // weight 0. Padded keys inside T keep their additive -1e9 bias exactly as
@@ -260,6 +282,245 @@ int dispatch_drop(const void* q, const void* k, const void* v,
                                scale, threshold, inv_keep, stream);
 }
 
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
+
+// ---------------------------------------------------------------------------
+// The tensor-core instance (bf16 only): mma.sync.m16n8k16 bf16 -> float32.
+// ---------------------------------------------------------------------------
+
+constexpr int kTcMaxWarps = 8;  // 16 query rows each
+constexpr int kTcKeys = 64;     // keys per staged K/V tile
+
+template <int HD>
+struct TcFwdSmem {
+  static constexpr int kS = TcRow<HD>::kStride;
+  // Q: warps * 16 rows; K and V: two buffers of kTcKeys rows each; bias: two
+  // buffers of kTcKeys floats
+  static size_t bytes(int warps) {
+    return ((size_t)warps * 16 * kS + 4 * kTcKeys * kS) * sizeof(bf16) +
+           2 * kTcKeys * sizeof(float);
+  }
+};
+
+template <int HD, bool kDrop>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const float* __restrict__ bias, bf16* __restrict__ out,
+                        const long long* __restrict__ seed, int nh, int t_len,
+                        float scale, uint32_t threshold, float inv_keep) {
+  using R = TcRow<HD>;
+  constexpr int kS = R::kStride;
+  constexpr int kNT = kTcKeys / 8;  // n8 tiles of one score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / 32, rows = warps * 16;
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sK = sQ + rows * kS;          // buffer j at sK + j * kTcKeys * kS
+  bf16* sV = sK + 2 * kTcKeys * kS;
+  float* sB = reinterpret_cast<float*>(sV + 2 * kTcKeys * kS);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * rows;
+  const size_t head = ((size_t)b * nh + h) * (size_t)t_len * HD;
+  const float* bias_row = bias + (size_t)b * t_len;
+  const int row0 = q0 + warp * 16;
+  const bool active = row0 < t_len;  // a warp past T does no products
+  uint2 key = make_uint2(0u, 0u);
+  if (kDrop) key = philox_key(seed);
+
+  zero_pad_cols<HD>(sQ, rows);  // the copies below write other bytes
+  zero_pad_cols<HD>(sK, 2 * kTcKeys);
+  stage_rows<HD>(sQ, q + head, q0, rows, t_len);
+  auto stage_kv = [&](int tile) {
+    const int buf = tile & 1, k0 = tile * kTcKeys;
+    stage_rows<HD>(sK + buf * kTcKeys * kS, k + head, k0, kTcKeys, t_len);
+    stage_rows<HD>(sV + buf * kTcKeys * kS, v + head, k0, kTcKeys, t_len);
+    for (int j = threadIdx.x; j < kTcKeys; j += blockDim.x)
+      cp_async_4(sB + buf * kTcKeys + j, bias_row + (k0 + j < t_len ? k0 + j : 0),
+                 k0 + j < t_len ? 4 : 0);
+  };
+  stage_kv(0);
+  cp_async_commit();  // group 0: Q and the first K/V tile
+
+  float o[R::kDTiles][4];
+#pragma unroll
+  for (int d = 0; d < R::kDTiles; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f};
+  uint32_t qf[R::kKSteps][4];
+
+  const int n_tiles = (t_len + kTcKeys - 1) / kTcKeys;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // the next tile's loads overlap this tile's products; its buffer was
+    // last read before the __syncthreads that ended the previous iteration
+    if (tile + 1 < n_tiles) stage_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the newest group has landed
+    __syncthreads();
+    const int k0 = tile * kTcKeys, buf = tile & 1;
+    const bf16* sKb = sK + buf * kTcKeys * kS;
+    const bf16* sVb = sV + buf * kTcKeys * kS;
+    const float* sBb = sB + buf * kTcKeys;
+    const int keys_left = t_len - k0;  // >= 1: key k0 lies inside T
+    if (active) {
+      if (tile == 0) {
+#pragma unroll
+        for (int ks = 0; ks < R::kKSteps; ++ks)
+          ldsm_x4(qf[ks], sQ + warp * 16 * kS + a_addr<kS>(lane, ks * 16));
+      }
+      // S = Q . K^T over the tile's 16-key groups that reach inside T
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < kNT / 2; ++jp) {
+        if (jp * 16 >= keys_left) break;
+#pragma unroll
+        for (int ks = 0; ks < R::kKSteps; ++ks) {
+          uint32_t r[4];
+          ldsm_x4(r, sKb + jp * 16 * kS + bn_addr<kS>(lane, ks * 16));
+          mma_bf16(s[2 * jp], qf[ks], r[0], r[1]);
+          mma_bf16(s[2 * jp + 1], qf[ks], r[2], r[3]);
+        }
+      }
+      // s * scale + bias rounded twice, as the reference computes it; keys
+      // past T get -inf
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 8 * j + 2 * t4 + (e & 1);
+          const float x = kk < keys_left
+                              ? __fadd_rn(__fmul_rn(s[j][e], scale), sBb[kk])
+                              : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        alpha[r] = softmax_exp(m_run[r] - m_new);  // 0 on the first tile
+        m_run[r] = m_new;
+        l_part[r] *= alpha[r];
+      }
+      // P = exp(s - m), summed over all keys, dropped or not; the kept,
+      // unnormalised P feeds P . V
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = softmax_exp(s[j][e] - m_run[e >> 1]);
+          l_part[e >> 1] += p;
+          s[j][e] = p;
+        }
+        if (kDrop && j * 8 < keys_left) {
+          bool keep[4];
+          dropout_keep_frag(key, threshold, b, h, row0 + g, k0 + 8 * j, lane,
+                            keep);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!keep[e]) s[j][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < R::kDTiles; ++d) {
+        o[d][0] *= alpha[0];
+        o[d][1] *= alpha[0];
+        o[d][2] *= alpha[1];
+        o[d][3] *= alpha[1];
+      }
+      // O += P . V: P from registers, rounded to bf16; V through
+      // ldmatrix.trans, the keys as the contraction
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        if (kk * 16 >= keys_left) break;
+        uint32_t a[4];
+        c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+        const bf16* vrow = sVb + kk * 16 * kS;
+#pragma unroll
+        for (int dp = 0; dp < R::kDTiles / 2; ++dp) {
+          uint32_t r[4];
+          ldsm_x4_t(r, vrow + a_addr<kS>(lane, dp * 16));
+          mma_bf16(o[2 * dp], a, r[0], r[1]);
+          mma_bf16(o[2 * dp + 1], a, r[2], r[3]);
+        }
+        if (R::kDTiles % 2) {  // hd 8: one n8 tile
+          uint32_t r[2];
+          ldsm_x2_t(r, vrow + a_addr<kS>(lane, 0));
+          mma_bf16(o[R::kDTiles - 1], a, r[0], r[1]);
+        }
+      }
+    }
+    __syncthreads();  // this tile's buffer is free for the tile after next
+  }
+  if (!active) return;
+  const float l_row[2] = {quad_sum(l_part[0]), quad_sum(l_part[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= t_len) continue;
+    const float inv = (kDrop ? inv_keep : 1.f) / l_row[r];
+    bf16* dst = out + head + (size_t)row * HD + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < R::kDTiles; ++d)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * d) =
+          __floats2bfloat162_rn(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+  }
+}
+
+// Blocks per (head, batch row) and warps per block: ceil(T / 16) row groups
+// of 16 split evenly over the fewest blocks of at most kTcMaxWarps warps, so
+// that every block reads K and V once and no warp idles but in the last.
+__host__ inline void tc_fwd_grid(int t_len, int* blocks, int* warps) {
+  const int groups = (t_len + 15) / 16;
+  *blocks = (groups + kTcMaxWarps - 1) / kTcMaxWarps;
+  *warps = (groups + *blocks - 1) / *blocks;
+}
+
+template <int HD, bool kDrop>
+int launch_tc(const void* q, const void* k, const void* v, const void* bias,
+              void* out, const void* seed, int bs, int nh, int t_len,
+              float scale, uint32_t threshold, float inv_keep,
+              cudaStream_t stream) {
+  auto kern = flash_fwd_tc_kernel<HD, kDrop>;
+  int blocks, warps;
+  tc_fwd_grid(t_len, &blocks, &warps);
+  const size_t smem = TcFwdSmem<HD>::bytes(warps);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(blocks, nh, bs), warps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+      static_cast<bf16*>(out), static_cast<const long long*>(seed), nh, t_len,
+      scale, threshold, inv_keep);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
+                void* out, const void* seed, int bs, int nh, int t_len, int hd,
+                float scale, uint32_t threshold, float inv_keep,
+                cudaStream_t stream) {
+#define MIMRL_FWD_TC_CASE(HD)                                                \
+  case HD:                                                                   \
+    return launch_tc<HD, kDrop>(q, k, v, bias, out, seed, bs, nh, t_len,     \
+                                scale, threshold, inv_keep, stream)
+  switch (hd) {
+    MIMRL_FWD_TC_CASE(8);
+    MIMRL_FWD_TC_CASE(16);
+    MIMRL_FWD_TC_CASE(32);
+    MIMRL_FWD_TC_CASE(64);
+    MIMRL_FWD_TC_CASE(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef MIMRL_FWD_TC_CASE
+}
+#endif  // the tensor-core instance
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; compiled with -DMIMRL_DTYPE=0 or 1 the
@@ -291,3 +552,26 @@ extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
 #endif
   return (int)cudaErrorInvalidValue;
 }
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
+// The tensor-core instance: bf16 q, k, v, out; arguments as above without
+// the dtype. Every 16-byte row chunk is read by cp.async, so q, k and v must
+// be 16-byte aligned (the wrapper checks).
+extern "C" int mimrl_flash_attention_fwd_tc(const void* q, const void* k,
+                                            const void* v, const void* bias,
+                                            void* out, const void* seed, int bs,
+                                            int nh, int t_len, int hd,
+                                            float scale, int dropout,
+                                            unsigned int threshold,
+                                            float inv_keep, void* stream) {
+  if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dropout)
+    return dispatch_tc<true>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
+                             scale, threshold, inv_keep, s);
+  return dispatch_tc<false>(q, k, v, bias, out, seed, bs, nh, t_len, hd, scale,
+                            threshold, inv_keep, s);
+}
+#endif

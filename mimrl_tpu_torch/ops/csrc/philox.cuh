@@ -33,8 +33,11 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
       key.x += kPhiloxW0;
       key.y += kPhiloxW1;
     }
-    const uint32_t hi0 = __umulhi(kPhiloxM0, c.x), lo0 = kPhiloxM0 * c.x;
-    const uint32_t hi1 = __umulhi(kPhiloxM1, c.z), lo1 = kPhiloxM1 * c.z;
+    // one wide multiply gives both words of a product
+    const uint64_t p0 = static_cast<uint64_t>(kPhiloxM0) * c.x;
+    const uint64_t p1 = static_cast<uint64_t>(kPhiloxM1) * c.z;
+    const uint32_t hi0 = static_cast<uint32_t>(p0 >> 32), lo0 = static_cast<uint32_t>(p0);
+    const uint32_t hi1 = static_cast<uint32_t>(p1 >> 32), lo1 = static_cast<uint32_t>(p1);
     c = make_uint4(hi1 ^ c.y ^ key.x, lo1, hi0 ^ c.w ^ key.y, lo0);
   }
   return c;
@@ -56,6 +59,36 @@ __device__ __forceinline__ bool dropout_keep(uint2 key, uint32_t threshold,
   const int w = k & 3;
   const uint32_t bits = w == 0 ? r.x : (w == 1 ? r.y : (w == 2 ? r.z : r.w));
   return bits > threshold;
+}
+
+// The keep flags of one mma C fragment whose rows are queries and whose
+// columns are the keys [k8, k8 + 8): lane (g, t) holds (row_g, k8 + 2t),
+// (row_g, k8 + 2t + 1), (row_g + 8, k8 + 2t), (row_g + 8, k8 + 2t + 1) in
+// C's order. Keys k8 + 2t and k8 + 2t + 1 are words 2 (t % 2), +1 of the
+// Philox block (k8 / 4 + t / 2). Lanes 2j and 2j + 1 of a quad need the
+// same block for rows row_g and row_g + 8, so each computes one of the two
+// and the pair trades the two words the other needs: one Philox call per
+// lane per fragment, one per four (query, key) pairs, and the same bits as
+// dropout_keep.
+__device__ __forceinline__ void dropout_keep_frag(uint2 key, uint32_t threshold,
+                                                  int b, int h, int row_g,
+                                                  int k8, int lane,
+                                                  bool (&keep)[4]) {
+  const int t = lane & 3;
+  const bool odd = t & 1;
+  const uint4 r = philox4x32_10(
+      make_uint4(static_cast<uint32_t>(k8 / 4 + (t >> 1)),
+                 static_cast<uint32_t>(row_g + (odd ? 8 : 0)),
+                 static_cast<uint32_t>(h), static_cast<uint32_t>(b)),
+      key);
+  // the even lane keeps words 0, 1 of row g and sends 2, 3; the odd lane
+  // keeps words 2, 3 of row g + 8 and sends 0, 1
+  const uint32_t got_x = __shfl_xor_sync(0xffffffffu, odd ? r.x : r.z, 1);
+  const uint32_t got_y = __shfl_xor_sync(0xffffffffu, odd ? r.y : r.w, 1);
+  keep[0] = (odd ? got_x : r.x) > threshold;
+  keep[1] = (odd ? got_y : r.y) > threshold;
+  keep[2] = (odd ? r.z : got_x) > threshold;
+  keep[3] = (odd ? r.w : got_y) > threshold;
 }
 
 }  // namespace mimrl

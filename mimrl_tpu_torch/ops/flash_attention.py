@@ -21,6 +21,18 @@ function of (seed, batch row, head, query, key) (``ops/philox.py``,
 bias and the seed is saved for it. ``seed`` is one int64 on the inputs'
 device, read by the kernels; drawing it does not synchronise the host.
 
+Each source holds two instances of its kernel, and ``_instance`` picks one
+from the dtype, T and hd alone:
+
+- ``tensor_core`` (bfloat16, the main path): bf16 ``mma.sync`` for every
+  product, one Philox call per four (query, key) pairs. The forward walks
+  64-key tiles with an online softmax, so any T; the backward stages a
+  whole head in shared memory, so T up to ``max_t_tensor_core_bwd(hd)``
+  (352 at hd 64); no scratch, no atomics.
+- ``simt`` (float32, whose 2e-5 tolerances rule out TF32; and the bfloat16
+  backward beyond that T): the FP32-pipe kernels of the first port, the
+  backward with its float32 ``dq_acc``, up to ``MAX_T_BWD``.
+
 Bounds on the H100 at [128, 12, 100, 64] bf16: the forward moves 78.6 MB
 (23.5 us at 3.35 TB/s) for 3.9 GFLOP (4 us at 989 TFLOP/s); the backward
 moves 137.6 MB (41 us) for 9.8 GFLOP (10 us). Both are bound by bytes;
@@ -28,9 +40,10 @@ the kernels' design notes and their measured gaps are in the sources and
 in PERF.md.
 
 ``flash_attention`` and ``flash_attention_bwd`` take the plain versions
-only for tensors on the CPU. A CUDA tensor launches the kernel or raises.
-``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
-kernel launches.
+only for tensors on the CPU. A CUDA tensor launches one of the kernels or
+raises: no instance falls back to another. ``flash_attention.launches``
+and ``flash_attention_bwd.launches`` count kernel launches, of either
+instance.
 """
 
 from __future__ import annotations
@@ -47,6 +60,9 @@ SOURCE = "flash_attention_fwd.cu"
 SOURCE_BWD = "flash_attention_bwd.cu"
 HEAD_DIMS = (8, 16, 32, 64, 128)
 MAX_T_BWD = 4096  # the backward keeps its softmax statistics in shared memory
+# shared memory a block may use on the H100 (227 KB), which bounds the T of
+# the tensor-core backward: it stages the whole head
+SMEM_LIMIT = 232448
 _DTYPE_CODES = {torch.float32: _build.VARIANTS["float32"],
                 torch.bfloat16: _build.VARIANTS["bfloat16"]}
 
@@ -104,6 +120,41 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+def max_t_tensor_core_bwd(hd: int) -> int:
+    """The longest T the tensor-core backward takes at head dim ``hd``:
+    q, k, v and dO as bf16 rows of max(hd, 16) + 8 elements, bias and three
+    softmax statistics as float32, and the dropout mask as one bit per
+    (query, key), all for T rounded up to 16, within ``SMEM_LIMIT``. The
+    same sum as ``TcBwdSmem::max_t`` in ``csrc/flash_attention_bwd.cu``."""
+    stride = max(hd, 16) + 8
+
+    def nbytes(t_pad):
+        return 4 * t_pad * stride * 2 + 4 * t_pad * 4 + t_pad * (t_pad // 8)
+
+    t = 16
+    while nbytes(t + 16) <= SMEM_LIMIT:
+        t += 16
+    return t
+
+
+def _instance(dtype: torch.dtype, t: int, hd: int, backward: bool) -> str:
+    """Which kernel instance a CUDA call launches: 'tensor_core' for
+    bfloat16 (the backward only up to ``max_t_tensor_core_bwd(hd)``),
+    'simt' otherwise."""
+    if dtype == torch.bfloat16 and (
+            not backward or t <= max_t_tensor_core_bwd(hd)):
+        return "tensor_core"
+    return "simt"
+
+
+def _check_aligned(*tensors):
+    """The tensor-core instances stage rows by 16-byte copies."""
+    for x in tensors:
+        if x.data_ptr() % 16:
+            raise ValueError("flash_attention: the tensor-core kernels need "
+                             "16-byte aligned q, k, v and d_out")
+
+
 def _check(q, k, v, bias, seed=None, dropout_p: float = 0.0, d_out=None):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
@@ -150,26 +201,26 @@ def _dropout_args(seed, dropout_p):
     return None, 0, 0, 1.0
 
 
-_TAIL_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
-                                       ctypes.c_uint, ctypes.c_float,
-                                       ctypes.c_void_p]
+_TAIL_ARGTYPES = [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_float, ctypes.c_void_p]
 
-
-_entries = {}  # (source, dtype) -> the configured C entry point
+_entries = {}  # (source, name, dtype) -> the configured C entry point
 
 
 def _entry(source: str, name: str, n_pointers: int, dtype: torch.dtype):
-    """The C entry point of a kernel for one input type (built and
+    """The C entry point ``name`` of a kernel for one input type (built and
     configured at first use, then kept): n_pointers device pointers, then
-    bs, nh, T, hd, dtype code, scale, dropout flag, threshold,
-    1 / (1 - p), stream."""
-    fn = _entries.get((source, dtype))
+    bs, nh, T, hd, the dtype code (the SIMT instances only), scale,
+    dropout flag, threshold, 1 / (1 - p), stream."""
+    fn = _entries.get((source, name, dtype))
     if fn is None:
         variant = str(dtype).replace("torch.", "")
         fn = getattr(_build.load(source, variant), name)
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + _TAIL_ARGTYPES
+        n_ints = 4 if name.endswith("_tc") else 5
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints
+                       + _TAIL_ARGTYPES)
         fn.restype = ctypes.c_int
-        _entries[(source, dtype)] = fn
+        _entries[(source, name, dtype)] = fn
     return fn
 
 
@@ -181,13 +232,18 @@ def _forward(q, k, v, bias, seed, dropout_p):
     _check(q, k, v, bias, seed, dropout_p)
     bs, nh, t, hd = q.shape
     out = torch.empty_like(q)
-    fn = _entry(SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)
     seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), seed_ptr, bs, nh, t, hd)
+    if _instance(q.dtype, t, hd, backward=False) == "tensor_core":
+        _check_aligned(q, k, v)
+        fn = _entry(SOURCE, "mimrl_flash_attention_fwd_tc", 6, q.dtype)
+    else:
+        fn = _entry(SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)
+        args += (_DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), seed_ptr, bs, nh, t, hd, _DTYPE_CODES[q.dtype],
-                1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
+        rc = fn(*args, 1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
@@ -209,18 +265,24 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, bias, seed, dropout_p, d_out)
     bs, nh, t, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # the sum of dq over key tiles is kept in float32
-    dq_acc = dq if q.dtype == torch.float32 else torch.empty(
-        q.shape, dtype=torch.float32, device=q.device)
-    fn = _entry(SOURCE_BWD, "mimrl_flash_attention_bwd", 10, q.dtype)
     seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              d_out.data_ptr(), seed_ptr)
+    if _instance(q.dtype, t, hd, backward=True) == "tensor_core":
+        _check_aligned(q, k, v, d_out)
+        fn = _entry(SOURCE_BWD, "mimrl_flash_attention_bwd_tc", 9, q.dtype)
+        args = inputs + (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         bs, nh, t, hd)
+    else:
+        # the sum of dq over key tiles is kept in float32
+        dq_acc = dq if q.dtype == torch.float32 else torch.empty(
+            q.shape, dtype=torch.float32, device=q.device)
+        fn = _entry(SOURCE_BWD, "mimrl_flash_attention_bwd", 10, q.dtype)
+        args = inputs + (dq.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), bs, nh, t, hd, _DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                d_out.data_ptr(), seed_ptr, dq.data_ptr(), dq_acc.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), bs, nh, t, hd,
-                _DTYPE_CODES[q.dtype], 1.0 / (hd ** 0.5), drop, threshold,
-                inv_keep, stream)
+        rc = fn(*args, 1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1

@@ -20,6 +20,9 @@ in test_torch_kernels.py, which imports no JAX so that it runs on the
 card's machine too.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,7 @@ import pytest
 import torch
 
 from mimrl_tpu.ops.pallas.flash_attention import flash_attention as jax_fa
+from mimrl_tpu_torch.ops import flash_attention as fa_mod
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
@@ -187,3 +191,56 @@ def test_dropout_statistics_match_jax():
         torch.from_numpy(bias0)).numpy()
     kept = pd_t != 0.0
     np.testing.assert_allclose(pd_t[kept], full[kept] / (1.0 - p), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,t,hd,backward,want", [
+    (torch.bfloat16, 100, 64, False, "tensor_core"),
+    (torch.bfloat16, 100, 64, True, "tensor_core"),
+    (torch.bfloat16, 150, 64, True, "tensor_core"),
+    (torch.bfloat16, 352, 64, True, "tensor_core"),
+    (torch.bfloat16, 353, 64, True, "simt"),
+    (torch.bfloat16, 512, 64, False, "tensor_core"),
+    (torch.bfloat16, 512, 64, True, "simt"),
+    (torch.bfloat16, 192, 128, True, "tensor_core"),
+    (torch.bfloat16, 193, 128, True, "simt"),
+    (torch.bfloat16, 752, 8, True, "tensor_core"),
+    (torch.float32, 100, 64, False, "simt"),
+    (torch.float32, 16, 8, True, "simt"),
+])
+def test_instance_choice(dtype, t, hd, backward, want):
+    """The wrapper's choice of kernel instance: bf16 runs on the tensor
+    cores, the backward only while the head fits in shared memory (a limit
+    that falls with hd); float32 keeps the SIMT kernels."""
+    assert fa_mod._instance(dtype, t, hd, backward) == want
+    assert fa_mod.max_t_tensor_core_bwd(64) == 352
+
+
+@pytest.mark.parametrize("hd", fa_mod.HEAD_DIMS)
+def test_tensor_core_bwd_limit_fills_shared_memory(hd):
+    """The backward's T limit is the last multiple of 16 whose staged head
+    fits the H100's 227 KB a block (the same constant as the CUDA source's
+    ``kTcSmemLimit``): q, k, v, dO as bf16 rows of max(hd, 16) + 8
+    elements, bias and three softmax statistics as float32, one mask bit
+    per (query, key). The AVEC length 150 is within it at every head dim."""
+    source = (Path(fa_mod.__file__).parent / "csrc" / fa_mod.SOURCE_BWD).read_text()
+    assert int(re.search(r"kTcSmemLimit = (\d+);", source).group(1)) == \
+        fa_mod.SMEM_LIMIT
+
+    def staged(t_pad):
+        return (4 * t_pad * (max(hd, 16) + 8) * 2 + 4 * t_pad * 4
+                + t_pad * t_pad // 8)
+
+    limit = fa_mod.max_t_tensor_core_bwd(hd)
+    assert limit % 16 == 0 and limit >= 150
+    assert staged(limit) <= fa_mod.SMEM_LIMIT < staged(limit + 16)
+    assert fa_mod._instance(torch.bfloat16, limit, hd, True) == "tensor_core"
+    assert fa_mod._instance(torch.bfloat16, limit + 1, hd, True) == "simt"
+
+
+def test_tensor_core_alignment_check():
+    """The tensor-core instances copy rows by 16 bytes: an input whose data
+    starts off a 16-byte boundary is refused before any launch."""
+    base = torch.zeros(4 * 16 + 1, dtype=torch.bfloat16)
+    fa_mod._check_aligned(base[:64])
+    with pytest.raises(ValueError, match="16-byte"):
+        fa_mod._check_aligned(base[1:])

@@ -20,6 +20,7 @@ from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+from mimrl_tpu_torch.ops.philox import dropout_keep_mask
 
 torch.set_num_threads(1)
 
@@ -183,6 +184,94 @@ def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd,
         assert g.dtype == dtype and g.shape == q.shape
         assert torch.equal(g, a), f"{name}: two runs differ"
         assert _rel_err(g, w) <= tol, f"{name}: {_rel_err(g, w)} > {tol}"
+
+
+# T of the tensor-core cases: ragged and canonical lengths, then the
+# backward's shared-memory limit at the case's head dim and one past it
+# (the backward there is the SIMT instance)
+_TC_T = [16, 37, 100, 150, "limit", "limit+1"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dropout_p", [0.0, 0.1])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("t", _TC_T)
+def test_flash_tensor_core_matches_plain_on_card(cuda, t, hd, dropout_p):
+    """The bf16 instances the wrapper picks (the tensor-core ones up to the
+    backward's T limit) against the plain versions, with random key padding
+    and a fully padded row: the forward within 2e-2 (P and the output are
+    rounded to bf16 on both sides; the kernel rounds the unnormalised P),
+    dq, dk, dv within 2e-2 of the plain result's largest magnitude (Pd, dS
+    and the outputs rounded to bf16), and two backward runs bit-equal."""
+    limit = fa_mod.max_t_tensor_core_bwd(hd)
+    t = {"limit": limit, "limit+1": limit + 1}.get(t, t)
+    bs, nh = (4, 3) if t <= 150 else (2, 2)
+    assert fa_mod._instance(torch.bfloat16, t, hd, False) == "tensor_core"
+    assert (fa_mod._instance(torch.bfloat16, t, hd, True) == "tensor_core") == (
+        t <= limit)
+    q, k, v, bias = (x.to(cuda) for x in _inputs(bs=bs, nh=nh, t=t, hd=hd, seed=t))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    seed = torch.tensor([4242 + t], device=cuda)
+    d_out = torch.randn(q.shape, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(t)).to(q.dtype)
+    before = flash_attention.launches, flash_attention_bwd.launches
+    got = flash_attention(q, k, v, bias, seed, dropout_p)
+    grads = flash_attention_bwd(q, k, v, bias, seed, d_out, dropout_p)
+    again = flash_attention_bwd(q, k, v, bias, seed, d_out, dropout_p)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (1, 2)
+    want = flash_attention_plain(q, k, v, bias, seed, dropout_p)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+    wants = flash_attention_bwd_plain(q, k, v, bias, seed, d_out, dropout_p)
+    for name, g, a, w in zip(("dq", "dk", "dv"), grads, again, wants):
+        assert torch.equal(g, a), f"{name}: two runs differ"
+        assert _rel_err(g, w) <= 2e-2, f"{name}: {_rel_err(g, w)}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [16, 37, 100, 128])
+def test_flash_tensor_core_dropout_mask_on_card(cuda, t):
+    """Both tensor-core instances keep exactly ``dropout_keep_mask``. With
+    q = k = 0 and no padding P is 1 / T everywhere: v = one-hot in the head
+    dim (v[key, key] = 1) makes out[query, key] nonzero where the pair is
+    kept, and dO = one-hot (dO[query, query] = 1) does the same for
+    dv[key, query]."""
+    bs, nh, hd, p = 2, 3, 128, 0.1
+    z = torch.zeros(bs, nh, t, hd, device=cuda, dtype=torch.bfloat16)
+    eye = torch.eye(t, hd, device=cuda, dtype=torch.bfloat16).expand(
+        bs, nh, t, hd).contiguous()
+    bias = torch.zeros(bs, 1, 1, t, device=cuda)
+    seed = torch.tensor([77 + t], device=cuda)
+    want = dropout_keep_mask(seed, bs, nh, t, t, p)
+    out = flash_attention(z, z, eye, bias, seed, p)
+    _, _, dv = flash_attention_bwd(z, z, eye, bias, seed, eye, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out[..., :t] != 0, want)
+    assert torch.equal(dv[..., :t].transpose(-1, -2) != 0, want)
+    assert abs(want.float().mean().item() - (1 - p)) < 0.02
+
+
+@pytest.mark.gpu
+def test_tensor_core_bwd_limit_matches_source_on_card(cuda):
+    """The wrapper's T limit is the one the CUDA source computes, and the
+    source refuses one past it (a launch error, not a fallback)."""
+    from mimrl_tpu_torch.ops import _build
+
+    lib = _build.load(fa_mod.SOURCE_BWD, "bfloat16")
+    for hd in fa_mod.HEAD_DIMS:
+        assert lib.mimrl_flash_attention_bwd_tc_max_t(hd) == \
+            fa_mod.max_t_tensor_core_bwd(hd)
+    hd, t = 64, fa_mod.max_t_tensor_core_bwd(64) + 1
+    q = torch.zeros(1, 1, t, hd, device=cuda, dtype=torch.bfloat16)
+    fn = fa_mod._entry(fa_mod.SOURCE_BWD, "mimrl_flash_attention_bwd_tc", 9,
+                       torch.bfloat16)
+    bias = torch.zeros(1, 1, 1, t, device=cuda)
+    rc = fn(*([q.data_ptr()] * 3), bias.data_ptr(), q.data_ptr(), None,
+            *([q.data_ptr()] * 3), 1, 1, t, hd, 0.125, 0, 0, 1.0,
+            torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
 
 
 @pytest.mark.gpu
