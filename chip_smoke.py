@@ -6,7 +6,7 @@
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
 1. build   ``nvcc`` builds every kernel of the port from ``ops/csrc``
-           (four sources, six libraries), one process per source and
+           (five sources, seven libraries), one process per source and
            variant, all started together.
 2. kernel  each kernel against its plain PyTorch version on the card, at
            the canonical shape, at T 150, at ragged small shapes, at the
@@ -19,8 +19,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            the fused CubeMLP axis MLP at the six shapes of the
            canonical encoder with and without bias and at one ragged shape
            per axis; the int8 GEMM at the four forward shapes of a BERT
-           layer (bf16 out), the four weight-gradient shapes (float32 out)
-           and one shape ragged in M, N and K, bit for bit; times with CUDA
+           layer (bf16 out), the four weight-gradient shapes (float32 out,
+           two runs bit-equal, also timed in the operand layouts the dw
+           product hands over) and two ragged shapes, bit for bit, the
+           eight canonical ones on the wgmma instance, whose library must
+           hold GMMA instructions (cuobjdump -sass); times with CUDA
            events (median of 25 after 5 warm-up runs, 10-20 queued launches
            per pair of events) and by the profiler's kernel records, beside
            the plain version, the one-call PyTorch equivalent (timed only,
@@ -34,7 +37,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            batch. The bf16 and the float32 forward through the kernel must
            match the same forward through the plain attention route. The same
            checkpoint is then served with ``use_pallas`` and ``quant int8``
-           set: 12 attention, 6 axis-MLP and 48 int8 GEMM launches per batch.
+           set: 12 attention, 6 axis-MLP and 48 int8 GEMM launches per
+           batch, every int8 launch on the wgmma instance.
 4. train   ``mimrl_tpu_torch.cli.main`` trains the same config for 2
            epochs (3 train batches of 128, 1 valid, 1 test): epoch 0 is
            stage 2 without MI, epoch 1 is stage 1 (2 critic passes) and
@@ -50,7 +54,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5. quant   the same run again with ``--use_pallas --quant int8``: launches
            of all four kernels per epoch (a train step 12 + 12 attention,
            6 axis-MLP, 96 int8 GEMM; a critic step or an eval batch
-           12 + 0, 6, 48), finite losses and MI channels, ``Predictor`` on
+           12 + 0, 6, 48; every int8 launch on the wgmma instance),
+           finite losses and MI channels, ``Predictor`` on
            its checkpoint with the flags it recorded; one float32 train
            step through the two new kernels against the same step through
            their plain versions (bit-equal where only the int8 kernel is
@@ -167,6 +172,8 @@ QUANT_GRAD_TOL = 5e-2
 EMBEDDING_GRAD_TOL = 1e-5
 KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd",
                 "cubemlp_axis_mlp", "int8_matmul")
+# substrings of the CUDA kernels' names in ops/csrc, for the profiler
+PORT_KERNEL_SYMBOLS = ("flash_fwd", "flash_bwd", "axis_mlp", "int8_matmul")
 # [bs, L, K, D], axis, d_hidden, d_out of the six AxisMLPs of the canonical
 # encoder (50-3-128=10-3-128 on [128, 100, 3, 128])
 AXIS_MLP_SHAPES = [
@@ -180,7 +187,8 @@ AXIS_MLP_MAIN = AXIS_MLP_SHAPES[2]  # the D mix of block 0 heads the record
 ROWS = BATCH * TIME_LEN
 INT8_LAYER_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
 INT8_MAIN = (ROWS, 768, 3072)
-INT8_RAGGED = (333, 1000, 77)
+# K % 16 != 0 (mma_sync); ragged M and N with a K tail under stream-K (wgmma)
+INT8_RAGGED = [(333, 1000, 77), (200, 12800 + 48, 136)]
 
 CANONICAL_MOSI = [
     "--dataset", "mosi_Dec", "--log_scale", "0-0-0", "--normalize", "0-1-1",
@@ -232,6 +240,19 @@ def counts():
 def zero_counts() -> None:
     for w in kernel_wrappers():
         w.launches = 0
+    instances = kernel_wrappers()[3].instance_launches
+    for key in instances:
+        instances[key] = 0
+
+
+def int8_instances(step: str, launches) -> dict:
+    """The int8 launches of a counted run by instance (set to 0 with the
+    counts); every one must have taken the wgmma instance."""
+    instances = dict(kernel_wrappers()[3].instance_launches)
+    require(instances == {"wgmma": launches[3], "mma_sync": 0},
+            f"{step}: int8 launches by instance {instances}, want all "
+            f"{launches[3]} on wgmma")
+    return instances
 
 
 def sub(c1, c0):
@@ -279,13 +300,15 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 25, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def profiler_ms(fn, kernel_name: str = None, reps: int = 10):
+def profiler_ms(fn, kernel_name=None, reps: int = 10):
     """Median device time in ms of the kernel whose name contains
     ``kernel_name`` over ``reps`` calls of fn(), from ``torch.profiler``'s
     kernel records: the kernel alone, whatever the host takes to launch it.
-    Without ``kernel_name``: the device time of all of one call's kernels
-    (their sum over the ``reps`` calls, divided by ``reps``). None where the
-    profiler gives no device records."""
+    With a tuple of names: the device time of the kernels whose names
+    contain one of them, summed over the calls and divided by ``reps``
+    (one call may launch several). Without ``kernel_name``: the same over
+    all of one call's kernels. None where the profiler gives no device
+    records."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -295,14 +318,27 @@ def profiler_ms(fn, kernel_name: str = None, reps: int = 10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    times = [getattr(e, "device_time", getattr(e, "cuda_time", 0.0))
+    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
+    times = [e.device_time if hasattr(e, "device_time") else e.cuda_time
              for e in prof.events()
-             if kernel_name is None or kernel_name in e.name]
+             if names is None or any(k in e.name for k in names)]
     times = [t for t in times if t > 0]
     if not times:
         return None
-    return 1e-3 * (sum(times) / reps if kernel_name is None
-                   else statistics.median(times))
+    return 1e-3 * (statistics.median(times) if isinstance(kernel_name, str)
+                   else sum(times) / reps)
+
+
+def profiler_names(fn) -> list:
+    """The names (and device times, us) of the profiler's records of one
+    call of fn(): what a kernel search that found nothing had to look at."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({(e.name[:80], e.device_time) for e in prof.events()})[:20]
 
 
 def attention_inputs(bs, nh, t, hd, dtype, seed):
@@ -683,28 +719,66 @@ def int8_bound(m, k, n, out_dtype):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def int8_gmma_count() -> dict:
+    """``GMMA`` instructions in the SASS of each int8 library
+    (``cuobjdump -sass``): the wgmma instance must have some."""
+    import os
+
+    from mimrl_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    found = {}
+    for source in ("int8_matmul_wgmma.cu", "int8_matmul.cu"):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path(source, "int8"))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        found[source] = sum("GMMA" in line for line in sass.splitlines())
+    require(found["int8_matmul_wgmma.cu"] > 0,
+            f"no GMMA instruction in the wgmma library: {found}")
+    return found
+
+
 def int8_phase():
-    """The int8 GEMM kernel against its plain version, bit for bit: the four
-    forward shapes of a BERT-base layer at M = 12800 with bf16 output, the
-    four weight-gradient shapes (M = K_fwd, K = 12800, N = N_fwd) with
-    float32 output, and one shape ragged in M, N and K with both outputs.
-    The library column is ``torch._int_mm`` plus the epilogue in tensor
-    ops, timed only. Returns the record for the kernels line."""
+    """The int8 GEMM kernels against their plain version, bit for bit: the
+    four forward shapes of a BERT-base layer at M = 12800 with bf16 output,
+    the four weight-gradient shapes (M = K_fwd, K = 12800, N = N_fwd) with
+    float32 output, run twice and bit-equal, and two ragged shapes (K % 16
+    != 0: the mma_sync instance; ragged M and N with a K tail under
+    stream-K: wgmma) with both outputs. The eight canonical shapes must take
+    the wgmma instance. Each record names its instance, plan, and the
+    kernel symbols the profiler sums (the wgmma instance's reduce kernel
+    runs after the main one where stream-K split tiles). ``ms_path_layout``
+    times the dw shapes with the operand layouts ``ops/quant.py`` hands the
+    wrapper (``q(x.T)`` column-major, ``q(g)`` row-major), so that the two
+    int8 copies into the kernels' layout are included. The library column
+    is ``torch._int_mm`` plus the epilogue in tensor ops, timed only.
+    Returns the record for the kernels line."""
     import torch
 
-    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+    from mimrl_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain, plan,
+                                                 schedule)
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gmma = int8_gmma_count()
     cases = [("forward", (ROWS, k, n), torch.bfloat16) for k, n in INT8_LAYER_SHAPES]
     cases += [("dw", (k, ROWS, n), torch.float32) for k, n in INT8_LAYER_SHAPES]
-    cases += [("ragged", INT8_RAGGED, torch.float32),
-              ("ragged", INT8_RAGGED, torch.bfloat16)]
+    cases += [("ragged", shape, dtype) for shape in INT8_RAGGED
+              for dtype in (torch.float32, torch.bfloat16)]
     main, per_shape, worst = None, [], 0.0
     for role, (m, k, n), out_dtype in cases:
         name = str(out_dtype).replace("torch.", "")
         a, b, sa, sb = int8_inputs(m, k, n, seed=m + k + n)
+        p = plan(m, n, k, sms)
+        before = dict(int8_matmul.instance_launches)
         got = int8_matmul(a, b, sa, sb, out_dtype)
         want = int8_matmul_plain(a, b, sa, sb, out_dtype)
         torch.cuda.synchronize()
+        require(int8_matmul.instance_launches[p.instance]
+                == before[p.instance] + 1,
+                f"int8_matmul {role} {(m, k, n)}: did not launch {p.instance}")
+        require(role == "ragged" or p.instance == "wgmma",
+                f"int8_matmul {role} {(m, k, n)}: took {p.instance}, not wgmma")
         require(got.shape == (m, n) and got.dtype == out_dtype
                 and bool(torch.isfinite(got).all()),
                 f"int8_matmul {role} {(m, k, n)} {name}: shape, type or non-finite")
@@ -712,37 +786,84 @@ def int8_phase():
         require(torch.equal(got, want) and err <= INT8_TOL,
                 f"int8_matmul {role} {(m, k, n)} {name}: differs from the "
                 f"plain version by {err}")
+        symbols = (("int8_matmul_wgmma_kernel", "int8_matmul_wgmma_reduce")
+                   if p.instance == "wgmma" else ("int8_matmul_kernel",))
+        pieces = 1
+        if p.instance == "wgmma":
+            pieces = max((f[2] for f in schedule(p)[1]), default=1)
         rec = dict(phase="kernel", kernel="int8_matmul", role=role,
                    shape=[m, k, n], out_dtype=name, max_abs_err=err,
-                   bit_equal=True, tol=INT8_TOL)
+                   bit_equal=True, tol=INT8_TOL, instance=p.instance,
+                   grid=p.grid, stream_k=p.stream_k, splits=pieces,
+                   profiler_symbols=list(symbols))
+        if role == "dw":
+            again = int8_matmul(a, b, sa, sb, out_dtype)
+            torch.cuda.synchronize()
+            require(torch.equal(got, again),
+                    f"int8_matmul dw {(m, k, n)}: two runs differ")
+            rec["two_runs_bit_equal"] = True
         if role != "ragged":
             rec["ms"] = cuda_ms(lambda: int8_matmul(a, b, sa, sb, out_dtype),
                                 inner=10)
             rec["ms_one_launch"] = cuda_ms(
                 lambda: int8_matmul(a, b, sa, sb, out_dtype))
-            rec["profiler_ms"] = profiler_ms(
-                lambda: int8_matmul(a, b, sa, sb, out_dtype),
-                "int8_matmul_kernel")
+            # the profiler has dropped all kernel records of a profiled run
+            # on this card before: up to three runs, then the symbols must
+            # have been found
+            for attempt in range(3):
+                rec["profiler_ms"] = profiler_ms(
+                    lambda: int8_matmul(a, b, sa, sb, out_dtype), symbols)
+                if rec["profiler_ms"] is not None:
+                    break
+            rec["profiler_runs"] = attempt + 1
+            require(rec["profiler_ms"] is not None,
+                    f"int8_matmul {role} {(m, k, n)}: the profiler found no "
+                    f"kernel named {symbols} in three runs; it saw "
+                    f"{profiler_names(lambda: int8_matmul(a, b, sa, sb, out_dtype))}")
+            rec["profiler_ms_by_kernel"] = {sym: profiler_ms(
+                lambda: int8_matmul(a, b, sa, sb, out_dtype), (sym,))
+                for sym in symbols}
+            if role == "dw":
+                # the layouts quant.py hands over: a = q(x.T), b = q(g)
+                a_path, b_path = a.t().contiguous().t(), b.contiguous()
+                require(torch.equal(int8_matmul(a_path, b_path, sa, sb,
+                                                out_dtype), got),
+                        f"int8_matmul dw {(m, k, n)}: path layout differs")
+                rec["ms_path_layout"] = cuda_ms(lambda: int8_matmul(
+                    a_path, b_path, sa, sb, out_dtype), inner=10)
+                rec["profiler_ms_path_layout"] = profiler_ms(lambda: int8_matmul(
+                    a_path, b_path, sa, sb, out_dtype))
+                del a_path, b_path
             rec["plain_ms"] = cuda_ms(
                 lambda: int8_matmul_plain(a, b, sa, sb, out_dtype), 2, 5)
             rec["library_ms"] = cuda_ms(lambda: (
                 torch._int_mm(a, b).float() * sa * sb).to(out_dtype), inner=10)
+            rec["library_profiler_ms"] = profiler_ms(lambda: (
+                torch._int_mm(a, b).float() * sa * sb).to(out_dtype))
             rec["int_mm_only_ms"] = cuda_ms(lambda: torch._int_mm(a, b),
                                             inner=10)
             rec["bound_ms"], rec["bound_by"] = int8_bound(m, k, n, out_dtype)
             rec["tops"] = 2 * m * n * k / (1e-3 * rec["ms"]) / 1e12
+            rec["tops_profiler"] = 2 * m * n * k / (1e-3 * rec["profiler_ms"]) / 1e12
             worst = max(worst, err)
-            per_shape.append({key: rec[key] for key in (
-                "role", "shape", "out_dtype", "ms", "ms_one_launch",
-                "profiler_ms", "plain_ms",
-                "library_ms", "int_mm_only_ms", "bound_ms", "bound_by", "tops",
-                "max_abs_err")})
+            per_shape.append({key: rec.get(key) for key in (
+                "role", "shape", "out_dtype", "instance", "grid", "stream_k",
+                "splits", "ms", "ms_one_launch", "profiler_ms",
+                "profiler_runs", "profiler_ms_by_kernel", "ms_path_layout",
+                "profiler_ms_path_layout", "plain_ms", "library_ms",
+                "library_profiler_ms", "int_mm_only_ms", "bound_ms",
+                "bound_by", "tops", "tops_profiler", "max_abs_err")})
             if (m, k, n) == INT8_MAIN and role == "forward":
                 main = dict(rec)
         emit(**rec)
     main.update(max_abs_err=worst, shapes=per_shape, dtype="int8 -> bfloat16",
+                gmma_sass_count=gmma,
                 ms_forward_layer=sum(r["ms"] for r in per_shape if r["role"] == "forward"),
-                ms_dw_layer=sum(r["ms"] for r in per_shape if r["role"] == "dw"))
+                ms_dw_layer=sum(r["ms"] for r in per_shape if r["role"] == "dw"),
+                profiler_ms_forward_layer=sum(
+                    r["profiler_ms"] for r in per_shape if r["role"] == "forward"),
+                profiler_ms_dw_layer=sum(
+                    r["profiler_ms"] for r in per_shape if r["role"] == "dw"))
     return main
 
 
@@ -808,6 +929,7 @@ def timed_serve(task: str, step: str, overrides: dict, per_batch):
     metrics = predictor.evaluate_split("test")
     wall = time.perf_counter() - t0
     launches = counts()
+    instances = int8_instances(step, launches)
     predictor.forward = forward
     want = tuple(n * n_batches for n in per_batch)
     require(launches == want,
@@ -816,7 +938,7 @@ def timed_serve(task: str, step: str, overrides: dict, per_batch):
             f"non-finite metrics {metrics}")
     emit(phase="serve", step=step, metrics=metrics, overrides=overrides,
          batches=n_batches, launches=dict(zip(KERNEL_NAMES, launches)),
-         batch_ms_median=statistics.median(batch_ms), batch_ms=batch_ms,
+         int8_instances=instances, batch_ms_median=statistics.median(batch_ms), batch_ms=batch_ms,
          samples_per_s=N_TEST / wall, evaluate_s=wall,
          forward_samples_per_s=BATCH / (1e-3 * statistics.median(batch_ms)),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1031,6 +1153,7 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
         for fn_name in log["steps"]:
             setattr(steps, fn_name, originals[fn_name])
     launches = counts()
+    instances = int8_instances(name, launches)
 
     # ---- launch counts of the four kernels, exactly, per epoch: epoch 0
     # is 3 train steps, epoch 1 is 6 critic steps and 3 train steps; each
@@ -1081,7 +1204,7 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
     critic_ms = log["steps"]["critic_step"][3:]
     eval_ms = log["steps"]["eval_step"][2:]
     emit(phase=name, step="solver_bf16", flags=flags, epochs=log["epochs"],
-         wall_s=wall, kernel_order=KERNEL_NAMES,
+         wall_s=wall, kernel_order=KERNEL_NAMES, int8_instances=instances,
          train_step_ms=train_ms, critic_step_ms=critic_ms, eval_batch_ms=eval_ms,
          train_step_ms_median=statistics.median(train_ms),
          critic_step_ms_median=statistics.median(critic_ms),
@@ -1173,7 +1296,9 @@ def train_breakdown(solver, name: str) -> None:
 
 def train_profile(solver, mb, labels, name: str) -> None:
     """torch.profiler over three bf16 train steps: device time by kernel
-    name (the twelve largest), the device's busy time per step (the sum over
+    name (the twelve largest, and every row of the port's own kernels,
+    whose names carry the sources' kernel names), the device's busy time
+    per step (the sum over
     kernels and copies), the device's span of the same three steps (CUDA
     events around them, inside the profiler) and from these two the idle
     share, and the host's wall time under the profiler. Informative only:
@@ -1216,7 +1341,10 @@ def train_profile(solver, mb, labels, name: str) -> None:
          device_idle_share_profiled=(1.0 - busy_ms / span_ms) if rows else None,
          device_records=bool(rows),
          top=[dict(name=k[:80], ms_per_step=t / 3e3, calls_per_step=c / 3)
-              for k, t, c in rows[:12]])
+              for k, t, c in rows[:12]],
+         port_kernels=[dict(name=k[:80], ms_per_step=t / 3e3,
+                            calls_per_step=c / 3) for k, t, c in rows
+                       if any(n in k for n in PORT_KERNEL_SYMBOLS)])
 
 
 ROUTES = (  # name, flash_attn, backward through the plain version
@@ -1599,7 +1727,7 @@ def main() -> int:
                  train_quant=quant)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
-               "cubemlp_axis_mlp.cu", "int8_matmul.cu")
+               "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
     replaces = ("mimrl_tpu/ops/pallas/flash_attention.py:225",
                 "mimrl_tpu/ops/pallas/flash_attention.py:458",
                 "mimrl_tpu/ops/pallas/cubemlp_kernel.py:109",

@@ -5,11 +5,13 @@ Each ``csrc/*.cu`` file exposes a plain C interface and is compiled by
 directory git ignores), one per variant that ``SOURCES`` names for it. An
 attention source holds its kernel for 5 head dims, with and without
 dropout, and its two input types compile side by side in half the time;
-the CubeMLP source is float32 only, and the int8 GEMM takes its output
-type at run time, so each of them is one library. The library's name
-carries a hash of the source, of every header in ``csrc/`` and of the
-flags, so an edited source or header is rebuilt and an unchanged one is
-reused. ``build()`` starts one ``nvcc`` per source and variant, all at
+the CubeMLP source is float32 only, and the two int8 GEMM sources take
+their output type at run time, so each of them is one library. No source
+needs a library beyond the CUDA runtime: the ``wgmma`` GEMM reaches
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``. The
+library's name carries a hash of the source, of every header in ``csrc/``
+and of the flags, so an edited source or header is rebuilt and an
+unchanged one is reused. ``build()`` starts one ``nvcc`` per source and variant, all at
 once, and waits for them together. The compiler's ``-Xptxas -v`` report (registers,
 shared memory, spills per kernel) is kept beside each library as
 ``.log``.
@@ -38,6 +40,7 @@ SOURCES = {
     "flash_attention_bwd.cu": ("float32", "bfloat16"),
     "cubemlp_axis_mlp.cu": ("float32",),
     "int8_matmul.cu": ("int8",),
+    "int8_matmul_wgmma.cu": ("int8",),
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

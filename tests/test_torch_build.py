@@ -190,11 +190,13 @@ def _configured(monkeypatch, name):
                       "mimrl_flash_attention_bwd": 10,
                       "mimrl_flash_attention_bwd_tc": 9}[name]
         return fa_mod._entry(source, name, n_pointers, torch.bfloat16)
-    module = cubemlp_kernel if "cubemlp" in name else int8_matmul
-    monkeypatch.setattr(module, "_entry", None)
-    module._kernel_entry()
-    (lib,) = libs.values()
-    return lib.functions[name]
+    if "cubemlp" in name:
+        monkeypatch.setattr(cubemlp_kernel, "_entry", None)
+        cubemlp_kernel._kernel_entry()
+        (lib,) = libs.values()
+        return lib.functions[name]
+    monkeypatch.setattr(int8_matmul, "_entries", {})
+    return int8_matmul._entry(name)
 
 
 # every entry point a wrapper configures; the backward's
@@ -202,7 +204,7 @@ def _configured(monkeypatch, name):
 ENTRY_POINTS = ("mimrl_flash_attention_fwd", "mimrl_flash_attention_fwd_tc",
                 "mimrl_flash_attention_bwd", "mimrl_flash_attention_bwd_tc",
                 "mimrl_cubemlp_axis_mlp", "mimrl_cubemlp_axis_mlp_smem",
-                "mimrl_int8_matmul")
+                "mimrl_int8_matmul", "mimrl_int8_matmul_wgmma")
 
 
 def test_every_entry_point_is_configured():

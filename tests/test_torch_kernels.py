@@ -19,6 +19,7 @@ from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_bwd_plain,
                                                  flash_attention_plain)
+from mimrl_tpu_torch.ops import int8_matmul as im
 from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
 from mimrl_tpu_torch.ops.philox import dropout_keep_mask
 
@@ -477,10 +478,81 @@ def test_int8_matmul_wrapper_checks_inputs(case):
         int8_matmul(a, b, sa, sb, out_dtype)
 
 
+# (M, K, N) of a BERT-base layer's eight int8 products at bs 128, T 100:
+# the four forward shapes and the four weight-gradient (dw) shapes
+_CANONICAL_INT8 = [(12800, k, n) for k, n in
+                   ((768, 2304), (768, 768), (768, 3072), (3072, 768))]
+_CANONICAL_INT8 += [(k, 12800, n) for _, k, n in _CANONICAL_INT8]
+
+
+def _covers_each_k_block_once(p):
+    """The segments of ``schedule(p)``: each tile's K blocks exactly once,
+    the blocks' work equal to one unit, slots as the split tiles list."""
+    blocks, fixes, slots = im.schedule(p)
+    assert len(blocks) == p.grid and all(blocks)
+    pieces = {}
+    for segments in blocks:
+        for tile, k0, k1, slot in segments:
+            assert 0 <= k0 < k1 <= p.k_blocks
+            pieces.setdefault(tile, []).append((k0, k1, slot))
+    assert sorted(pieces) == list(range(p.tiles))
+    for tile, ranges in pieces.items():
+        ranges.sort()
+        ends = [0] + [k1 for _, k1, _ in ranges]
+        assert [k0 for k0, _, _ in ranges] == ends[:-1]
+        assert ends[-1] == p.k_blocks
+    unit = p.k_blocks if not p.stream_k else 1
+    work = [sum(k1 - k0 for _, k0, k1, _ in segments) for segments in blocks]
+    assert max(work) - min(work) <= unit
+    split = {t: sorted(s for *_, s in r) for t, r in pieces.items()
+             if len(r) > 1}
+    assert [(t, split[t][0], len(split[t])) for t in sorted(split)] == fixes
+    assert all(r == list(range(r[0], r[0] + len(r))) for r in split.values())
+    assert sorted(s for r in split.values() for s in r) == list(range(slots))
+    assert all(s == -1 for t, r in pieces.items() if t not in split
+               for *_, s in r)
+    return max((len(r) for r in pieces.values()), default=1)
+
+
+def test_int8_plan_fills_the_card_on_the_canonical_shapes():
+    """Every int8 product of the canonical path takes the wgmma instance
+    with one block on each of the H100's 132 SMs; the forward shapes take
+    whole tiles, the dw shapes (18-72 tiles) cut K by stream-K into at
+    most MAX_PIECES pieces a tile, and every K block is computed once."""
+    for m, k, n in _CANONICAL_INT8:
+        p = im.plan(m, n, k, 132)
+        assert p.instance == "wgmma" and p.grid == 132, (m, k, n, p)
+        assert p.stream_k == (m != 12800) and p.tiles == (
+            -(-m // im.TILE_M) * -(-n // im.TILE_N))
+        assert _covers_each_k_block_once(p) <= im.MAX_PIECES
+
+
+def test_int8_schedule_covers_k_once():
+    """Ragged M, N and K tails, a single element, few SMs: the blocks'
+    segments still cover each tile's K once, in equal shares."""
+    for m, k, n, sms in ((200, 12800 + 48, 136, 132), (1, 16, 1, 132),
+                         (64, 4096 + 48, 72, 132), (300, 768, 2304, 132),
+                         (700, 1024, 1000, 16), (129, 4096, 257, 7)):
+        p = im.plan(m, n, k, sms)
+        assert p.instance == "wgmma" and p.grid <= sms
+        assert _covers_each_k_block_once(p) <= im.MAX_PIECES
+
+
+def test_int8_plan_takes_mma_sync_for_ragged_k_or_misaligned_bases():
+    for m, k, n in ((333, 1000, 77), (77, 100, 45), (1, 1, 1), (130, 33, 7),
+                    (12800, 768 + 8, 768)):
+        assert im.plan(m, n, k, 132).instance == "mma_sync"
+    assert im.plan(12800, 768, 768, 132, aligned=False).instance == "mma_sync"
+    assert im.plan(12800, 768, 768, 132, aligned=True).instance == "wgmma"
+
+
 # M, K, N: tile multiples, ragged edges in every dimension, K not a
-# multiple of 16 (the byte-load route), a single element, a long K
+# multiple of 16 (the mma_sync instance), a single element, a long K; a
+# stream-K shape ragged in M and N with a K tail of 48 bytes; a reduced
+# dw-like shape (K = 12800, 6 tiles: stream-K over the whole card)
 _INT8_CASES = [(256, 128, 256), (128, 64, 128), (200, 96, 136), (77, 100, 45),
-               (1, 1, 1), (130, 33, 7), (64, 4096 + 48, 72), (300, 768, 2304)]
+               (1, 1, 1), (130, 33, 7), (64, 4096 + 48, 72), (300, 768, 2304),
+               (200, 12800 + 48, 136), (384, 12800, 512)]
 
 
 @pytest.mark.gpu
@@ -499,7 +571,10 @@ def test_int8_matmul_kernel_equals_plain_on_card(cuda, m, k, n, layout):
         b = b.t().contiguous().t()
     else:
         a = a.t().contiguous().t()
+    instance = im.plan(m, n, k, torch.cuda.get_device_properties(
+        cuda).multi_processor_count).instance
     before = int8_matmul.launches
+    before_instance = int8_matmul.instance_launches[instance]
     for out_dtype in (torch.float32, torch.bfloat16):
         got = int8_matmul(a, b, sa, sb, out_dtype)
         torch.cuda.synchronize()
@@ -508,6 +583,29 @@ def test_int8_matmul_kernel_equals_plain_on_card(cuda, m, k, n, layout):
         assert torch.equal(got, want), (
             f"{out_dtype}: {(got.float() - want.float()).abs().max().item()}")
     assert int8_matmul.launches == before + 2
+    assert int8_matmul.instance_launches[instance] == before_instance + 2
+
+
+@pytest.mark.gpu
+def test_int8_matmul_schedules_agree_on_card(cuda, monkeypatch):
+    """One product of 6 tiles and 100 K blocks under forced wgmma plans:
+    whole tiles on 6 and on 2 blocks, stream-K on 132, 37 and 5 blocks
+    (pieces from one K block to several tiles). Integer sums are exact in
+    any order, so every schedule equals the plain version bit for bit."""
+    m, k, n = 384, 12800, 512
+    a, b, sa, sb = (x.to(cuda) for x in _int8_inputs(m, k, n, seed=3))
+    b = b.t().contiguous().t()
+    base = im.plan(m, n, k, 132)
+    wants = {d: int8_matmul_plain(a, b, sa, sb, d)
+             for d in (torch.float32, torch.bfloat16)}
+    for grid, stream_k in ((6, False), (2, False), (132, True), (37, True),
+                           (5, True)):
+        forced = base._replace(grid=grid, stream_k=stream_k)
+        monkeypatch.setattr(im, "plan", lambda *_, p=forced, **__: p)
+        for out_dtype, want in wants.items():
+            got = int8_matmul(a, b, sa, sb, out_dtype)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (grid, stream_k, out_dtype)
 
 
 @pytest.mark.gpu
