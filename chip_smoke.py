@@ -17,9 +17,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            Philox mask on both sides, keep rate, same seed same bits), the
            attention backward without and with dropout (two runs bit-equal);
            the fused CubeMLP axis MLP at the six shapes of the
-           canonical encoder with and without bias and at one ragged shape
-           per axis; the int8 GEMM at the four forward shapes of a BERT
-           layer (bf16 out), the four weight-gradient shapes (float32 out,
+           canonical encoder with and without bias, each on its axis's
+           instance (the D mix on tf32x3_rows, the L mix on tf32x3_cols,
+           the K mix on kmix), and at one ragged shape per axis; the int8
+           GEMM at the four forward shapes of a BERT layer (bf16 out), the
+           four weight-gradient shapes (float32 out,
            two runs bit-equal, also timed in the operand layouts the dw
            product hands over) and two ragged shapes, bit for bit, the
            eight canonical ones on the wgmma instance, whose library must
@@ -38,7 +40,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            match the same forward through the plain attention route. The same
            checkpoint is then served with ``use_pallas`` and ``quant int8``
            set: 12 attention, 6 axis-MLP and 48 int8 GEMM launches per
-           batch, every int8 launch on the wgmma instance.
+           batch, every int8 launch on the wgmma instance, every axis-MLP
+           launch on its axis's instance.
 4. train   ``mimrl_tpu_torch.cli.main`` trains the same config for 2
            epochs (3 train batches of 128, 1 valid, 1 test): epoch 0 is
            stage 2 without MI, epoch 1 is stage 1 (2 critic passes) and
@@ -54,7 +57,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 5. quant   the same run again with ``--use_pallas --quant int8``: launches
            of all four kernels per epoch (a train step 12 + 12 attention,
            6 axis-MLP, 96 int8 GEMM; a critic step or an eval batch
-           12 + 0, 6, 48; every int8 launch on the wgmma instance),
+           12 + 0, 6, 48; every int8 launch on the wgmma instance, every
+           axis-MLP launch on its axis's instance),
            finite losses and MI channels, ``Predictor`` on
            its checkpoint with the flags it recorded; one float32 train
            step through the two new kernels against the same step through
@@ -85,8 +89,9 @@ SERVE_SHAPE = (BATCH, N_HEADS, TIME_LEN, HEAD_DIM)
 AVEC_SHAPE = (BATCH, N_HEADS, 150, HEAD_DIM)
 N_TEST = 4 * BATCH + 57  # 5 batches; the last one is cycle-padded
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-# tensor cores (bf16, int8); FP32 pipes
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# tensor cores (bf16, int8, TF32); FP32 pipes
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+            "tfloat32": 495e12}
 # kernel vs plain: float32 differs by summation order and the online
 # softmax; bf16 additionally by where P is rounded (unnormalised in the
 # kernel, normalised in the plain version), one bf16 step is 2^-8
@@ -183,6 +188,8 @@ AXIS_MLP_SHAPES = [
 AXIS_MLP_RAGGED = [((3, 37, 3, 50), 1, 33, 41), ((3, 7, 5, 70), 2, 9, 2),
                    ((3, 7, 5, 70), 3, 45, 130)]
 AXIS_MLP_MAIN = AXIS_MLP_SHAPES[2]  # the D mix of block 0 heads the record
+# the instance ops/cubemlp_kernel.py::plan must pick for each canonical axis
+AXIS_MLP_INSTANCE = {1: "tf32x3_cols", 2: "kmix", 3: "tf32x3_rows"}
 # (K, N) of a BERT-base layer's four dense products; M = bs * time_len
 ROWS = BATCH * TIME_LEN
 INT8_LAYER_SHAPES = [(768, 2304), (768, 768), (768, 3072), (3072, 768)]
@@ -240,9 +247,9 @@ def counts():
 def zero_counts() -> None:
     for w in kernel_wrappers():
         w.launches = 0
-    instances = kernel_wrappers()[3].instance_launches
-    for key in instances:
-        instances[key] = 0
+    for w in kernel_wrappers()[2:]:
+        for key in w.instance_launches:
+            w.instance_launches[key] = 0
 
 
 def int8_instances(step: str, launches) -> dict:
@@ -252,6 +259,19 @@ def int8_instances(step: str, launches) -> dict:
     require(instances == {"wgmma": launches[3], "mma_sync": 0},
             f"{step}: int8 launches by instance {instances}, want all "
             f"{launches[3]} on wgmma")
+    return instances
+
+
+def axis_mlp_instances(step: str, launches) -> dict:
+    """The axis-MLP launches of a counted run by instance (set to 0 with
+    the counts): a forward's six AxisMLPs are two per axis, each on its
+    axis's instance of AXIS_MLP_INSTANCE."""
+    instances = dict(kernel_wrappers()[2].instance_launches)
+    n = launches[2] // 3
+    require(launches[2] % 3 == 0
+            and instances == {v: n for v in AXIS_MLP_INSTANCE.values()},
+            f"{step}: axis-MLP launches by instance {instances}, want "
+            f"{n} on each of {sorted(AXIS_MLP_INSTANCE.values())}")
     return instances
 
 
@@ -617,42 +637,68 @@ def axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias, seed):
 
 
 def axis_mlp_bound(x, w1, w2, b1, b2, axis):
-    """(ms, 'bytes' | 'operations'): x, the weights and the biases read
-    once and y written once at the HBM rate, against
-    2 * positions * (d_in * d_hidden + d_hidden * d_out) float32 operations
-    at the FP32 rate."""
+    """The least time for float32-level work: x, the weights and the
+    biases read once and y written once at the HBM rate, against the
+    2 * positions * (d_in * d_hidden + d_hidden * d_out) operations either
+    on the FP32 pipes or as 3xTF32 (three TF32 products each) on the tensor
+    cores, whichever is faster. Returns (ms, 'bytes' | 'operations', the
+    rate that bounds: 'hbm' | 'fp32_pipes' | 'tf32x3', and the bound with
+    the operations on the FP32 pipes only, in ms)."""
     d_in, d_hidden = w1.shape
     d_out = w2.shape[1]
     positions = x.numel() // d_in
     floats = (x.numel() + positions * d_out + w1.numel() + w2.numel()
               + (0 if b1 is None else b1.numel() + b2.numel()))
     t_bytes = 4 * floats / PEAK_BYTES_PER_S
-    t_ops = 2 * positions * (d_in * d_hidden + d_hidden * d_out) / PEAK_OPS["float32"]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    ops = 2 * positions * (d_in * d_hidden + d_hidden * d_out)
+    t_fp32 = ops / PEAK_OPS["float32"]
+    t_tf32x3 = 3 * ops / PEAK_OPS["tfloat32"]
+    t_ops = min(t_fp32, t_tf32x3)
+    rate = ("hbm" if t_bytes >= t_ops
+            else "fp32_pipes" if t_fp32 <= t_tf32x3 else "tf32x3")
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", rate,
+            1e3 * max(t_bytes, t_fp32))
 
 
 def axis_mlp_phase():
     """The fused axis-MLP kernel against its plain version (float32, the
     only type the encoder's input has): the six canonical shapes with and
-    without bias, timed, and one ragged shape per axis. Returns the record
-    for the kernels line."""
+    without bias, timed, each on its axis's instance of AXIS_MLP_INSTANCE,
+    and one ragged shape per axis. Every launch must count on the instance
+    ``plan`` names. Returns the record for the kernels line."""
+    import math
+
     import torch
 
+    from mimrl_tpu_torch.ops import cubemlp_kernel as ck
     from mimrl_tpu_torch.ops.cubemlp_kernel import (fused_axis_mlp,
                                                     fused_axis_mlp_plain)
 
     main, per_shape, worst = None, [], 0.0
     cases = [(c, True) for c in AXIS_MLP_SHAPES] + [(c, False) for c in AXIS_MLP_RAGGED]
     for (shape, axis, d_hidden, d_out), timed in cases:
+        p = ck.plan(math.prod(shape[:axis]), shape[axis], d_hidden, d_out,
+                    math.prod(shape[axis + 1:]),
+                    ck._sm_count(torch.device("cuda", 0)))
+        require(not timed or p.instance == AXIS_MLP_INSTANCE[axis],
+                f"cubemlp_axis_mlp {shape} axis {axis}: planned "
+                f"{p.instance}, want {AXIS_MLP_INSTANCE[axis]}")
         rec = dict(phase="kernel", kernel="cubemlp_axis_mlp", shape=list(shape),
                    axis=axis, d_hidden=d_hidden, d_out=d_out, dtype="float32",
-                   activation="gelu", tol=AXIS_MLP_TOL)
+                   activation="gelu", tol=AXIS_MLP_TOL, instance=p.instance,
+                   vec=p.vec, grid=list(p.grid), block=list(p.block),
+                   tiles=p.tiles, smem=p.smem)
         for use_bias in (True, False):
             args = axis_mlp_inputs(shape, axis, d_hidden, d_out, use_bias,
                                    seed=sum(shape) + axis)
+            before = fused_axis_mlp.instance_launches[p.instance]
             got = fused_axis_mlp(*args, axis, "gelu")
             want = fused_axis_mlp_plain(*args, axis, "gelu")
             torch.cuda.synchronize()
+            require(fused_axis_mlp.instance_launches[p.instance] == before + 1,
+                    f"cubemlp_axis_mlp {shape} axis {axis}: did not launch "
+                    f"{p.instance}")
             require(got.shape == want.shape and bool(torch.isfinite(got).all()),
                     f"cubemlp_axis_mlp {shape} axis {axis}: shape or non-finite")
             err = rel_err(got, want)
@@ -669,20 +715,21 @@ def axis_mlp_phase():
                 rec["ms_one_launch"] = cuda_ms(
                     lambda: fused_axis_mlp(*args, axis, "gelu"))
                 rec["profiler_ms"] = profiler_ms(
-                    lambda: fused_axis_mlp(*args, axis, "gelu"),
-                    "axis_mlp_kernel")
+                    lambda: fused_axis_mlp(*args, axis, "gelu"), "axis_mlp_")
                 rec["plain_ms"] = cuda_ms(
                     lambda: fused_axis_mlp_plain(*args, axis, "gelu"), inner=20)
-                rec["bound_ms"], rec["bound_by"] = axis_mlp_bound(*args, axis)
+                (rec["bound_ms"], rec["bound_by"], rec["bound_rate"],
+                 rec["bound_ms_fp32_pipes"]) = axis_mlp_bound(*args, axis)
         if timed:
             # canonical: the model's AxisMLPs have biases
             rec.update(ms=rec["ms_bias"], max_abs_err=rec["max_abs_err_bias"],
                        library_ms=None)  # no single PyTorch call computes it
             worst = max(worst, rec["max_abs_err_bias"], rec["max_abs_err_no_bias"])
             per_shape.append({k: rec[k] for k in (
-                "shape", "axis", "d_hidden", "d_out", "ms", "ms_no_bias",
-                "ms_one_launch", "profiler_ms", "plain_ms", "bound_ms",
-                "bound_by", "max_abs_err")})
+                "shape", "axis", "d_hidden", "d_out", "instance", "grid",
+                "ms", "ms_no_bias", "ms_one_launch", "profiler_ms", "plain_ms",
+                "bound_ms", "bound_by", "bound_rate", "bound_ms_fp32_pipes",
+                "max_abs_err", "max_rel_err_bias")})
             if (shape, axis, d_hidden, d_out) == AXIS_MLP_MAIN:
                 main = dict(rec)
         emit(**rec)
@@ -692,7 +739,9 @@ def axis_mlp_phase():
                     sum(r["profiler_ms"] for r in per_shape)
                     if all(r["profiler_ms"] for r in per_shape) else None),
                 plain_ms_six_shapes=sum(r["plain_ms"] for r in per_shape),
-                bound_ms_six_shapes=sum(r["bound_ms"] for r in per_shape))
+                bound_ms_six_shapes=sum(r["bound_ms"] for r in per_shape),
+                bound_ms_fp32_pipes_six_shapes=sum(
+                    r["bound_ms_fp32_pipes"] for r in per_shape))
     return main
 
 
@@ -930,6 +979,7 @@ def timed_serve(task: str, step: str, overrides: dict, per_batch):
     wall = time.perf_counter() - t0
     launches = counts()
     instances = int8_instances(step, launches)
+    axis_instances = axis_mlp_instances(step, launches)
     predictor.forward = forward
     want = tuple(n * n_batches for n in per_batch)
     require(launches == want,
@@ -938,7 +988,8 @@ def timed_serve(task: str, step: str, overrides: dict, per_batch):
             f"non-finite metrics {metrics}")
     emit(phase="serve", step=step, metrics=metrics, overrides=overrides,
          batches=n_batches, launches=dict(zip(KERNEL_NAMES, launches)),
-         int8_instances=instances, batch_ms_median=statistics.median(batch_ms), batch_ms=batch_ms,
+         int8_instances=instances, axis_mlp_instances=axis_instances,
+         batch_ms_median=statistics.median(batch_ms), batch_ms=batch_ms,
          samples_per_s=N_TEST / wall, evaluate_s=wall,
          forward_samples_per_s=BATCH / (1e-3 * statistics.median(batch_ms)),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1154,6 +1205,7 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
             setattr(steps, fn_name, originals[fn_name])
     launches = counts()
     instances = int8_instances(name, launches)
+    axis_instances = axis_mlp_instances(name, launches)
 
     # ---- launch counts of the four kernels, exactly, per epoch: epoch 0
     # is 3 train steps, epoch 1 is 6 critic steps and 3 train steps; each
@@ -1205,6 +1257,7 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
     eval_ms = log["steps"]["eval_step"][2:]
     emit(phase=name, step="solver_bf16", flags=flags, epochs=log["epochs"],
          wall_s=wall, kernel_order=KERNEL_NAMES, int8_instances=instances,
+         axis_mlp_instances=axis_instances,
          train_step_ms=train_ms, critic_step_ms=critic_ms, eval_batch_ms=eval_ms,
          train_step_ms_median=statistics.median(train_ms),
          critic_step_ms_median=statistics.median(critic_ms),
@@ -1731,7 +1784,7 @@ def main() -> int:
     replaces = ("mimrl_tpu/ops/pallas/flash_attention.py:225",
                 "mimrl_tpu/ops/pallas/flash_attention.py:458",
                 "mimrl_tpu/ops/pallas/cubemlp_kernel.py:109",
-                "mimrl_tpu/ops/pallas/int8_matmul.py:63")
+                "mimrl_tpu/ops/pallas/int8_matmul.py:65")
     for i, rec in enumerate(records):
         rec.update(name=KERNEL_NAMES[i], route="cuda",
                    source=f"mimrl_tpu_torch/ops/csrc/{sources[i]}",
@@ -1739,7 +1792,8 @@ def main() -> int:
                    launches=sum(c[i] for c in paths.values()),
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
         for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
-                    "ms_one_launch", "library_events_ms"):
+                    "ms_one_launch", "library_events_ms", "bound_rate",
+                    "bound_ms_fp32_pipes"):
             rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
@@ -1748,7 +1802,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
-            "library_events_ms", "launches_serve", "launches_train",
+            "library_events_ms", "bound_rate", "bound_ms_fp32_pipes", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "shapes")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)

@@ -203,7 +203,7 @@ def _configured(monkeypatch, name):
 # mimrl_flash_attention_bwd_tc_max_t(int) is read only by a card test
 ENTRY_POINTS = ("mimrl_flash_attention_fwd", "mimrl_flash_attention_fwd_tc",
                 "mimrl_flash_attention_bwd", "mimrl_flash_attention_bwd_tc",
-                "mimrl_cubemlp_axis_mlp", "mimrl_cubemlp_axis_mlp_smem",
+                "mimrl_cubemlp_axis_mlp",
                 "mimrl_int8_matmul", "mimrl_int8_matmul_wgmma")
 
 

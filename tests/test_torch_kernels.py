@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from mimrl_tpu_torch.ops import cubemlp_kernel as ck
 from mimrl_tpu_torch.ops import flash_attention as fa_mod
 from mimrl_tpu_torch.ops.cubemlp_kernel import (fused_axis_mlp,
                                                 fused_axis_mlp_plain)
@@ -371,21 +372,91 @@ _AXIS_MLP_CASES = [
 ]
 
 
+# the six AxisMLPs of the canonical encoder (50-3-128=10-3-128, bs 128)
+_AXIS_MLP_CANONICAL = [
+    ((128, 100, 3, 128), 1, 50, 50), ((128, 50, 3, 128), 2, 3, 3),
+    ((128, 50, 3, 128), 3, 128, 128), ((128, 50, 3, 128), 1, 10, 10),
+    ((128, 10, 3, 128), 2, 3, 3), ((128, 10, 3, 128), 3, 128, 128)]
+_AXIS_MLP_INSTANCE = {1: "tf32x3_cols", 2: "kmix", 3: "tf32x3_rows"}
+
+
+def _axis_mlp_plan(shape, axis, d_hidden, d_out, sms=132, aligned=True):
+    outer = int(np.prod(shape[:axis]))
+    inner = int(np.prod(shape[axis + 1:]))
+    return (ck.plan(outer, shape[axis], d_hidden, d_out, inner, sms, aligned),
+            outer, inner)
+
+
+def _axis_mlp_positions(p, outer, inner):
+    """The (outer, inner) positions each launch of plan ``p`` computes, as
+    its kernel walks its grid; one entry per computation."""
+    seen = []
+    if p.instance == "kmix":
+        (gx, gy), (tx, ty) = p.grid, p.block
+        for bx in range(gx):
+            for i4 in range(bx * tx, min((bx + 1) * tx, inner // 4)):
+                for o0 in range(gy * ty):
+                    seen += [(o, i) for o in range(o0, outer, gy * ty)
+                             for i in range(4 * i4, 4 * i4 + 4)]
+        return seen
+    tiles_i = -(-inner // ck.TILE)
+    for b in range(p.grid[0]):
+        for tile in range(b, p.tiles, p.grid[0]):
+            if p.instance == "tf32x3_rows":
+                lo = tile * ck.TILE
+                seen += [(o, 0) for o in range(lo, min(lo + ck.TILE, outer))]
+            else:
+                o, lo = tile // tiles_i, tile % tiles_i * ck.TILE
+                seen += [(o, i) for i in range(lo, min(lo + ck.TILE, inner))]
+    return seen
+
+
+def test_axis_mlp_plan():
+    """plan: the canonical six on the redesigned instances with 16-byte
+    loads; every test case on an instance whose grid computes every
+    position once, in a block's shared memory; an unaligned x takes no
+    kmix and no 16-byte loads; weights too large for a block raise."""
+    for shape, axis, d_hidden, d_out in _AXIS_MLP_CANONICAL:
+        p, _, _ = _axis_mlp_plan(shape, axis, d_hidden, d_out)
+        assert (p.instance, p.vec) == (_AXIS_MLP_INSTANCE[axis], 4), shape
+        if p.instance != "kmix":  # persistent: at most the blocks that fit
+            assert p.grid[0] <= 132 * ck.BLOCKS_PER_SM
+        q, _, _ = _axis_mlp_plan(shape, axis, d_hidden, d_out, aligned=False)
+        assert q.instance != "kmix" and q.vec == 1
+    for shape, axis, d_hidden, d_out in _AXIS_MLP_CASES:
+        p, outer, inner = _axis_mlp_plan(shape, axis, d_hidden, d_out, sms=4)
+        assert p.instance in ck.INSTANCES
+        assert p.block[0] * p.block[1] == ck.THREADS
+        assert p.smem <= ck.MAX_SMEM_BYTES
+        assert p.instance != "tf32x3_rows" or inner == 1
+        seen = _axis_mlp_positions(p, outer, inner)
+        assert len(seen) == outer * inner == len(set(seen)), (shape, p)
+        assert all(0 <= o < outer and 0 <= i < inner for o, i in seen)
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.plan(128 * 50 * 3, 256, 256, 256, 1, 132)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_bias", [True, False])
 @pytest.mark.parametrize("shape,axis,d_hidden,d_out", _AXIS_MLP_CASES)
 def test_axis_mlp_kernel_matches_plain_on_card(cuda, shape, axis, d_hidden,
                                                d_out, use_bias):
     """Tolerance 2e-5 of the largest magnitude of the plain result: both
-    sides are float32 and differ by summation order, FMA contraction and
-    the last bits of erf."""
+    sides are float32-level (the tensor-core instances in 3xTF32) and
+    differ by summation order, FMA contraction, the 3xTF32 split's dropped
+    terms and the last bits of erf. The launch is counted on the planned
+    instance."""
     args = [a if a is None else a.to(cuda) for a in _axis_mlp_inputs(
         shape, axis, d_hidden, d_out, use_bias, seed=sum(shape),
         linear_layout=True)]
+    p, _, _ = _axis_mlp_plan(shape, axis, d_hidden, d_out,
+                             sms=ck._sm_count(args[0].device))
     before = fused_axis_mlp.launches
+    before_instance = fused_axis_mlp.instance_launches[p.instance]
     got = fused_axis_mlp(*args, axis, "gelu")
     torch.cuda.synchronize()
     assert fused_axis_mlp.launches == before + 1
+    assert fused_axis_mlp.instance_launches[p.instance] == before_instance + 1
     want = fused_axis_mlp_plain(*args, axis, "gelu")
     assert got.shape == want.shape and got.dtype == torch.float32
     assert _rel_err(got, want) <= 2e-5
@@ -400,30 +471,41 @@ def test_axis_mlp_kernel_matches_plain_on_card(cuda, shape, axis, d_hidden,
                                       "leakyrelu", "prelu", "relu", "rrelu",
                                       "tanh"])
 def test_axis_mlp_kernel_has_every_activation_on_card(cuda, activate):
-    """Every activation of the registry, against the registry's own
-    function in the plain version (2e-5 of the largest magnitude)."""
-    args = [a.to(cuda) for a in _axis_mlp_inputs((3, 20, 3, 40), 3, 24, 40,
-                                                 True, seed=3)]
-    args[0] = args[0] * 3.0  # reach the saturated and the negative branches
-    got = fused_axis_mlp(*args, 3, activate)
-    want = fused_axis_mlp_plain(*args, 3, activate)
-    assert _rel_err(got, want) <= 2e-5
+    """Every activation of the registry on every instance (one axis each),
+    against the registry's own function in the plain version (2e-5 of the
+    largest magnitude)."""
+    used = set()
+    for axis, d_hidden, d_out in ((1, 24, 20), (2, 3, 3), (3, 24, 40)):
+        args = [a.to(cuda) for a in _axis_mlp_inputs(
+            (3, 20, 3, 40), axis, d_hidden, d_out, True, seed=3 + axis)]
+        args[0] = args[0] * 3.0  # reach the saturated and the negative branches
+        before = dict(fused_axis_mlp.instance_launches)
+        got = fused_axis_mlp(*args, axis, activate)
+        want = fused_axis_mlp_plain(*args, axis, activate)
+        assert _rel_err(got, want) <= 2e-5, axis
+        used |= {k for k, n in fused_axis_mlp.instance_launches.items()
+                 if n != before[k]}
+    assert used == set(ck.INSTANCES)
 
 
 @pytest.mark.gpu
 def test_axis_mlp_gradients_on_card(cuda):
     """Kernel forward + einsum backward against autograd through the plain
-    version, for every input (2e-5 of each gradient's largest magnitude)."""
-    for axis in (1, 2, 3):
+    version, for every input (2e-5 of each gradient's largest magnitude),
+    on a small shape per axis and on the canonical widths per axis."""
+    cases = [((4, 12, 3, 16), axis, 7, 5) for axis in (1, 2, 3)]
+    cases += [((4, 100, 3, 128), 1, 50, 50), ((4, 50, 3, 128), 2, 3, 3),
+              ((4, 50, 3, 128), 3, 128, 128)]
+    for shape, axis, d_hidden, d_out in cases:
         args = [a.to(cuda).requires_grad_() for a in _axis_mlp_inputs(
-            (4, 12, 3, 16), axis, 7, 5, True, seed=axis)]
+            shape, axis, d_hidden, d_out, True, seed=axis)]
         got = fused_axis_mlp(*args, axis, "gelu")
         want = fused_axis_mlp_plain(*args, axis, "gelu")
         d_y = torch.randn(got.shape, device=cuda,
                           generator=torch.Generator(cuda).manual_seed(axis))
         for g, w in zip(torch.autograd.grad(got, args, d_y),
                         torch.autograd.grad(want, args, d_y)):
-            assert _rel_err(g, w) <= 2e-5
+            assert _rel_err(g, w) <= 2e-5, (shape, axis)
 
 
 # --------------------------------------------------------------------- #
