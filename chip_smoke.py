@@ -65,6 +65,20 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            their plain versions (bit-equal where only the int8 kernel is
            exchanged); one bf16 train step each in ``int8_fwd`` (48 int8
            launches) and ``int8_all`` (144).
+6. resume  the canonical recipe (flag-free) for 3 epochs with ``latest``
+           written every epoch, a learning-rate milestone at epoch 2 and
+           ``--bert_weights`` pointing at a seeded BERT-base
+           ``pytorch_model.bin`` written here (the Solver must hold its
+           tensors bit for bit): run A goes through, A2 repeats it, B gets
+           SIGTERM during epoch 1 and stops after it with ``latest`` at
+           epoch 1, C resumes B for epoch 2. C's final slot (weights, both
+           optimizers, the bank, the schedule) and epoch-2 loss and MI
+           values are held against A's within RESUME_GAP_FACTOR times the
+           A2-vs-A gap (bit-equal where A2 is), a resume with the loader's
+           pass counter left at 0 must fail that gate, and every
+           ``train_step`` of the resumed epoch launches 12 + 12 attention
+           kernels. Slot bytes, save, read and ``_resume`` ms, peak memory
+           of a save.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -177,6 +191,28 @@ QUANT_GRAD_TOL = 5e-2
 EMBEDDING_GRAD_TOL = 1e-5
 KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd",
                 "cubemlp_axis_mlp", "int8_matmul")
+# the resume phase: 3 epochs, latest every epoch, the milestone at epoch 2,
+# so the restored schedule state acts inside the run. The resumed run C is
+# held against the uninterrupted run A tensor by tensor (the model's, each
+# parameter's optimizer moments, the bank, the generators), with the
+# epoch-2 loss and MI values, the schedule and the loader's passes. The
+# repeat A2 shows what this card reproduces: C must be bit-equal wherever
+# A2 is. On an H100 80GB HBM3 at 700 W A2 differed from A in one parameter
+# only, BERT's token-type embedding table (its value and its moments;
+# every other tensor, the bank and the epoch-2 values bit-equal), because
+# torch's CUDA embedding backward sums that table's gradient over 12800
+# positions of one index in an order that changes from run to run (two
+# identical train steps: 9.3e-7 to 1.2e-6 of its largest value apart;
+# torch's deterministic-algorithm check flags no operation of the step),
+# and the bf16 cast of the embeddings hides the difference from the rest
+# of the forward. There C may differ from A by RESUME_GAP_FACTOR times the
+# largest A2-vs-A difference, counted in last places of each element's
+# dtype: A2 read 35 and 40, C 49 and 43 in two repetitions, the resume
+# that leaves the loader's pass counter at 0 1.4e7 (and 1218 other
+# tensors differ).
+RESUME_ARGS = ["--epochs_num", "3", "--save_latest_every", "1",
+               "--lr_decrease_iter", "2-60"]
+RESUME_GAP_FACTOR = 10.0
 # substrings of the CUDA kernels' names in ops/csrc, for the profiler
 PORT_KERNEL_SYMBOLS = ("flash_fwd", "flash_bwd", "axis_mlp", "int8_matmul")
 # [bs, L, K, D], axis, d_hidden, d_out of the six AxisMLPs of the canonical
@@ -1744,6 +1780,309 @@ def quant_mode_steps(argv) -> None:
              launches=dict(zip(KERNEL_NAMES, launches)))
 
 
+def write_bert_file(path: str) -> dict:
+    """BERT-base in HuggingFace's layout, as ``BertForPreTraining`` saves
+    it (``bert.`` prefix, pooler, ``position_ids``), from seeded tensors:
+    normal(0, 0.02), LayerNorm weights 1 + normal(0, 0.02). Returns the
+    tensors by the port's names."""
+    import torch
+
+    from mimrl_tpu_torch.models.bert import BertConfig, BertModel
+
+    c = BertConfig()  # 30522 x 768, 12 layers of 12 heads, FFN 3072
+    gen = torch.Generator().manual_seed(7)
+    with torch.device("meta"):
+        shapes = {k: v.shape for k, v in BertModel(c).state_dict().items()}
+    tensors = {k: torch.randn(s, generator=gen) * 0.02
+               + (1.0 if k.endswith("LayerNorm.weight") else 0.0)
+               for k, s in shapes.items()}
+    sd = {f"bert.{k}": v for k, v in tensors.items()}
+    sd["bert.embeddings.position_ids"] = torch.arange(
+        c.max_position_embeddings)[None]
+    sd["bert.pooler.dense.weight"] = torch.randn(
+        c.hidden_size, c.hidden_size, generator=gen) * 0.02
+    sd["bert.pooler.dense.bias"] = torch.zeros(c.hidden_size)
+    torch.save(sd, path)
+    return tensors
+
+
+def differing(got: dict, want: dict, limit: int = 8) -> list:
+    """[name, rel_err] of the float tensors that differ between two
+    state dicts, the largest first."""
+    import torch
+
+    gaps = sorted(((rel_err(got[k], y), k) for k, y in want.items()
+                   if torch.is_tensor(y) and y.is_floating_point()
+                   and not torch.equal(got[k], y)), reverse=True)
+    return [[k, g] for g, k in gaps[:limit]]
+
+
+def slot_tensors(slot: dict, opt_names: dict) -> dict:
+    """Every tensor of a ``latest`` slot by name: the model's; each
+    parameter's segment of both optimizers' flat moments, named after the
+    parameter (``opt_names``: the optimizers' parameter names in order),
+    and their step counts; the bank's fields; the three generators'
+    states."""
+    out = {f"model.{k}": v for k, v in slot["model"].items()}
+    for opt, names in opt_names.items():
+        state = slot[opt]
+        out[f"{opt}.count"] = state["count"]
+        for m in ("mu", "nu"):
+            if state[m].numel():
+                out.update((f"{opt}.{m}.{n}", seg) for n, seg in
+                           zip(names, state[m].split(state["sizes"])))
+    out.update((f"bank.{k}", v) for k, v in slot["bank"].items())
+    out.update((f"rng.{k}", v) for k, v in slot["rng"].items())
+    return out
+
+
+def ulp_gap(got, want) -> float:
+    """The largest difference of two tensors in units of the spacing of
+    ``want``'s dtype at each element of ``want`` (its last place): 0 where
+    bit-equal; huge where ``want`` holds a 0 that ``got`` does not;
+    infinite for tensors that are not floating point."""
+    import math
+
+    import torch
+
+    if torch.equal(got, want):
+        return 0.0
+    if not want.is_floating_point():
+        return float("inf")
+    info = torch.finfo(want.dtype)
+    mantissa_bits = round(-math.log2(info.eps))
+    # |want| = m * 2^e with m in [0.5, 1): one last place is 2^(e-1-bits)
+    _, exponent = torch.frexp(want.double().abs().clamp_min(info.tiny))
+    spacing = torch.ldexp(torch.ones_like(want, dtype=torch.float64),
+                          exponent - 1 - mantissa_bits)
+    return ((got.double() - want.double()).abs() / spacing).max().item()
+
+
+def epoch_values(task: str, epoch: int) -> list:
+    """The train loss and the eight train MI values of ``epoch``, from the
+    run's ``scalars.jsonl``."""
+    rows = {r["tag"]: r["value"] for r in map(json.loads, open(
+        f"{task}/scalars.jsonl")) if r["step"] == epoch}
+    return [rows["Train/Loss"]] + [rows[f"Train/MI_{n}"] for n in (
+        "ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")]
+
+
+def resume_phase(root: str):
+    """A run stopped by SIGTERM in epoch 1 and resumed for epoch 2 (C)
+    against the same run uninterrupted (A) and A's repeat (A2), at full
+    width through ``cli.main`` with ``--bert_weights``; returns the launch
+    counts of the resumed run."""
+    import os
+    import signal
+    import warnings
+
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.core.checkpoint import CheckpointManager
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    data, runs = f"{root}/train_data", f"{root}/resume_runs"
+    if not os.path.isdir(data):
+        make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
+                         d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
+    bert_path = f"{root}/pytorch_model.bin"
+    bert = write_bert_file(bert_path)
+
+    def argv(name, *flags):
+        return CANONICAL_MOSI + CANONICAL_TRAIN + RESUME_ARGS + [
+            "--bert_weights", bert_path, "--data_dir", data,
+            "--task_dir", runs, "--task_name", name, *flags]
+
+    record = dict(phase="resume", step="resume_vs_uninterrupted",
+                  bert_file_bytes=os.path.getsize(bert_path))
+    originals = {n: vars(Solver)[n] for n in ("solve", "train", "_resume")}
+    save = CheckpointManager.save
+    saves = []
+
+    def timed_save(self, slot, state):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        save(self, slot, state)
+        saves.append(dict(slot=slot, ms=1e3 * (time.perf_counter() - t0),
+                          live_gb=live / 1e9,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    def run(name, *flags, patches=()):
+        """cli.main, then the run's final latest slot and epoch-2 values."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        with patched([(CheckpointManager, "save", timed_save), *patches]):
+            cli_main(argv(name, *flags))
+        task = f"{runs}/{name}"
+        slot = CheckpointManager(task).restore("latest", map_location="cpu")
+        return dict(slot=slot, values=(epoch_values(task, 2)
+                                       if slot["epoch"] == 2 else None))
+
+    # A: uninterrupted; its Solver must hold the BERT file's tensors
+    opt_names = {}
+
+    def solve_checking_bert(self):
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        opt_names.update((k, [names[id(p)] for p in getattr(self, k).params])
+                         for k in ("opt_main", "opt_vmi"))
+        sd = self.model.bertmodel.state_dict()
+        unequal = [k for k, v in bert.items() if not torch.equal(sd[k].cpu(), v)]
+        require(sd.keys() == bert.keys() and not unequal,
+                f"--bert_weights: the Solver's BERT differs from the file "
+                f"in {unequal[:3]}")
+        record["bert_tensors_checked"] = len(bert)
+        return originals["solve"](self)
+
+    a = run("A", patches=[(Solver, "solve", solve_checking_bert)])
+    a_saves = list(saves)
+    a2 = run("A2")
+
+    # B: SIGTERM to this process during epoch 1
+    def train_with_sigterm(self, epoch):
+        if epoch == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return originals["train"](self, epoch)
+
+    handler = signal.getsignal(signal.SIGTERM)
+    b = run("B", patches=[(Solver, "train", train_with_sigterm)])
+    require(b["slot"]["epoch"] == 1 and signal.getsignal(signal.SIGTERM) is handler,
+            f"run B: latest at epoch {b['slot']['epoch']}, want 1, and the "
+            "SIGTERM handler restored")
+    del b
+    b_task = f"{runs}/B"
+    t0 = time.perf_counter()
+    CheckpointManager(b_task).restore("latest", map_location="cpu")
+    record["read_latest_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    # C: resume B for epoch 2, the launches of each train_step counted
+    step_counts, resume_ms = [], []
+    train_step = steps.train_step
+
+    def counted_train_step(*args, **kwargs):
+        c0 = counts()
+        out = train_step(*args, **kwargs)
+        step_counts.append(sub(counts(), c0))
+        return out
+
+    def timed_resume(self, resume_dir):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        originals["_resume"](self, resume_dir)
+        torch.cuda.synchronize()
+        resume_ms.append(1e3 * (time.perf_counter() - t0))
+
+    zero_counts()
+    c = run("C", "--resume", b_task, patches=[
+        (steps, "train_step", counted_train_step),
+        (Solver, "_resume", timed_resume)])
+    launches = counts()
+    want = add(step_launches("critic", False, "none", 6),
+               step_launches("train", False, "none", 3),
+               step_launches("eval", False, "none", 2))
+    require(launches == want and step_counts == [
+        step_launches("train", False, "none")] * 3,
+        f"resumed epoch: launches {launches} (want {want}), per train_step "
+        f"{step_counts}")
+
+    # fault control: a resume that leaves the loader's passes at 0
+    def resume_passes_at_zero(self, resume_dir):
+        originals["_resume"](self, resume_dir)
+        self.train_loader.passes = 0
+
+    fault = run("fault_passes", "--resume", b_task, patches=[
+        (Solver, "_resume", resume_passes_at_zero)])
+
+    # the gate: where A2 equals A, C must too; where the card does not
+    # reproduce itself (``unstable``: every parameter of which A2 differs
+    # from A in its value or a moment, with its value and both moments),
+    # C may differ from A by up to RESUME_GAP_FACTOR times the largest
+    # A2-vs-A gap there, in last places
+    tensors = {k: dict(slot_tensors(r["slot"], opt_names), epoch2_values=(
+                   torch.tensor(r["values"], dtype=torch.float64)))
+               for k, r in dict(a=a, a2=a2, c=c, fault=fault).items()}
+
+    def parameter(key):  # "model.x", "opt_main.mu.x", "opt_main.nu.x" -> x
+        head, _, rest = key.partition(".")
+        if head.startswith("opt_") and rest[:3] in ("mu.", "nu."):
+            return rest[3:]
+        return rest if head == "model" else key
+
+    moved = {parameter(k) for k, v in tensors["a"].items()
+             if not torch.equal(tensors["a2"][k], v)}
+    unstable = sorted(k for k in tensors["a"] if parameter(k) in moved)
+    control_ulps = max((ulp_gap(tensors["a2"][k], tensors["a"][k])
+                        for k in unstable), default=0.0)
+    limit_ulps = RESUME_GAP_FACTOR * control_ulps
+
+    def gate(name, r):
+        """(the tensors pass, the counters pass, the record)"""
+        got = tensors[name]
+        outside = [k for k, v in tensors["a"].items()
+                   if k not in unstable and not torch.equal(got[k], v)]
+        inside = max((ulp_gap(got[k], tensors["a"][k]) for k in unstable),
+                     default=0.0)
+        same = {k: r["slot"][k] == a["slot"][k]
+                for k in ("loader_passes", "lr_schedule")}
+        return (not outside and inside <= limit_ulps, all(same.values()),
+                dict(differing_outside_unstable=len(outside),
+                     first_differing=outside[:5], unstable_ulps=inside,
+                     **{f"{k}_equal": v for k, v in same.items()}))
+
+    tensors_ok, counters_ok, resumed = gate("c", c)
+    passed = tensors_ok and counters_ok
+    # the fault must be caught by what training computed, not by the pass
+    # counter it leaves behind
+    fault_tensors_ok, _, faulty = gate("fault", fault)
+    caught = not fault_tensors_ok
+    latest = os.path.getsize(f"{b_task}/latest_model.pt")
+    record.update(
+        tensors_compared=len(tensors["a"]), unstable=unstable,
+        control_ulps=control_ulps, limit_ulps=limit_ulps,
+        gap_factor=RESUME_GAP_FACTOR, resumed_c_vs_a=resumed, fault_passes_at_zero_vs_a=faulty,
+        bit_equal_control=not unstable,
+        bit_equal_resumed=not resumed["differing_outside_unstable"]
+        and resumed["unstable_ulps"] == 0,
+        gate_passed=passed, fault_caught=caught, slot_bytes=latest,
+        write_latest_ms=[s["ms"] for s in a_saves if s["slot"] == "latest"],
+        save_peak_gb=max(s["peak_gb"] for s in a_saves),
+        save_live_gb=max(s["live_gb"] for s in a_saves),
+        resume_ms=resume_ms[0], launches=dict(zip(KERNEL_NAMES, launches)),
+        train_step_launches=[dict(zip(KERNEL_NAMES, s)) for s in step_counts],
+        epoch2_values_a=a["values"], epoch2_values_c=c["values"])
+
+    # where A and A2 differ: which operations torch's deterministic-
+    # algorithm check flags in one train_step, and which gradients differ
+    # between two train_steps from the same state
+    if unstable:
+        cfg = parse_args(argv("probe")).replace(save_models=False)
+        with warnings.catch_warnings(record=True) as flagged:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                recorded_train_step(cfg)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        record["nondeterministic_ops"] = sorted({
+            str(w.message)[:160] for w in flagged
+            if "determinis" in str(w.message)})
+        grads = [recorded_train_step(cfg)[2] for _ in range(2)]
+        record["train_step_grads_differing"] = differing(*grads, limit=20)
+    emit(**record)
+    require(caught, "resume gate: a resume with the loader's passes at 0 "
+            f"passed the gate ({faulty})")
+    require(passed, f"resume gate: C vs A {resumed}, limit {limit_ulps} "
+            f"last places in {unstable}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1772,12 +2111,14 @@ def main() -> int:
         quant, quant_argv = train_phase(root, "quant", True, "int8")
         quant_route_check(quant_argv)
         quant_mode_steps(quant_argv)
+        resume = resume_phase(root)
 
     # launches: each path was driven with all four counts set to 0 just
     # before it and read just after: serving and training without flags,
-    # serving and training with --use_pallas --quant int8
+    # serving and training with --use_pallas --quant int8, and the resumed
+    # epoch of the resume phase
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
-                 train_quant=quant)
+                 train_quant=quant, resume=resume)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -1797,13 +2138,15 @@ def main() -> int:
             rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
-    require(serve[2:] == (0, 0) and train[2:] == (0, 0),
+    require(serve[2:] == (0, 0) and train[2:] == (0, 0)
+            and resume[2:] == (0, 0),
             "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
             "library_events_ms", "bound_rate", "bound_ms_fp32_pipes", "launches_serve", "launches_train",
-            "launches_serve_quant", "launches_train_quant", "shapes")
+            "launches_serve_quant", "launches_train_quant", "launches_resume",
+            "shapes")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

@@ -7,6 +7,10 @@ with the reference's flag surface plus ``--device``. The run is on the
 CUDA device unless ``--device cpu`` (or ``main(argv, device="cpu")``) asks
 for the CPU. Seeding covers python, numpy and, in the Solver, torch's
 generators (ref: Main.py:13-24).
+
+SIGTERM or SIGINT stops the run after the current epoch with its
+``latest`` slot written; ``--resume <task_dir>/<task_name>`` continues it.
+``--bert_weights`` starts BERT from pretrained weights.
 """
 
 from __future__ import annotations

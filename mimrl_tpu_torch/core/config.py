@@ -160,7 +160,10 @@ class MimrlConfig:
     fused_optim: bool = False
     data_dir: Optional[str] = None  # overrides dataset root paths
     bert_vocab: Optional[str] = None  # path to a WordPiece vocab.txt
-    bert_weights: Optional[str] = None  # path to pretrained BERT weights (.msgpack/.npz)
+    # pretrained BERT weights: a torch file in HuggingFace's layout
+    # (pytorch_model.bin) or an .npz of flattened flax keys
+    # (models/bert.py::load_bert_weights)
+    bert_weights: Optional[str] = None
     bert_layers: int = 12  # BERT depth (12 = bert-base)
     # BERT-internal dropout (hidden + attention probs). 0.1 = the HF/
     # reference default baked into torch BertModel; tests set 0 for
@@ -169,7 +172,7 @@ class MimrlConfig:
     bert_heads: int = 12
     bert_hidden: int = 768
     bert_intermediate: Optional[int] = None  # FFN width (None = 4*hidden)
-    resume: Optional[str] = None  # checkpoint dir to resume from
+    resume: Optional[str] = None  # run dir whose latest slot the run continues
     task_dir: str = "./TaskRuning"  # run dir root [sic spelling, ref: Solver.py:108]
     jit_backend: Optional[str] = None  # force a jax platform (tests use 'cpu')
     bank_dtype: str = "float32"

@@ -72,7 +72,7 @@ class BatchPipeline:
         self.time_len = time_len
         self.shuffle = shuffle
         self.seed = seed
-        self._epoch = 0
+        self._passes = 0
 
         n = len(dataset)
         if n == 0:
@@ -89,6 +89,18 @@ class BatchPipeline:
 
     def __len__(self) -> int:
         return self.n_batches
+
+    @property
+    def passes(self) -> int:
+        """Passes begun over the data; pass ``p`` shuffles with the seed
+        ``seed + p``. A resumed run sets it to carry on the shuffle."""
+        return self._passes
+
+    @passes.setter
+    def passes(self, n: int) -> None:
+        if n < 0:
+            raise ValueError(f"passes={n}: must be >= 0")
+        self._passes = int(n)
 
     def epoch_index_plan(self, rng: np.random.Generator):
         """The epoch's batches as ([NB, bs] row ids, [NB, bs] float32
@@ -111,9 +123,9 @@ class BatchPipeline:
         return np.stack(idx_rows), np.stack(mask_rows)
 
     def __iter__(self) -> Iterator[Dict]:
-        rng = np.random.default_rng(self.seed + self._epoch)
+        rng = np.random.default_rng(self.seed + self._passes)
         idx_plan, mask_plan = self.epoch_index_plan(rng)
-        self._epoch += 1
+        self._passes += 1
 
         ids, types, amask = self._tokens
         for idx, mask in zip(idx_plan, mask_plan):

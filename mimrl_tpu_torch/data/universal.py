@@ -19,6 +19,13 @@ from mimrl_tpu_torch.data.pipeline import BatchPipeline
 from mimrl_tpu_torch.data.tokenizer import WordPieceTokenizer, build_tokenizer
 
 
+def uses_raw_text(opt: MimrlConfig) -> bool:
+    """True when the text modality is raw strings tokenized to BERT ids
+    (``mimrl_tpu/data/universal.py::uses_raw_text``): the DeclareLab
+    family always is, and it is the only family ported."""
+    return "Dec" in opt.dataset
+
+
 def get_data_loader(
     opt: MimrlConfig,
     tokenizer: Optional[WordPieceTokenizer] = None,

@@ -5,6 +5,12 @@ checkpoint slot), builds the tokenizer, the data loaders and the model
 itself, and serves batched predictions with the training-time static
 shapes: ``model(..., return_features=False)`` in eval mode under
 ``torch.inference_mode()``, one call per batch.
+
+The slot is this package's ``{slot}_model.pt`` or, in a run directory of
+``mimrl_tpu``, its ``{slot}_model.msgpack``, read without flax
+(``core/flax_msgpack.py``) and converted by
+``models/convert.py::state_dict_from_jax_slot``; ``config.json`` is the
+same file in both packages.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from mimrl_tpu_torch.data.tokenizer import build_tokenizer
 from mimrl_tpu_torch.data.universal import get_data_loader
 from mimrl_tpu_torch.device import resolve_device
 from mimrl_tpu_torch.eval.metrics import get_score_from_result
+from mimrl_tpu_torch.models.convert import state_dict_from_jax_slot
 from mimrl_tpu_torch.models.model import build_model
 
 _MODEL_INPUTS = ("bert_sentences", "bert_sentence_types",
@@ -49,10 +56,16 @@ class Predictor:
             cfg_dict.update(config_overrides)
         self.cfg = MimrlConfig.from_dict(cfg_dict)
 
-        state = mgr.restore(slot, map_location=self.device)
-        if state is None and slot != "latest":
-            state = mgr.restore("latest", map_location=self.device)
-        if state is None:
+        # the slot, else latest; of each, this package's file, else
+        # mimrl_tpu's msgpack file
+        state = jax_slot = None
+        for name in dict.fromkeys((slot, "latest")):
+            state = mgr.restore_model(name, map_location=self.device)
+            if state is None:
+                jax_slot = mgr.restore_jax(name)
+            if state is not None or jax_slot is not None:
+                break
+        else:
             raise FileNotFoundError(f"no checkpoint in {task_dir}")
 
         tokenizer = build_tokenizer(self.cfg.bert_vocab)
@@ -60,6 +73,8 @@ class Predictor:
          _d_t, d_a, d_v) = get_data_loader(self.cfg, tokenizer)
         self.model = build_model(self.cfg, tokenizer.vocab_size, d_a, d_v,
                                  self.device)
+        if state is None:
+            state = state_dict_from_jax_slot(jax_slot, self.model)
         self.model.load_state_dict(state, strict=True)
         self.model.eval()
 

@@ -34,10 +34,12 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mimrl_tpu_torch.models.convert import state_dict_from_jax
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from mimrl_tpu_torch.ops.quant import MODES, quant_linear
@@ -227,3 +229,46 @@ class BertModel(nn.Module):
         for layer in self.encoder.layer:
             x = layer(x, attn_bias, generator)
         return x.float()
+
+
+def load_bert_weights(path: str, model: BertModel) -> None:
+    """Load pretrained weights into ``model`` in place (the counterpart of
+    ``mimrl_tpu/models/bert.py::load_bert_weights``):
+
+    - an ``.npz`` of flattened flax keys (``layer_0/attention/qkv/kernel``)
+      goes through ``models/convert.py::state_dict_from_jax``;
+    - anything else is a torch file in HuggingFace's layout (a
+      ``pytorch_model.bin``), read with ``torch.load(weights_only=True)``;
+      each tensor is found by its name here or with the ``bert.`` prefix,
+      and every other key (the pooler, task heads, ``position_ids``) is
+      ignored, as the JAX package's ``convert_hf_torch_state_dict`` does.
+
+    A tensor that the model needs and the file lacks raises, and so does
+    one of another shape.
+    """
+    if path.endswith(".npz"):
+        tree: dict = {}
+        with np.load(path) as flat:
+            for key in flat.files:
+                node = tree
+                *parents, leaf = key.split("/")
+                for k in parents:
+                    node = node.setdefault(k, {})
+                node[leaf] = flat[key]
+        prefixed = state_dict_from_jax(
+            {"bertmodel": tree}, nn.ModuleDict({"bertmodel": model}))
+        state = {k[len("bertmodel."):]: v for k, v in prefixed.items()}
+    else:
+        found = torch.load(path, map_location="cpu", weights_only=True)
+        state = {}
+        for name, dst in model.state_dict().items():
+            src = next((found[c] for c in (name, "bert." + name)
+                        if c in found), None)
+            if src is None:
+                raise KeyError(f"{path}: no tensor {name} (nor bert.{name})")
+            if src.shape != dst.shape:
+                raise ValueError(f"{path}: {name} has shape "
+                                 f"{tuple(src.shape)}, the model "
+                                 f"{tuple(dst.shape)}")
+            state[name] = src
+    model.load_state_dict(state, strict=True)

@@ -1,6 +1,7 @@
 """Carry ``mimrl_tpu`` weights into the port: a params tree (nested
 dicts with numpy leaves, as ``init_full`` or a restored checkpoint gives
-after ``np.asarray``) becomes the port's ``state_dict``.
+after ``np.asarray``, or a slot read by ``core/flax_msgpack.py``) becomes
+the port's ``state_dict``.
 
 Layouts translated (the inverse of ``mimrl_tpu/utils/torch_import.py``
 and ``mimrl_tpu/models/bert.py::convert_hf_torch_state_dict``):
@@ -182,3 +183,21 @@ def state_dict_from_jax(params: Dict, model: nn.Module) -> Dict[str, torch.Tenso
         raise ValueError(f"port tensors left unfilled: {missing[:8]} "
                          f"({len(missing)} in all)")
     return out
+
+
+def state_dict_from_jax_slot(slot: Dict, model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The state_dict of ``model`` from a restored ``mimrl_tpu`` slot
+    (``CheckpointManager.restore_jax``): its three parameter groups
+    ``params_main``, ``params_bert`` and ``params_vmi``, merged as
+    ``mimrl_tpu/train/optim.py::merge_params`` does, then
+    ``state_dict_from_jax``. The slot's optimizer states and bank are not
+    read."""
+    groups = ("params_main", "params_bert", "params_vmi")
+    missing = [g for g in groups if g not in slot]
+    if missing:
+        raise ValueError(f"not a mimrl_tpu slot: no {missing} among "
+                         f"{sorted(slot)}")
+    params: Dict = {}
+    for g in groups:
+        params.update(slot[g])
+    return state_dict_from_jax(params, model)

@@ -125,6 +125,34 @@ class ChainOptimizer:
         """Every state tensor (what the non-finite guard snapshots)."""
         return [self.count, self.mu, self.nu]
 
+    def state_dict(self) -> Dict:
+        """A copy of the step count and both flat moments, each in its own
+        dtype, with the optimizer's kind and parameter sizes."""
+        return {"kind": self.kind, "sizes": list(self.sizes),
+                **{name: t.detach().clone() for name, t in
+                   zip(("count", "mu", "nu"), self.state())}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict) -> None:
+        """Copy a ``state_dict()`` in place; raises when it was written by
+        another kind of optimizer, over other parameters, or with another
+        moment dtype."""
+        if state["kind"] != self.kind:
+            raise ValueError(f"optimizer state of {state['kind']}, this "
+                             f"optimizer is {self.kind}")
+        if list(state["sizes"]) != self.sizes:
+            raise ValueError("optimizer state over other parameters: "
+                             f"{len(state['sizes'])} tensors of "
+                             f"{sum(state['sizes'])} values, want "
+                             f"{len(self.sizes)} of {sum(self.sizes)}")
+        for name, dst in zip(("count", "mu", "nu"), self.state()):
+            src = state[name]
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"optimizer state {name}: {src.dtype} {tuple(src.shape)}, "
+                    f"want {dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+
     def _flat(self, tensors) -> torch.Tensor:
         return torch.cat([t.detach().reshape(-1).float() for t in tensors])
 
@@ -193,6 +221,24 @@ class LRScheduler:
             self.bad_epochs = 0
         elif self.kind != "exp":
             raise NotImplementedError(self.kind)
+
+    def state_dict(self) -> Dict:
+        """What ``step`` reads and writes: the factor, the epochs stepped,
+        and under plateau the best metric and the bad epochs since."""
+        state = {"kind": self.kind, "factor": self.factor, "epoch": self.epoch}
+        if self.kind == "plateau":
+            state.update(best=self.best, bad_epochs=self.bad_epochs)
+        return state
+
+    def load_state_dict(self, state: Dict) -> None:
+        if state["kind"] != self.kind:
+            raise ValueError(f"schedule state of {state['kind']!r}, this "
+                             f"schedule is {self.kind!r}")
+        self.factor = float(state["factor"])
+        self.epoch = int(state["epoch"])
+        if self.kind == "plateau":
+            self.best = state["best"]
+            self.bad_epochs = int(state["bad_epochs"])
 
     def step(self, val_metric: Optional[float] = None) -> float:
         """Advance one epoch (called after it, like scheduler.step(),

@@ -7,32 +7,45 @@ tracking, epoch log line and telemetry channels as the JAX package. The
 host loop feeds batches to ``train/steps.py`` and keeps every loss, MI
 value and output on the device until the epoch ends.
 
+Checkpoints carry the whole training state (``core/checkpoint.py``), so
+``--resume <task dir>`` continues a run from its ``latest`` slot as if it
+had not stopped: the loader's pass counter, the schedule's state and the
+random generators' states are restored besides the weights, the
+optimizers' moments and the feature bank. SIGTERM or SIGINT during
+``solve`` stops the run after the current epoch, with ``latest`` written
+(graceful preemption, as in ``mimrl_tpu/train/solver.py``).
+``--bert_weights`` loads pretrained BERT weights after the random init.
+
 Not ported, and refused with a ``NotImplementedError`` that names
 ROADMAP.md: the epoch-level schedules (``--epoch_scan``, ``--fast_stage1``,
-``--stage1_cached``, ``--epoch_group``), ``--resume`` and optimizer
-checkpoints, ``--check_gradient``, ``--custom_loss``, ``--profile_dir``,
-``--bert_weights``, ``--distributed`` and a mesh over more than one device.
+``--stage1_cached``, ``--epoch_group``), ``--check_gradient``,
+``--custom_loss``, ``--profile_dir``, ``--distributed`` and a mesh over
+more than one device.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import signal
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from mimrl_tpu_torch.core.checkpoint import CheckpointManager
+from mimrl_tpu_torch.core.checkpoint import (SLOT_FORMAT, CheckpointManager,
+                                             is_full_slot)
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
-from mimrl_tpu_torch.data.universal import get_data_loader
+from mimrl_tpu_torch.data.universal import get_data_loader, uses_raw_text
 from mimrl_tpu_torch.device import resolve_device
 from mimrl_tpu_torch.eval.metrics import (current_result_better,
                                           get_score_from_result)
 from mimrl_tpu_torch.eval.predict import get_label_from_datas
+from mimrl_tpu_torch.models.bert import load_bert_weights
 from mimrl_tpu_torch.models.model import build_model, init_weights
 from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
@@ -47,11 +60,9 @@ def _refuse_unported(opt: MimrlConfig) -> None:
         "--fast_stage1": opt.fast_stage1,
         "--stage1_cached": opt.stage1_cached,
         "--epoch_group > 1": opt.epoch_group > 1,
-        "--resume": bool(opt.resume),
         "--check_gradient": opt.check_gradient,
         "--custom_loss": bool(opt.custom_loss),
         "--profile_dir": bool(opt.profile_dir),
-        "--bert_weights": bool(opt.bert_weights),
         "--distributed": opt.distributed,
         "a mesh over more than one device (--mesh_data/--mesh_model/"
         "--mesh_pipe/--mesh_dcn)": (
@@ -76,7 +87,8 @@ class Solver:
     dropout seeds; ``nn.Dropout`` takes no generator, so the Solver also
     seeds torch's default generators from ``opt.seed``, once, here.
     Weights are drawn from a CPU generator seeded the same way, so they do
-    not depend on the device.
+    not depend on the device. A checkpoint saves all three generators'
+    states, which ``--resume`` restores.
     """
 
     def __init__(self, opt: MimrlConfig, device=None):
@@ -99,6 +111,9 @@ class Solver:
         self.model = build_model(opt, self.tokenizer.vocab_size, self.d_a,
                                  self.d_v, self.device)
         init_weights(self.model, torch.Generator().manual_seed(opt.seed))
+        if opt.bert_weights and uses_raw_text(opt):
+            load_bert_weights(opt.bert_weights, self.model.bertmodel)
+            log_message(f"Loaded BERT weights from {opt.bert_weights}")
         if opt.print_params:
             for name, _ in self.model.named_parameters():
                 log_message("\t" + name)
@@ -125,6 +140,12 @@ class Solver:
         # mean critic loss of each stage-1 pass of the last epoch
         self.stage1_pass_losses: List[float] = []
 
+        self.start_epoch = 0
+        self._preempted = False
+        self._prev_handlers = None
+        if opt.resume:
+            self._resume(opt.resume)
+
     # ------------------------------------------------------------------ #
     def prepare_checkpoint_log(self):
         task_path = os.path.join(self.opt.task_dir, self.opt.task_name)
@@ -142,11 +163,57 @@ class Solver:
             batch, labels, self.opt.task, self.device)
         return model_batch, labels_dev, labels
 
-    def _state_dict(self) -> Dict[str, torch.Tensor]:
-        """A copy of the whole model's state_dict (the steps update the
-        live tensors in place)."""
-        return {k: v.detach().clone()
-                for k, v in self.model.state_dict().items()}
+    def _snapshot(self, epoch: int) -> Dict:
+        """The whole training state after ``epoch``, as a slot holds it
+        (``core/checkpoint.py``): copies, so the steps cannot change it."""
+        rng = {"solver": self.generator.get_state(),
+               "cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return {"format": SLOT_FORMAT, "epoch": epoch,
+                "model": {k: v.detach().clone()
+                          for k, v in self.model.state_dict().items()},
+                "opt_main": self.opt_main.state_dict(),
+                "opt_vmi": self.opt_vmi.state_dict(),
+                "bank": self.bank.state_dict(), "have_bank": self.have_bank,
+                "lr_schedule": self.lr_schedule.state_dict(),
+                "loader_passes": self.train_loader.passes, "rng": rng}
+
+    def _resume(self, resume_dir: str) -> None:
+        """Continue from the ``latest`` slot of ``resume_dir``: the next
+        epoch runs as it would have in the run that wrote the slot."""
+        mgr = CheckpointManager(resume_dir)
+        state = mgr.restore("latest", map_location="cpu")
+        if state is None:
+            if os.path.exists(mgr.jax_path("latest")):
+                raise NotImplementedError(
+                    f"{mgr.jax_path('latest')} is a mimrl_tpu slot: resuming "
+                    "its optax moments is not ported to mimrl_tpu_torch yet "
+                    "(ROADMAP.md, Open items); Predictor serves it")
+            log_message(f"No latest checkpoint in {resume_dir}; fresh start")
+            return
+        if not is_full_slot(state):
+            raise ValueError(f"{resume_dir}: the latest slot holds the model "
+                             "alone, not a training state to resume")
+        rng = state["rng"]
+        if ("cuda" in rng) != (self.device.type == "cuda"):
+            raise ValueError(f"{resume_dir}: the latest slot was written on "
+                             f"another device type than {self.device.type}")
+        self.model.load_state_dict(state["model"], strict=True)
+        self.opt_main.load_state_dict(state["opt_main"])
+        self.opt_vmi.load_state_dict(state["opt_vmi"])
+        self.bank.load_state_dict(state["bank"])
+        self.have_bank = bool(state["have_bank"])
+        self.lr_schedule.load_state_dict(state["lr_schedule"])
+        self.opt_main.learning_rate = self.base_lr_main * self.lr_schedule.factor
+        self.opt_vmi.learning_rate = self.base_lr_vmi * self.lr_schedule.factor
+        self.train_loader.passes = state["loader_passes"]
+        self.generator.set_state(rng["solver"])
+        torch.set_rng_state(rng["cpu"])
+        if "cuda" in rng:
+            torch.cuda.set_rng_state(rng["cuda"], self.device)
+        self.start_epoch = int(state["epoch"]) + 1
+        log_message(f"Resumed from {resume_dir} at epoch {self.start_epoch}")
 
     # ------------------------------------------------------------------ #
     def train(self, epoch: int):
@@ -248,20 +315,39 @@ class Solver:
 
     # ------------------------------------------------------------------ #
     def solve(self):
+        """Train from ``start_epoch`` to the last epoch, or until SIGTERM
+        or SIGINT: then the current epoch ends, ``latest`` is written and
+        the run returns as if it had finished. The signal handlers are
+        installed for this call only (main thread only), and the first
+        signal puts the previous ones back, so a second one acts at once."""
         log_message("Start training...")
+        self._preempted = False
+        prev_handlers = self._install_preemption_handlers()
+        try:
+            return self._solve_loop()
+        finally:
+            self._restore_signal_handlers(prev_handlers)
+            self._prev_handlers = None
+
+    def _solve_loop(self):
         opt = self.opt
         tracking = {"score": [None, None, None],  # valid, test, test at best valid
                     "predictions": [None, None, None],
                     "features": [None, None, None],
                     "targets": [None, None],
                     "valid_state": None, "test_state": None}
-        for epoch in range(opt.epochs_num):
+        for epoch in range(self.start_epoch, opt.epochs_num):
             t0 = time.time()
             train = self.train(epoch)
             valid = self.evaluate(self.valid_loader)
             test = self.evaluate(self.test_loader)
             self._finalize_epoch(tracking, epoch, time.time() - t0, train,
                                  valid, test)
+            if self._preempted:
+                self.ckpt.save("latest", self._snapshot(epoch))
+                log_message(f"Preemption requested: checkpointed at epoch "
+                            f"{epoch}, stopping.")
+                break
         log_message("Training complete.")
         self.writer.close()
         if tracking["score"][0] is not None:
@@ -287,12 +373,23 @@ class Solver:
         self.opt_main.learning_rate = self.base_lr_main * factor
         self.opt_vmi.learning_rate = self.base_lr_vmi * factor
 
-        # best-model tracking (ref: Solver.py:59-93)
-        if current_result_better(tracking["score"][0], val_score, opt.task,
-                                 opt.num_class, opt.dataset):
+        # best-model tracking (ref: Solver.py:59-93); one snapshot of the
+        # epoch serves both best slots and latest
+        better_valid = current_result_better(
+            tracking["score"][0], val_score, opt.task, opt.num_class,
+            opt.dataset)
+        better_test = current_result_better(
+            tracking["score"][1], test_score, opt.task, opt.num_class,
+            opt.dataset)
+        save_latest = opt.save_latest_every > 0 and (
+            epoch % opt.save_latest_every == opt.save_latest_every - 1
+            or epoch == opt.epochs_num - 1)
+        snap = (self._snapshot(epoch) if save_latest or (
+            opt.save_models and (better_valid or better_test)) else None)
+        if better_valid:
             log_message("Better valid score found...")
             if opt.save_models:
-                tracking["valid_state"] = self._state_dict()
+                tracking["valid_state"] = snap
             tracking["score"][0] = val_score
             tracking["predictions"][0] = val_predictions
             tracking["features"][0] = val_features
@@ -300,11 +397,10 @@ class Solver:
             tracking["predictions"][2] = test_predictions
             tracking["features"][2] = test_features
             tracking["targets"][0] = val_targets
-        if current_result_better(tracking["score"][1], test_score, opt.task,
-                                 opt.num_class, opt.dataset):
+        if better_test:
             log_message("Better test score found...")
             if opt.save_models:
-                tracking["test_state"] = self._state_dict()
+                tracking["test_state"] = snap
             tracking["score"][1] = test_score
             tracking["predictions"][1] = test_predictions
             tracking["features"][1] = test_features
@@ -318,10 +414,29 @@ class Solver:
                     + self._memory_suffix())
         self.log_scalars(epoch, train_loss, train_mis, train_score, val_loss,
                          val_mis, val_score, test_loss, test_mis, test_score)
-        if opt.save_latest_every > 0 and (
-                epoch % opt.save_latest_every == opt.save_latest_every - 1
-                or epoch == opt.epochs_num - 1):
-            self.ckpt.save("latest", self.model.state_dict())
+        if save_latest:
+            self.ckpt.save("latest", snap)
+
+    def request_preemption(self, *_args) -> None:
+        """Stop after the current epoch, with ``latest`` written (the
+        signal handler; also callable directly). The first call puts the
+        previous handlers back."""
+        self._preempted = True
+        self._restore_signal_handlers(self._prev_handlers)
+        self._prev_handlers = None
+
+    def _install_preemption_handlers(self):
+        if threading.current_thread() is not threading.main_thread():
+            return None  # signals reach the main thread only
+        prev = {sig: signal.signal(sig, self.request_preemption)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+        self._prev_handlers = prev
+        return prev
+
+    @staticmethod
+    def _restore_signal_handlers(prev) -> None:
+        for sig, handler in (prev or {}).items():
+            signal.signal(sig, handler)
 
     def _memory_suffix(self) -> str:
         if self.device.type != "cuda":
@@ -380,8 +495,8 @@ class Solver:
                      best_valid_state: Optional[Dict],
                      best_test_state: Optional[Dict]):
         """(ref: Solver.py:514-531) The ``best_valid`` and ``best_test``
-        slots hold the whole model's state_dict, which ``Predictor``
-        loads."""
+        slots hold the training state of their epoch; ``Predictor`` loads
+        the model from them."""
         for name, array in (
                 ("predictions_val", best_predictions[0]),
                 ("predictions_test", best_predictions[1]),

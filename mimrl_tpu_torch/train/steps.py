@@ -60,6 +60,26 @@ class FeatureBank:
     def tensors(self) -> List[torch.Tensor]:
         return [getattr(self, f) for f in self.FIELDS]
 
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """A copy of the five fields and the valid mask."""
+        return {f: getattr(self, f).clone() for f in self.FIELDS + ("valid",)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy a ``state_dict()`` in place; raises on another field set,
+        shape or dtype."""
+        names = self.FIELDS + ("valid",)
+        if set(state) != set(names):
+            raise ValueError(f"bank state holds {sorted(state)}, want "
+                             f"{sorted(names)}")
+        for f in names:
+            src, dst = state[f], getattr(self, f)
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(
+                    f"bank field {f}: {src.dtype} {tuple(src.shape)}, want "
+                    f"{dst.dtype} {tuple(dst.shape)}")
+            dst.copy_(src)
+
     def zero_(self) -> "FeatureBank":
         for t in self.tensors():
             t.zero_()

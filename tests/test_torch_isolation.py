@@ -1,5 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor any module
-of the JAX package, and no file of it (nor chip_smoke.py) imports them.
+of the JAX package, nor flax, msgpack or orbax, and no file of it (nor
+chip_smoke.py) imports them.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py).
@@ -15,7 +16,10 @@ from pathlib import Path
 import mimrl_tpu_torch
 
 PACKAGE = Path(mimrl_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mimrl_tpu")
+# the card's machine has none of them: checkpoints of mimrl_tpu are read
+# by the port's own msgpack reader (core/flax_msgpack.py)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
+             "mimrl_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -27,6 +31,7 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch, mimrl_tpu_torch.eval.predict\n"
             "import mimrl_tpu_torch.models.convert, mimrl_tpu_torch.ops._build\n"
             "import mimrl_tpu_torch.cli.main, mimrl_tpu_torch.train.solver\n"
+            "import mimrl_tpu_torch.core.flax_msgpack\n"
             "import mimrl_tpu_torch.mi.estimators, mimrl_tpu_torch.mi.knn\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))

@@ -4,7 +4,8 @@ DeclareLab split (tiny widths, 3 train batches of 8 whose last one is
 cycle-padded). Epoch 0 is stage 2 without MI, epoch 1 is stage 1 (two
 critic passes) and stage 2 with MI. The artifacts exist, the telemetry has
 the reference's channels, and ``Predictor`` loads the ``best_valid`` slot
-the run wrote. Flags whose path is not ported raise; the two kernel flags
+the run wrote, and its ``latest`` slot holds the whole training state.
+Flags whose path is not ported raise; the two kernel flags
 (``--use_pallas``, ``--quant``) train and serve through the plain versions.
 """
 
@@ -96,8 +97,15 @@ def test_predictor_loads_the_best_valid_slot(run):
     preds, _ = predictor.predict_loader(predictor.valid_loader)
     np.testing.assert_allclose(preds, np.load(f"{task}/predictions_val.npy"),
                                rtol=1e-5, atol=1e-5)
-    # the slots hold the whole model, the estimator bank included
-    state = CheckpointManager(task).restore("latest")
+    # the slots hold the whole training state: the whole model, the
+    # estimator bank included, the optimizers, the feature bank, the
+    # schedule, the loader's passes and the random generators
+    slot = CheckpointManager(task).restore("latest")
+    assert set(slot) == {"format", "epoch", "model", "opt_main", "opt_vmi",
+                         "bank", "have_bank", "lr_schedule", "loader_passes",
+                         "rng"}
+    assert slot["epoch"] == 1 and slot["have_bank"]
+    state = slot["model"]
     assert set(state) == set(predictor.model.state_dict())
     assert any(k.startswith("vcmi_estimator_tc_v.") for k in state)
 
@@ -115,10 +123,10 @@ def test_two_runs_of_one_seed_agree(run):
 
 @pytest.mark.parametrize("flags", [
     ["--epoch_scan"], ["--fast_stage1"], ["--epoch_scan", "--stage1_cached"],
-    ["--epoch_group", "2"], ["--resume", "somewhere"], ["--check_gradient"],
+    ["--epoch_group", "2"], ["--check_gradient"],
     ["--custom_loss", "mod:fn"], ["--mesh_model", "2"], ["--mesh_data", "4"],
     ["--fusion", "tfn"], ["--encoders", "lstm"], ["--profile_dir", "x"],
-    ["--bert_weights", "w.bin"], ["--distributed"]])
+    ["--distributed"]])
 def test_unported_flags_raise(run, flags):
     root = run[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
