@@ -79,6 +79,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            ``train_step`` of the resumed epoch launches 12 + 12 attention
            kernels. Slot bytes, save, read and ``_resume`` ms, peak memory
            of a save.
+7. rungs   the canonical recipe for 3 epochs (milestone at epoch 2) on each
+           ``--epoch_scan`` rung: a fresh forward per critic step,
+           ``--fast_stage1`` and ``--stage1_cached``, then the flagged recipe
+           with ``--epoch_scan``, so that all four kernels replay inside
+           CUDA graphs. Each run with graphs (G) is held against the same
+           run eagerly (E), with a second eager run (E2) as the control, by
+           the resume phase's gate (weights, both optimizers, the bank, the
+           generators, the last epoch's loss and MI values): bit for bit
+           where E2 equals E, else within RESUME_GAP_FACTOR times their gap.
+           A G run whose replays restart from the generator's state at
+           capture (one dropout seed and one set of kNN anchors for every
+           replay) must fail that gate. Launches of all four kernels per run
+           are exact, counted through replays; a step that cannot be
+           captured must raise. Per-step host ms (a synchronise on each
+           side), epoch s, device busy ms and idle share of a stage-2 epoch
+           and a stage-1 pass (profiler), capture s per graph and peak
+           memory, for G and E; and the per-batch path's stage-2 ms per step
+           with ``--num_workers`` 0 and 4, two runs each, in turns.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -213,6 +231,13 @@ KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd",
 RESUME_ARGS = ["--epochs_num", "3", "--save_latest_every", "1",
                "--lr_decrease_iter", "2-60"]
 RESUME_GAP_FACTOR = 10.0
+# the rungs phase: 3 epochs, the milestone at epoch 2 (so a replayed step
+# reads a learning rate that changed after its capture); the three stage-1
+# modes of --epoch_scan on the flag-free recipe, then the flagged recipe
+RUNG_ARGS = ["--epochs_num", "3", "--lr_decrease_iter", "2-60",
+             "--no_save_models"]
+RUNGS = (("scan", ["--epoch_scan"]), ("fast", ["--epoch_scan", "--fast_stage1"]),
+         ("cached", ["--epoch_scan", "--stage1_cached"]))
 # substrings of the CUDA kernels' names in ops/csrc, for the profiler
 PORT_KERNEL_SYMBOLS = ("flash_fwd", "flash_bwd", "axis_mlp", "int8_matmul")
 # [bs, L, K, D], axis, d_hidden, d_out of the six AxisMLPs of the canonical
@@ -1095,14 +1120,40 @@ def serve_phase(task: str):
     return launches, quant_launches
 
 
+def packed_bigru(enc, x, lengths):
+    """The bi-GRU as the port ran it before its lengths stayed on the
+    device: ``nn.GRU`` over ``pack_padded_sequence`` (the lengths copied to
+    the host), directions summed."""
+    from torch import nn
+    from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+    packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
+                                  enforce_sorted=False)
+    out, _ = nn.GRU.forward(enc, packed)
+    out, _ = pad_packed_sequence(out, batch_first=True,
+                                 total_length=x.shape[1])
+    fwd, bwd = out.chunk(2, dim=-1)
+    return fwd + bwd
+
+
 def breakdown(predictor, step: str) -> None:
     """Device time of the forward's parts on one bf16 batch (CUDA events;
     median of 25): BERT, the two bi-GRUs, CubeMLP, and the 12 attention
-    kernel calls inside BERT."""
+    kernel calls inside BERT; the two bi-GRUs also in the packed form the
+    port had before (``packed_bigru``), and both forms' forward and
+    backward in training mode."""
     import torch
 
     from mimrl_tpu_torch.models.encoders import lengths_from_sequence
     from mimrl_tpu_torch.ops.flash_attention import flash_attention
+
+    def bigru_train(form):
+        m.train()
+        out = [form(enc, x_, n) for enc, x_, n in ((m.rnn_a, a, la),
+                                                    (m.rnn_v, v, lv))]
+        torch.autograd.grad(sum(o.sum() for o in out),
+                            list(m.rnn_a.parameters()) + list(m.rnn_v.parameters()))
+        m.eval()
 
     m = predictor.model
     batch = next(iter(predictor.test_loader))
@@ -1122,8 +1173,13 @@ def breakdown(predictor, step: str) -> None:
             attention_kernel_x12=12 * cuda_ms(
                 lambda: flash_attention(q, k, vv, bias), inner=10),
             bigru_a_v=cuda_ms(lambda: (m.rnn_a(a, la), m.rnn_v(v, lv))),
+            bigru_a_v_packed=cuda_ms(lambda: (packed_bigru(m.rnn_a, a, la),
+                                              packed_bigru(m.rnn_v, v, lv))),
             cubemlp=cuda_ms(lambda: m.mlp_encoder(x)),
         )
+    parts.update(
+        bigru_a_v_train=cuda_ms(lambda: bigru_train(type(m.rnn_a).forward)),
+        bigru_a_v_packed_train=cuda_ms(lambda: bigru_train(packed_bigru)))
     emit(phase="serve", step=step, **parts)
 
 
@@ -1858,6 +1914,41 @@ def ulp_gap(got, want) -> float:
     return ((got.double() - want.double()).abs() / spacing).max().item()
 
 
+def parameter(key: str) -> str:
+    """The parameter a ``slot_tensors`` key belongs to: "model.x",
+    "opt_main.mu.x", "opt_main.nu.x" -> x; other keys stand for
+    themselves."""
+    head, _, rest = key.partition(".")
+    if head.startswith("opt_") and rest[:3] in ("mu.", "nu."):
+        return rest[3:]
+    return rest if head == "model" else key
+
+
+def gap_gate(got: dict, want: dict, control: dict):
+    """The resume phase's gate between two runs' ``slot_tensors``: where
+    ``control`` (a repeat of ``want``'s run) equals ``want``, ``got`` must
+    too; on every parameter where it does not (its value and both moments,
+    ``unstable``), ``got`` may differ from ``want`` by RESUME_GAP_FACTOR
+    times the largest control gap, in last places. Returns (passed, the
+    record)."""
+    import torch
+
+    moved = {parameter(k) for k, v in want.items()
+             if not torch.equal(control[k], v)}
+    unstable = sorted(k for k in want if parameter(k) in moved)
+    control_ulps = max((ulp_gap(control[k], want[k]) for k in unstable),
+                       default=0.0)
+    limit = RESUME_GAP_FACTOR * control_ulps
+    outside = [k for k, v in want.items()
+               if k not in unstable and not torch.equal(got[k], v)]
+    inside = max((ulp_gap(got[k], want[k]) for k in unstable), default=0.0)
+    return (not outside and inside <= limit,
+            dict(unstable=unstable, control_ulps=control_ulps,
+                 limit_ulps=limit, differing_outside_unstable=len(outside),
+                 first_differing=outside[:5], unstable_ulps=inside,
+                 bit_equal=not outside and inside == 0))
+
+
 def epoch_values(task: str, epoch: int) -> list:
     """The train loss and the eight train MI values of ``epoch``, from the
     run's ``scalars.jsonl``."""
@@ -2009,12 +2100,6 @@ def resume_phase(root: str):
                    torch.tensor(r["values"], dtype=torch.float64)))
                for k, r in dict(a=a, a2=a2, c=c, fault=fault).items()}
 
-    def parameter(key):  # "model.x", "opt_main.mu.x", "opt_main.nu.x" -> x
-        head, _, rest = key.partition(".")
-        if head.startswith("opt_") and rest[:3] in ("mu.", "nu."):
-            return rest[3:]
-        return rest if head == "model" else key
-
     moved = {parameter(k) for k, v in tensors["a"].items()
              if not torch.equal(tensors["a2"][k], v)}
     unstable = sorted(k for k in tensors["a"] if parameter(k) in moved)
@@ -2083,6 +2168,275 @@ def resume_phase(root: str):
     return launches
 
 
+def rung_launches(stage1: str, use_pallas: bool, quant: str):
+    """Launches of a 3-epoch rung run: 9 train steps, 6 eval batches, and in
+    epochs 1-2 stage 1's forwards: 12 with a fresh one per critic step, 6
+    with ``--fast_stage1``, none with ``--stage1_cached``."""
+    forwards = {"scan": 12, "fast": 6, "cached": 0}[stage1]
+    return add(step_launches("train", use_pallas, quant, 9),
+               step_launches("eval", use_pallas, quant, 6),
+               step_launches("critic", use_pallas, quant, forwards))
+
+
+def profiled_steps(fn, n: int) -> dict:
+    """torch.profiler over one call of fn() that runs ``n`` steps (after a
+    warm-up call): device busy ms per step (kernels and copies), the
+    device's span per step (CUDA events inside the profiler), the idle
+    share, and the host's wall ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    span_ms = start.elapsed_time(end) / n
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_ms = busy / 1e3 / n
+    return dict(device_busy_ms=busy_ms if busy else None,
+                device_span_ms=span_ms,
+                idle_share=(1.0 - busy_ms / span_ms) if busy else None,
+                wall_ms=wall_ms)
+
+
+def rung_profile(solver, stage1: str) -> dict:
+    """``profiled_steps`` over a stage-2 epoch (3 ``train_step``s with MI)
+    and a one-pass stage 1 (3 critic steps) of a finished rung run's
+    Solver, through its own runner: replayed graphs, or eager calls."""
+    from mimrl_tpu_torch.train import steps
+
+    o = solver.opt
+    batches, labels, _, _ = solver._stack_epoch(solver.train_loader)
+    nb = labels.shape[0]
+
+    def stage2():
+        steps.train_epoch(solver.model, solver.opt_main, o, batches, labels,
+                          solver.bank, solver.new_bank, solver.generator,
+                          True, run=solver.graphs)
+
+    def stage1_pass():
+        if stage1 == "cached":
+            steps.critic_epoch_cached(solver.model, solver.opt_vmi, o,
+                                      solver.bank, nb, solver.generator, 1,
+                                      run=solver.graphs)
+        else:
+            fn = steps.critic_epoch if stage1 == "fast" else steps.critic_epoch_fresh
+            fn(solver.model, solver.opt_vmi, o, batches, labels, solver.bank,
+               solver.generator, 1, run=solver.graphs)
+
+    return dict(train_step=profiled_steps(stage2, nb),
+                critic_step=profiled_steps(stage1_pass, nb))
+
+
+def capture_failure_check() -> dict:
+    """A body that copies a pageable host tensor to the card cannot be
+    captured: the runner must raise, naming the step, and keep no graph."""
+    import torch
+
+    from mimrl_tpu_torch.train.graphs import StepGraphs
+
+    runner = StepGraphs(torch.device("cuda"))
+
+    def body(x):
+        return x * torch.tensor(2.0, device=x.device)
+
+    try:
+        runner("host_copy", body, x=torch.ones(4, device="cuda"))
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        message = None
+    torch.cuda.synchronize()
+    caught = message is not None and "'host_copy'" in message
+    require(caught and not runner.steps,
+            f"a step that cannot be captured did not raise: {message}")
+    return dict(raised=message[:200])
+
+
+def rungs_phase(root: str):
+    """The --epoch_scan rungs at full width and depth through ``cli.main``,
+    3 epochs each, with CUDA graphs (G), eagerly (E) and eagerly again
+    (E2): G against E by ``gap_gate`` with E2 as the control, a G whose
+    replays reuse the generator's state at capture (what an unregistered
+    generator would do) must fail that gate; launches counted through
+    replays; per-step host ms, epoch s, device busy and idle share, capture
+    s per graph, peak memory; the per-batch path's stage-2 ms per step with
+    --num_workers 0 and 4. Returns the launch counts of the three flag-free
+    G runs together and of the flagged one."""
+    import os
+
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.core.checkpoint import CheckpointManager
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.train.graphs import StepGraphs
+    from mimrl_tpu_torch.train.solver import Solver
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    data, runs = f"{root}/train_data", f"{root}/rung_runs"
+    if not os.path.isdir(data):
+        make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
+                         d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
+    originals = {"solve": vars(Solver)["solve"],
+                 "finalize": vars(Solver)["_finalize_epoch"],
+                 "sync": vars(Solver)["_synchronize"],
+                 "call": vars(StepGraphs)["__call__"]}
+
+    def run(name, flags, graphs=True, stage1=None, patches=(), timed=True):
+        """cli.main; returns the run's readings and its final slot's
+        tensors (and keeps its Solver for the profile)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        info = dict(step_ms={}, epoch_s=[], syncs=[])
+
+        def solve(self):
+            info["solver"] = self
+            return originals["solve"](self)
+
+        def finalize(self, tracking, epoch, dt, *args, **kwargs):
+            info["epoch_s"].append(dt)
+            return originals["finalize"](self, tracking, epoch, dt, *args,
+                                         **kwargs)
+
+        def timed_call(self, step, body, **inputs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals["call"](self, step, body, **inputs)
+            torch.cuda.synchronize()
+            info["step_ms"].setdefault(step, []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        def synchronize(self):
+            originals["sync"](self)
+            info["syncs"].append(time.perf_counter())
+
+        argv = CANONICAL_MOSI + CANONICAL_TRAIN + RUNG_ARGS + flags + [
+            "--data_dir", data, "--task_dir", runs, "--task_name", name]
+        zero_counts()
+        t0 = time.perf_counter()
+        with patched([(Solver, "solve", solve),
+                      (Solver, "_finalize_epoch", finalize),
+                      (Solver, "_synchronize", synchronize),
+                      *([(StepGraphs, "__call__", timed_call)] if timed else []),
+                      *patches]):
+            cli_main(argv, graphs=graphs)
+        info.update(wall_s=time.perf_counter() - t0, launches=counts(),
+                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        solver = info.pop("solver")
+        names = {id(p): n for n, p in solver.model.named_parameters()}
+        opt_names = {k: [names[id(p)] for p in getattr(solver, k).params]
+                     for k in ("opt_main", "opt_vmi")}
+        task = f"{runs}/{name}"
+        last = solver.opt.epochs_num - 1
+        slot = CheckpointManager(task).restore("latest", map_location="cpu")
+        info["tensors"] = dict(
+            slot_tensors(slot, opt_names), last_epoch_values=torch.tensor(
+                epoch_values(task, last), dtype=torch.float64))
+        info["graphs"] = solver.graphs.stats()
+        if stage1 is not None:
+            info["profile"] = rung_profile(solver, stage1)
+        del solver, slot
+        return info
+
+    def medians(info):
+        """Median ms of each step's calls after its first (the first runs
+        eagerly and captures)."""
+        return {k: statistics.median(v[1:]) for k, v in info["step_ms"].items()
+                if len(v) > 1}
+
+    records, totals = [], []
+    for stage1, flags in RUNGS + (("quant", ["--epoch_scan"] + QUANT_FLAGS),):
+        quant = stage1 == "quant"
+        mode = "scan" if quant else stage1
+        g = run(f"{stage1}_graphs", flags, stage1=mode)
+        e = run(f"{stage1}_eager", flags, graphs=False, stage1=mode)
+        e2 = run(f"{stage1}_eager2", flags, graphs=False)
+        want = rung_launches(mode, quant, "int8" if quant else "none")
+        for r in (g, e):
+            require(r["launches"] == want,
+                    f"rung {stage1}: launches {r['launches']}, want {want} "
+                    f"(order {KERNEL_NAMES})")
+        if quant:
+            int8_instances(f"rung {stage1}", g["launches"])
+            axis_mlp_instances(f"rung {stage1}", g["launches"])
+        passed, gate = gap_gate(g["tensors"], e["tensors"], e2["tensors"])
+        record = dict(
+            phase="rungs", step=f"rung_{stage1}", flags=flags,
+            graphs_vs_eager=gate, gate_passed=passed,
+            tensors_compared=len(e["tensors"]),
+            launches=dict(zip(KERNEL_NAMES, g["launches"])),
+            step_ms_graphs=medians(g), step_ms_eager=medians(e),
+            epoch_s_graphs=g["epoch_s"], epoch_s_eager=e["epoch_s"],
+            wall_s_graphs=g["wall_s"], wall_s_eager=e["wall_s"],
+            peak_gb_graphs=g["peak_gb"], peak_gb_eager=e["peak_gb"],
+            graphs=g["graphs"], profile_graphs=g["profile"],
+            profile_eager=e["profile"],
+            last_epoch_values_graphs=g["tensors"]["last_epoch_values"].tolist(),
+            last_epoch_values_eager=e["tensors"]["last_epoch_values"].tolist())
+        if stage1 == "scan":
+            # fault control: every replay of a graph starts from the
+            # generator's state right after its capture, so each replay
+            # draws the same attention seeds and kNN anchors
+            frozen = {}
+
+            def frozen_call(self, step, body, **inputs):
+                if step in frozen:
+                    for gen, state in zip(self.generators, frozen[step]):
+                        gen.set_state(state)
+                out = originals["call"](self, step, body, **inputs)
+                if step not in frozen and step in self.steps:
+                    frozen[step] = [gen.get_state() for gen in self.generators]
+                return out
+
+            fault = run("scan_frozen_generator", flags, timed=False,
+                        patches=[(StepGraphs, "__call__", frozen_call)])
+            fault_passed, fault_gate = gap_gate(
+                fault["tensors"], e["tensors"], e2["tensors"])
+            record.update(fault_frozen_generator=fault_gate,
+                          fault_caught=not fault_passed)
+            del fault
+        emit(**record)
+        require(passed, f"rung {stage1}: graphs vs eager {gate}")
+        if stage1 == "scan":
+            require(record["fault_caught"], "rung gate: replays with a frozen "
+                    f"generator passed it ({record['fault_frozen_generator']})")
+        if quant:
+            quant_launches = g["launches"]
+        else:
+            totals.append(g["launches"])
+        del g, e, e2
+
+    # the per-batch path's stage 2 without and with --num_workers's
+    # background thread, in turns (0, 4, 4, 0): wall ms per step of epoch
+    # 1's stage 2, between the syncs after stage 1 and after stage 2
+    per_batch = {"0": [], "4": []}
+    for i, workers in enumerate(("0", "4", "4", "0")):
+        r = run(f"per_batch_{i}_workers{workers}", [
+            "--epochs_num", "2", "--num_workers", workers], timed=False)
+        syncs = r["syncs"]
+        per_batch[workers].append(1e3 * (syncs[3] - syncs[2]) / 3)
+        del r
+    emit(phase="rungs", step="per_batch_stage2",
+         stage2_ms_per_step_workers_0=per_batch["0"],
+         stage2_ms_per_step_workers_4=per_batch["4"],
+         capture_failure=capture_failure_check())
+    return add(*totals), quant_launches
+
+
 def main() -> int:
     import torch
 
@@ -2112,13 +2466,16 @@ def main() -> int:
         quant_route_check(quant_argv)
         quant_mode_steps(quant_argv)
         resume = resume_phase(root)
+        rungs, rungs_quant = rungs_phase(root)
 
     # launches: each path was driven with all four counts set to 0 just
     # before it and read just after: serving and training without flags,
     # serving and training with --use_pallas --quant int8, and the resumed
-    # epoch of the resume phase
+    # epoch of the resume phase, the three flag-free rung runs with graphs
+    # and the flagged one
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
-                 train_quant=quant, resume=resume)
+                 train_quant=quant, resume=resume, rungs=rungs,
+                 rungs_quant=rungs_quant)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -2139,14 +2496,14 @@ def main() -> int:
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
     require(serve[2:] == (0, 0) and train[2:] == (0, 0)
-            and resume[2:] == (0, 0),
+            and resume[2:] == (0, 0) and rungs[2:] == (0, 0),
             "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
             "library_events_ms", "bound_rate", "bound_ms_fp32_pipes", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "launches_resume",
-            "shapes")
+            "launches_rungs", "launches_rungs_quant", "shapes")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

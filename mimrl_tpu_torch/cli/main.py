@@ -28,15 +28,16 @@ def set_random_seed(opt: MimrlConfig) -> None:
     np.random.seed(opt.seed)
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, graphs: bool = True):
     """Parse the flags, train, and return the best scores
-    [valid, test, test at best valid]."""
+    [valid, test, test at best valid]. ``graphs=False`` runs the
+    ``--epoch_scan`` steps eagerly on the card (see ``Solver``)."""
     faulthandler.enable()
     opt = parse_args(argv)
     set_random_seed(opt)
     from mimrl_tpu_torch.train.solver import Solver
 
-    return Solver(opt, device=device).solve()
+    return Solver(opt, device=device, graphs=graphs).solve()
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ rows. Padding is done with numpy.
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List
 
@@ -138,3 +140,48 @@ class BatchPipeline:
                 "labels": [np.asarray(lab)[idx] for lab in self.ds.labels],
                 "sample_mask": mask,
             }
+
+
+class _Failure:
+    def __init__(self, error: Exception):
+        self.error = error
+
+
+def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
+    """Run ``iterator`` on a background thread, at most ``size`` items
+    ahead (the port's copy of ``mimrl_tpu.data.pipeline.prefetch``: host
+    batch assembly overlaps the device's work). An exception of the
+    iterator is raised in the consumer. When the consumer stops early, the
+    thread is stopped and joined."""
+    q: "queue.Queue" = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    end = object()
+
+    def producer():
+        try:
+            for item in iterator:
+                q.put(item)
+                if stop.is_set():
+                    return
+            q.put(end)
+        except Exception as e:  # handed to the consumer, raised there
+            q.put(_Failure(e))
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, _Failure):
+                raise item.error
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():  # unblock a put, then let it see `stop`
+            try:
+                q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        thread.join()

@@ -105,8 +105,8 @@ def smile_lower_bound(scores: Tensor, clip: float = 1.0) -> Tensor:
 def log_interpolate(log_a: Tensor, log_b: Tensor, alpha_logit: float) -> Tensor:
     """Numerically stable log(alpha * a + (1 - alpha) * b)
     (ref: VMI.py:201-210)."""
-    alpha_logit = torch.tensor(alpha_logit, dtype=torch.float32,
-                               device=log_a.device)
+    alpha_logit = torch.full((), alpha_logit, dtype=torch.float32,
+                             device=log_a.device)
     log_alpha = -F.softplus(-alpha_logit)
     log_1_minus_alpha = -F.softplus(alpha_logit)
     return torch.logsumexp(

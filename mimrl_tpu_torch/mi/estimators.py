@@ -125,11 +125,9 @@ class VCMIEstimator(nn.Module):
         n = prod.shape[0]
         joint = joint[:n]
         batch = torch.cat([joint, prod], dim=0)  # [2n, 3 * embed]
-        targets = torch.cat([
-            torch.tensor([[1.0, 0.0]], dtype=batch.dtype,
-                         device=batch.device).repeat(n, 1),
-            torch.tensor([[0.0, 1.0]], dtype=batch.dtype,
-                         device=batch.device).repeat(n, 1)], dim=0)
+        # rows [1, 0] for the joint set, then [0, 1] for the product set
+        targets = torch.eye(2, dtype=batch.dtype, device=batch.device)[
+            :, None, :].expand(2, n, 2).reshape(2 * n, 2)
         out = self.classifier(batch)
         return self._estimate_cmi(out), _binary_cross_entropy(out, targets)
 

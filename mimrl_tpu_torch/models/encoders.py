@@ -1,29 +1,33 @@
 """Audio/video sequence encoders (PyTorch port of
 ``mimrl_tpu.models.encoders``).
 
-``BiRnnEncoder`` is a stacked bidirectional ``torch.nn.GRU`` over packed
-sequences (ref: Model.py:437-461): inner layers feed the concat of both
-directions forward, and the last layer's two directions are summed.
-torch's GRU has the gate order (r, z, n) and the
-``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))`` form of
+``BiRnnEncoder`` is a stacked bidirectional GRU (ref: Model.py:437-461):
+inner layers feed the concat of both directions forward, and the last
+layer's two directions are summed. torch's GRU has the gate order (r, z, n)
+and the ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))`` form of
 ``encoders.py:94-105``; its parameter names (``weight_ih_l0``,
 ``weight_hh_l0_reverse``, ...) are the reference's, so the module
 subclasses ``nn.GRU`` and adds no wrapper level. The JAX package left
 the recurrence to XLA (no Pallas kernel), so the port leaves it to
-cuDNN.
+cuDNN, one unidirectional ``torch.gru`` call per direction and layer.
 
-Packing reproduces the JAX masking: the forward direction stops after
-``length`` steps, the backward direction starts at ``length - 1``, and
-outputs at padded positions are 0. ``pack_padded_sequence`` needs the
-lengths on the host, so each call copies them from the device (one
-synchronisation per encoder call).
+The lengths stay on the device, so a forward makes no host copy and can
+be captured in a CUDA graph. The JAX scan holds the state under a prefix
+mask (``encoders.py:145-180``); here:
+
+- the forward direction runs over the whole padded sequence: padding
+  comes after the valid prefix, so the prefix's outputs do not depend on
+  it, and outputs at ``t >= length`` are set to 0;
+- the backward direction reverses each sample's valid prefix with a
+  device gather (``index = length - 1 - t`` for ``t < length``, padded
+  positions stay in place), runs the reverse weights as a forward GRU
+  from a zero state, masks the output and gathers it back.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
-from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 
 class BiRnnEncoder(nn.GRU):
@@ -41,14 +45,33 @@ class BiRnnEncoder(nn.GRU):
                          batch_first=True, bidirectional=True, device=device)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        """x: [bs, T, d_in]; lengths: [bs] valid prefix lengths (>= 1)."""
-        T = x.shape[1]
-        packed = pack_padded_sequence(x, lengths.cpu(), batch_first=True,
-                                      enforce_sorted=False)
-        out, _ = super().forward(packed)
-        out, _ = pad_packed_sequence(out, batch_first=True, total_length=T)
-        fwd, bwd = out.chunk(2, dim=-1)
-        return fwd + bwd
+        """x: [bs, T, d_in]; lengths: [bs] valid prefix lengths (>= 1), on
+        x's device."""
+        bs, T, _ = x.shape
+        mask = prefix_mask(lengths, T).to(x.dtype)[..., None]  # [bs, T, 1]
+        pos = torch.arange(T, device=x.device)[None, :]
+        reverse = torch.where(pos < lengths[:, None],
+                              lengths[:, None] - 1 - pos, pos)  # [bs, T]
+        h0 = x.new_zeros(1, bs, self.hidden_size)
+        for layer in range(self.num_layers):
+            fwd = self._direction(x, h0, f"l{layer}") * mask
+            bwd = _take_time(self._direction(
+                _take_time(x, reverse), h0, f"l{layer}_reverse"), reverse) * mask
+            x = (fwd + bwd if layer == self.num_layers - 1
+                 else torch.cat([fwd, bwd], dim=-1))
+        return x
+
+    def _direction(self, x, h0, suffix: str) -> torch.Tensor:
+        """One direction of one layer as a forward GRU over x."""
+        weights = [getattr(self, f"{name}_{suffix}") for name in
+                   ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        return torch.gru(x, h0, weights, True, 1, 0.0, self.training, False,
+                         True)[0]
+
+
+def _take_time(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x[b, index[b, t]] for x [bs, T, d] and index [bs, T]."""
+    return torch.gather(x, 1, index[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def lengths_from_sequence(x: torch.Tensor) -> torch.Tensor:

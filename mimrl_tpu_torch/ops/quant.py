@@ -47,7 +47,7 @@ def _quantize(x: torch.Tensor, axis: int) -> Tuple[torch.Tensor, torch.Tensor]:
     # reduction, the mixed-type divide promotes x to float32 on the fly, and
     # round and clip work in place on its result
     amax = torch.linalg.vector_norm(x, ord=float("inf"), dim=axis, keepdim=True)
-    floor = torch.tensor(1e-8, dtype=x.dtype, device=x.device)
+    floor = torch.full((), 1e-8, dtype=x.dtype, device=x.device)
     scale = (torch.maximum(amax, floor) / 127.0).float()
     q = torch.div(x, scale).round_().clamp_(-127, 127)
     return q.to(torch.int8), scale

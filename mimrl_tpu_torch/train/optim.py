@@ -19,9 +19,10 @@ port of ``mimrl_tpu.train.optim``; ref: Solver.py:119-170).
   ``torch.optim.Adam`` cannot hold a bf16 moment beside float32
   parameters, so the update is written here in plain tensor ops on flat
   moment tensors: no TPU kernel stood here, stock ops are right.
-- The learning rate is a plain attribute that the epoch loop sets; the four
-  schedule families (step / multi_step / exp / plateau) are host-side
-  functions of the epoch (``LRScheduler``).
+- The learning rate lives in a device tensor that the ``learning_rate``
+  setter writes, so a step captured in a CUDA graph reads the rate of the
+  epoch it is replayed in; the four schedule families (step / multi_step /
+  exp / plateau) are host-side functions of the epoch (``LRScheduler``).
 - ``--optm SAM`` raises as in the reference (Solver.py:150-151).
 - ``fused_optim`` is an execution-order flag of the JAX package; there is
   one code path here.
@@ -99,8 +100,6 @@ class ChainOptimizer:
         self.kind = cfg.optm
         self.params = list(params)
         self.scales = list(scales) if scales is not None else [1.0] * len(self.params)
-        self.learning_rate = (cfg.learning_rate if learning_rate is None
-                              else learning_rate)
         self.gradient_clip = cfg.gradient_clip
         self.weight_decay = cfg.weight_decay
         mu_dtype = (torch.bfloat16 if cfg.moment_dtype == "bfloat16"
@@ -111,6 +110,10 @@ class ChainOptimizer:
         # the step count lives on the device, so that the non-finite guard
         # can keep it, with the moments, without reading a flag back
         self.count = torch.zeros((), dtype=torch.float32, device=dev)
+        # -learning_rate, read by the step on the device
+        self._neg_lr = torch.zeros((), dtype=torch.float32, device=dev)
+        self.learning_rate = (cfg.learning_rate if learning_rate is None
+                              else learning_rate)
         self.mu = torch.zeros(total, dtype=mu_dtype, device=dev)
         self.nu = torch.zeros(total if self.kind == "Adam" else 0,
                               dtype=torch.float32, device=dev)
@@ -120,6 +123,17 @@ class ChainOptimizer:
         # so does this one
         self.mu_decay = float(torch.tensor(
             B1 if self.kind == "Adam" else SGD_MOMENTUM, dtype=mu_dtype))
+
+    @property
+    def learning_rate(self) -> float:
+        return self._learning_rate
+
+    @learning_rate.setter
+    def learning_rate(self, value: float) -> None:
+        """Sets the rate of the steps enqueued after this call (a device
+        write in stream order: nothing waits for the device)."""
+        self._learning_rate = float(value)
+        self._neg_lr.fill_(-self._learning_rate)
 
     def state(self) -> List[torch.Tensor]:
         """Every state tensor (what the non-finite guard snapshots)."""
@@ -179,7 +193,8 @@ class ChainOptimizer:
         views = [u.view(p.shape) for u, p in zip(update.split(self.sizes),
                                                  self.params)]
         torch._foreach_mul_(views, self.scales)
-        torch._foreach_add_(self.params, views, alpha=-self.learning_rate)
+        update.mul_(self._neg_lr)
+        torch._foreach_add_(self.params, views)
 
 
 def make_main_optimizer(cfg: MimrlConfig, params_main: Dict[str, nn.Parameter],
@@ -239,6 +254,13 @@ class LRScheduler:
         if self.kind == "plateau":
             self.best = state["best"]
             self.bad_epochs = int(state["bad_epochs"])
+
+    @property
+    def needs_metric(self) -> bool:
+        """True when ``step`` reads the epoch's valid metric (plateau): the
+        next epoch's rate is then not known before this epoch's metrics, so
+        the epoch loop cannot dispatch ahead."""
+        return self.kind == "plateau"
 
     def step(self, val_metric: Optional[float] = None) -> float:
         """Advance one epoch (called after it, like scheduler.step(),

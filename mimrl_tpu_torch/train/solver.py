@@ -16,11 +16,28 @@ optimizers' moments and the feature bank. SIGTERM or SIGINT during
 (graceful preemption, as in ``mimrl_tpu/train/solver.py``).
 ``--bert_weights`` loads pretrained BERT weights after the random init.
 
+The schedule rungs (ref: ``mimrl_tpu/train/solver.py:495-697``):
+
+- per batch (the default): the loader feeds each step; ``--fast_stage1``
+  runs one forward per batch and ``stage1_n`` critic updates on the cached
+  features; with ``--num_workers`` > 0 stage 2's host batches are built on
+  a background thread, in page-locked memory, and copied without blocking
+  the host;
+- ``--epoch_scan``: the epoch is stacked on the device once (one shuffle
+  for stage 1 and stage 2, one loader pass per epoch, as the JAX scan
+  does; the valid and test stacks are built once) and each stage runs as
+  an epoch function of ``train/steps.py`` whose step bodies
+  ``train/graphs.py`` captures in CUDA graphs and replays per batch.
+  Stage 1 takes a fresh forward per pass and batch, or with
+  ``--fast_stage1`` one forward per batch, or with ``--stage1_cached`` the
+  previous epoch's bank. With ``--pipeline_epochs`` (the default) and a
+  schedule that does not read the valid metric, epoch e + 1 is dispatched
+  before epoch e's host work (scores, logs, checkpoints), from a snapshot
+  taken at its dispatch.
+
 Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: the epoch-level schedules (``--epoch_scan``, ``--fast_stage1``,
-``--stage1_cached``, ``--epoch_group``), ``--check_gradient``,
-``--custom_loss``, ``--profile_dir``, ``--distributed`` and a mesh over
-more than one device.
+ROADMAP.md: ``--epoch_group``, ``--check_gradient``, ``--custom_loss``,
+``--profile_dir``, ``--distributed`` and a mesh over more than one device.
 """
 
 from __future__ import annotations
@@ -39,6 +56,7 @@ from mimrl_tpu_torch.core.checkpoint import (SLOT_FORMAT, CheckpointManager,
                                              is_full_slot)
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
+from mimrl_tpu_torch.data.pipeline import prefetch
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
 from mimrl_tpu_torch.data.universal import get_data_loader, uses_raw_text
 from mimrl_tpu_torch.device import resolve_device
@@ -48,6 +66,7 @@ from mimrl_tpu_torch.eval.predict import get_label_from_datas
 from mimrl_tpu_torch.models.bert import load_bert_weights
 from mimrl_tpu_torch.models.model import build_model, init_weights
 from mimrl_tpu_torch.train import steps
+from mimrl_tpu_torch.train.graphs import StepGraphs
 from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
                                          make_vmi_optimizer, partition_params)
 
@@ -56,9 +75,6 @@ MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
 
 def _refuse_unported(opt: MimrlConfig) -> None:
     unported = {
-        "--epoch_scan": opt.epoch_scan,
-        "--fast_stage1": opt.fast_stage1,
-        "--stage1_cached": opt.stage1_cached,
         "--epoch_group > 1": opt.epoch_group > 1,
         "--check_gradient": opt.check_gradient,
         "--custom_loss": bool(opt.custom_loss),
@@ -89,9 +105,12 @@ class Solver:
     Weights are drawn from a CPU generator seeded the same way, so they do
     not depend on the device. A checkpoint saves all three generators'
     states, which ``--resume`` restores.
+
+    ``graphs=False`` runs the ``--epoch_scan`` step bodies eagerly on the
+    card too, as the reference that the captured run must equal.
     """
 
-    def __init__(self, opt: MimrlConfig, device=None):
+    def __init__(self, opt: MimrlConfig, device=None, graphs: bool = True):
         _refuse_unported(opt)
         self.opt = opt
         self.device = resolve_device(device if device is not None
@@ -108,6 +127,7 @@ class Solver:
         torch.manual_seed(opt.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.seed)
+        self.graphs = StepGraphs(self.device, [self.generator], enabled=graphs)
         self.model = build_model(opt, self.tokenizer.vocab_size, self.d_a,
                                  self.d_v, self.device)
         init_weights(self.model, torch.Generator().manual_seed(opt.seed))
@@ -127,7 +147,8 @@ class Solver:
         self.base_lr_vmi = opt.learning_rate * opt.mi_lr_rate
 
         # feature banks: one row per train-step sample; the epoch reads
-        # `bank` and writes `new_bank`, then they change places
+        # `bank` and writes `new_bank`, which is then copied into `bank`
+        # (both stay in place: captured steps hold their addresses)
         self.n_bank = len(self.train_loader) * opt.batch_size
         n_valid = min(len(self.train_loader.ds), self.n_bank)
         bank_kw = dict(n_bank=self.n_bank, n_valid=n_valid,
@@ -139,6 +160,11 @@ class Solver:
         self.have_bank = False  # epoch-0 semantics (ref: Customization.py:97)
         # mean critic loss of each stage-1 pass of the last epoch
         self.stage1_pass_losses: List[float] = []
+
+        # --epoch_scan: dataset-order tensors and the unshuffled splits'
+        # stacks on the device, by loader
+        self._flats: Dict = {}
+        self._stacks: Dict = {}
 
         self.start_epoch = 0
         self._preempted = False
@@ -156,12 +182,25 @@ class Solver:
         ckpt.save_config(self.opt.to_json())
         return task_path, writer, ckpt
 
+    def _host(self, batch: Dict):
+        """Host batch -> (CPU tensors and labels, page-locked on the card's
+        runs, host labels, host sample mask)."""
+        labels = np.asarray(get_label_from_datas(self.opt, batch))
+        tensors = steps.host_tensors(batch, labels, self.opt.task,
+                                     pin=self.device.type == "cuda")
+        return tensors, labels, batch["sample_mask"]
+
+    def _to_device(self, host):
+        """``_host``'s result -> (device batch, device labels, host labels,
+        host sample mask), copied in stream order."""
+        (model_batch, labels), labels_np, mask = host
+        return ({k: v.to(self.device, non_blocking=True)
+                 for k, v in model_batch.items()},
+                labels.to(self.device, non_blocking=True), labels_np, mask)
+
     def _prep(self, batch: Dict):
         """Host batch -> (device batch, device labels, host labels)."""
-        labels = np.asarray(get_label_from_datas(self.opt, batch))
-        model_batch, labels_dev = steps.to_device(
-            batch, labels, self.opt.task, self.device)
-        return model_batch, labels_dev, labels
+        return self._to_device(self._host(batch))[:3]
 
     def _snapshot(self, epoch: int) -> Dict:
         """The whole training state after ``epoch``, as a slot holds it
@@ -227,14 +266,31 @@ class Solver:
 
         # Stage 1 (skipped at epoch 0, ref: Solver.py:201-203)
         if epoch > 0 and self.have_bank:
-            for _ in range(opt.stage1_n):
-                mi_losses = []
+            if opt.fast_stage1:
+                # one forward per batch, stage1_n critic updates on the
+                # cached features (ref: mimrl_tpu/train/solver.py:511-530)
+                cached = []
                 for batch in self.train_loader:
                     model_batch, labels_dev, _ = self._prep(batch)
-                    loss, _mis = steps.critic_step(
-                        self.model, self.opt_vmi, opt, model_batch,
-                        labels_dev, self.bank, self.generator)
-                    mi_losses.append(loss)
+                    cached.append((steps.features_step(
+                        self.model, model_batch, self.generator), labels_dev))
+                passes = [[steps.critic_update(
+                    self.model, self.opt_vmi, opt, feats, labels_dev,
+                    self.bank, self.generator)[0]
+                    for feats, labels_dev in cached]
+                    for _ in range(opt.stage1_n)]
+            else:
+                passes = []
+                for _ in range(opt.stage1_n):
+                    mi_losses = []
+                    for batch in self.train_loader:
+                        model_batch, labels_dev, _ = self._prep(batch)
+                        loss, _mis = steps.critic_step(
+                            self.model, self.opt_vmi, opt, model_batch,
+                            labels_dev, self.bank, self.generator)
+                        mi_losses.append(loss)
+                    passes.append(mi_losses)
+            for mi_losses in passes:
                 pass_loss = float(torch.stack(mi_losses).sum())
                 running_loss_mi += pass_loss
                 self.stage1_pass_losses.append(pass_loss / n)
@@ -249,8 +305,11 @@ class Solver:
         self.new_bank.zero_()
         offset = 0
         step_losses, step_mis, outs, masks, targets = [], [], [], [], []
-        for batch in self.train_loader:
-            model_batch, labels_dev, labels_np = self._prep(batch)
+        host_batches = map(self._host, self.train_loader)
+        if opt.num_workers > 0:  # ref: mimrl_tpu/train/solver.py:559-560
+            host_batches = prefetch(host_batches, 2)
+        for host in host_batches:
+            model_batch, labels_dev, labels_np, sample_mask = self._to_device(host)
             loss, mis, out = steps.train_step(
                 self.model, self.opt_main, opt, model_batch, labels_dev,
                 self.bank, self.new_bank, offset, self.generator, use_mi)
@@ -259,7 +318,7 @@ class Solver:
             step_losses.append(loss)
             step_mis.append(mis)
             outs.append(out)
-            masks.append(batch["sample_mask"] > 0.5)
+            masks.append(np.asarray(sample_mask) > 0.5)
             targets.append(labels_np)
             offset += opt.batch_size
         self._synchronize()
@@ -267,7 +326,7 @@ class Solver:
 
         running_loss = float(torch.stack(step_losses).sum())
         mis_sum = torch.stack(step_mis).sum(dim=0).cpu().numpy()
-        self.bank, self.new_bank = self.new_bank, self.bank
+        self.bank.copy_(self.new_bank)
         self.have_bank = True
         predictions = np.concatenate(
             [o.float().cpu().numpy()[m] for o, m in zip(outs, masks)])
@@ -309,6 +368,116 @@ class Solver:
         return (avg_loss, avg_mis, score, predictions, targets,
                 features if opt.save_best_features else None)
 
+    # ------------------------------------------------------------------ #
+    # --epoch_scan (ref: mimrl_tpu/train/solver.py:300-494, :595-697)
+    def _stack_epoch(self, loader):
+        """The epoch's batches stacked on the device: ([NB, bs, ...] model
+        inputs and sample mask, [NB, bs] labels, host labels per batch,
+        host masks per batch). The dataset-order tensors are uploaded once;
+        each epoch gathers them by the loader's own ``epoch_index_plan``
+        with the seed ``seed + passes`` and advances ``passes`` by one, as
+        JAX's ``_stack_epoch_device_shuffle`` does. Unshuffled loaders (the
+        valid and test splits) are stacked once."""
+        if loader in self._stacks:
+            return self._stacks[loader]
+        if loader not in self._flats:
+            ids, types, amask = loader._tokens
+            self._flats[loader] = {
+                k: torch.from_numpy(v).to(self.device) for k, v in (
+                    ("bert_sentences", ids), ("bert_sentence_types", types),
+                    ("bert_sentence_att_mask", amask), ("audio", loader._audio),
+                    ("video", loader._video))}
+        idx_plan, mask_plan = loader.epoch_index_plan(
+            np.random.default_rng(loader.seed + loader.passes))
+        loader.passes += 1
+        idx = torch.from_numpy(idx_plan).to(self.device)
+        batches = {k: v[idx] for k, v in self._flats[loader].items()}
+        batches["sample_mask"] = torch.from_numpy(mask_plan).to(self.device)
+        ds_labels = [np.asarray(lab) for lab in loader.ds.labels]
+        labels_np = [np.asarray(get_label_from_datas(
+            self.opt, {"labels": [lab[i] for lab in ds_labels]}))
+            for i in idx_plan]
+        labels = torch.from_numpy(np.stack(labels_np).astype(
+            np.int64 if self.opt.task == "classification" else np.float32))
+        result = (batches, labels.to(self.device), labels_np,
+                  [m > 0.5 for m in mask_plan])
+        if not loader.shuffle:
+            self._stacks[loader] = result
+        return result
+
+    def _train_epoch_scan_dispatch(self, epoch: int):
+        """Enqueue the epoch's stages; returns ``finalize()``, which waits
+        for them and returns what ``train`` returns."""
+        opt = self.opt
+        batches, labels, labels_np, masks = self._stack_epoch(self.train_loader)
+        nb = len(self.train_loader)
+        t0 = time.time()
+        pass_sums = None
+        if epoch > 0 and self.have_bank:
+            if opt.stage1_cached:
+                pass_sums = steps.critic_epoch_cached(
+                    self.model, self.opt_vmi, opt, self.bank, nb,
+                    self.generator, opt.stage1_n, run=self.graphs)
+            else:
+                critic = (steps.critic_epoch if opt.fast_stage1
+                          else steps.critic_epoch_fresh)
+                pass_sums = critic(self.model, self.opt_vmi, opt, batches,
+                                   labels, self.bank, self.generator,
+                                   opt.stage1_n, run=self.graphs)
+        use_mi = self.have_bank
+        self.new_bank.zero_()
+        losses, mis, outs = steps.train_epoch(
+            self.model, self.opt_main, opt, batches, labels, self.bank,
+            self.new_bank, self.generator, use_mi, run=self.graphs)
+        self.bank.copy_(self.new_bank)
+        self.have_bank = True
+        log_message(f"  train dispatch: {time.time() - t0:.2f}s")
+
+        def finalize():
+            sums = [] if pass_sums is None else pass_sums.cpu().tolist()
+            self.stage1_pass_losses = [x / nb for x in sums]
+            log_message("  stage1:" + "".join(
+                f" pass{i + 1}:[{l:.4f}]"
+                for i, l in enumerate(self.stage1_pass_losses)))
+            outs_np = outs.float().cpu().numpy()
+            predictions = np.concatenate(
+                [o[m] for o, m in zip(outs_np, masks)])
+            targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
+            score = get_score_from_result(predictions, targets, opt.dataset,
+                                          opt.task, opt.num_class)
+            return (float(losses.sum()) / nb, sum(sums) / nb,
+                    (mis.sum(dim=0).cpu().numpy() / nb).tolist(), score)
+
+        return finalize
+
+    def _evaluate_epoch_scan_dispatch(self, loader):
+        """Enqueue one split's eval; returns ``finalize()``, which returns
+        what ``evaluate`` returns."""
+        opt = self.opt
+        batches, labels, labels_np, masks = self._stack_epoch(loader)
+        losses, mis, outs, feats = steps.eval_epoch(
+            self.model, opt, batches, labels, self.bank, self.generator,
+            self.have_bank, run=self.graphs)
+
+        def finalize():
+            n = len(loader)
+            outs_np = outs.float().cpu().numpy()
+            predictions = np.concatenate(
+                [o[m] for o, m in zip(outs_np, masks)])
+            targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
+            score = get_score_from_result(predictions, targets, opt.dataset,
+                                          opt.task, opt.num_class)
+            features = None
+            if opt.save_best_features:
+                feats_np = [f.float().cpu().numpy() for f in feats]
+                features = [[f[i][m] for f in feats_np]
+                            for i, m in enumerate(masks)]
+            return (float(losses.sum()) / n,
+                    (mis.sum(dim=0).cpu().numpy() / n).tolist(), score,
+                    predictions, targets, features)
+
+        return finalize
+
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -336,18 +505,45 @@ class Solver:
                     "features": [None, None, None],
                     "targets": [None, None],
                     "valid_state": None, "test_state": None}
+        # pipelined epochs (ref: mimrl_tpu/train/solver.py:1343-1446): epoch
+        # e's host work overlaps epoch e + 1's device work; the schedule is
+        # stepped at dispatch, so it must not read the valid metric
+        pipelined = (opt.epoch_scan and opt.pipeline_epochs
+                     and not self.lr_schedule.needs_metric)
+        pending = None  # (epoch, t0, the three finalize()s, snapshot)
         for epoch in range(self.start_epoch, opt.epochs_num):
             t0 = time.time()
-            train = self.train(epoch)
-            valid = self.evaluate(self.valid_loader)
-            test = self.evaluate(self.test_loader)
-            self._finalize_epoch(tracking, epoch, time.time() - t0, train,
-                                 valid, test)
+            if opt.epoch_scan:
+                fins = (self._train_epoch_scan_dispatch(epoch),
+                        self._evaluate_epoch_scan_dispatch(self.valid_loader),
+                        self._evaluate_epoch_scan_dispatch(self.test_loader))
+            else:
+                results = (self.train(epoch), self.evaluate(self.valid_loader),
+                           self.evaluate(self.test_loader))
+                fins = tuple((lambda r=r: r) for r in results)
+            if pipelined:
+                self._step_schedule(None)
+                snap = self._snapshot(epoch)
+                if pending is not None:
+                    p_epoch, p_t0, p_fins, p_snap = pending
+                    # dt: dispatch to dispatch, the steady-state epoch time
+                    self._finalize_epoch(tracking, p_epoch, t0 - p_t0,
+                                         *(f() for f in p_fins), snap=p_snap)
+                pending = (epoch, t0, fins, snap)
+                if self._preempted:
+                    break
+                continue
+            self._finalize_epoch(tracking, epoch, time.time() - t0,
+                                 *(f() for f in fins))
             if self._preempted:
-                self.ckpt.save("latest", self._snapshot(epoch))
-                log_message(f"Preemption requested: checkpointed at epoch "
-                            f"{epoch}, stopping.")
+                self._stop_preempted(epoch, self._snapshot(epoch))
                 break
+        if pending is not None:
+            p_epoch, p_t0, p_fins, p_snap = pending
+            self._finalize_epoch(tracking, p_epoch, time.time() - p_t0,
+                                 *(f() for f in p_fins), snap=p_snap)
+            if self._preempted:
+                self._stop_preempted(p_epoch, p_snap)
         log_message("Training complete.")
         self.writer.close()
         if tracking["score"][0] is not None:
@@ -357,9 +553,24 @@ class Solver:
                           tracking["test_state"])
         return tracking["score"]
 
-    def _finalize_epoch(self, tracking, epoch, dt, train, valid, test):
-        """Step the learning-rate schedule, track the best models, write
-        the epoch's log line and scalar channels, and keep the checkpoint
+    def _stop_preempted(self, epoch: int, snap: Dict) -> None:
+        self.ckpt.save("latest", snap)
+        log_message(f"Preemption requested: checkpointed at epoch {epoch}, "
+                    "stopping.")
+
+    def _step_schedule(self, val_loss: Optional[float]) -> None:
+        """Advance the learning-rate schedule one epoch and apply it to
+        both optimizers (ref: Solver.py:52-57)."""
+        factor = self.lr_schedule.step(val_loss)
+        self.opt_main.learning_rate = self.base_lr_main * factor
+        self.opt_vmi.learning_rate = self.base_lr_vmi * factor
+
+    def _finalize_epoch(self, tracking, epoch, dt, train, valid, test,
+                        snap: Optional[Dict] = None):
+        """Step the learning-rate schedule (unless ``snap``, the state
+        snapshot at the epoch's dispatch under pipelining, is given: the
+        schedule was stepped then), track the best models, write the
+        epoch's log line and scalar channels, and keep the checkpoint
         cadence."""
         opt = self.opt
         train_loss, train_loss_mi, train_mis, train_score = train
@@ -368,10 +579,8 @@ class Solver:
         (test_loss, test_mis, test_score, test_predictions, test_targets,
          test_features) = test
 
-        # LR schedule, applied to both optimizers (ref: Solver.py:52-57)
-        factor = self.lr_schedule.step(val_loss)
-        self.opt_main.learning_rate = self.base_lr_main * factor
-        self.opt_vmi.learning_rate = self.base_lr_vmi * factor
+        if snap is None:
+            self._step_schedule(val_loss)
 
         # best-model tracking (ref: Solver.py:59-93); one snapshot of the
         # epoch serves both best slots and latest
@@ -384,8 +593,11 @@ class Solver:
         save_latest = opt.save_latest_every > 0 and (
             epoch % opt.save_latest_every == opt.save_latest_every - 1
             or epoch == opt.epochs_num - 1)
-        snap = (self._snapshot(epoch) if save_latest or (
-            opt.save_models and (better_valid or better_test)) else None)
+        if snap is None and (save_latest or (
+                opt.save_models and (better_valid or better_test))):
+            snap = self._snapshot(epoch)
+        factor = (self.lr_schedule.factor if snap is None
+                  else snap["lr_schedule"]["factor"])
         if better_valid:
             log_message("Better valid score found...")
             if opt.save_models:
@@ -413,7 +625,8 @@ class Solver:
         log_message(msg + f" || {dt:.1f}s {sps:.1f} samples/s"
                     + self._memory_suffix())
         self.log_scalars(epoch, train_loss, train_mis, train_score, val_loss,
-                         val_mis, val_score, test_loss, test_mis, test_score)
+                         val_mis, val_score, test_loss, test_mis, test_score,
+                         self.base_lr_main * factor)
         if save_latest:
             self.ckpt.save("latest", snap)
 
@@ -468,8 +681,9 @@ class Solver:
         return mode + "".join(f" {key}:[{score[key]:6.3f}]" for key in score)
 
     def log_scalars(self, epoch, train_loss, train_mis, train_score, val_loss,
-                    val_mis, val_score, test_loss, test_mis, test_score):
-        """The reference's channel names (ref: Solver.py:467-507)."""
+                    val_mis, val_score, test_loss, test_mis, test_score, lr):
+        """The reference's channel names (ref: Solver.py:467-507); ``lr``
+        is the rate of the next epoch."""
         for tag, loss, mis, score in (
                 ("Train", train_loss, train_mis, train_score),
                 ("Val", val_loss, val_mis, val_score),
@@ -479,8 +693,7 @@ class Solver:
                 self.writer.add_scalar(f"{tag}/MI_{name}", value, epoch)
             for key in score:
                 self.writer.add_scalar(f"{tag}/{key}", score[key], epoch)
-        self.writer.add_scalar(
-            "Lr", self.base_lr_main * self.lr_schedule.factor, epoch)
+        self.writer.add_scalar("Lr", lr, epoch)
         self.writer.flush()
 
     def log_best_scores(self, best_score):

@@ -14,6 +14,18 @@
   (ref: Solver.py:201-203, Customization.py:97-98, :105-106).
 - Feature banks are epoch-stale: stage 2 writes the bank that the next
   epoch reads (ref: Solver.py:219-244).
+- ``features_step`` / ``critic_update`` split the critic step for
+  ``--fast_stage1``: one forward per batch, then the critics' updates on
+  the cached features.
+- The epoch functions (``critic_epoch_fresh``, ``critic_epoch``,
+  ``critic_epoch_cached``, ``train_epoch``, ``eval_epoch``) are the
+  ``--epoch_scan`` rung (ref: ``mimrl_tpu/train/steps.py:346-578``): they
+  take the epoch stacked on the device ([NB, bs, ...]) and call each step
+  body through ``run(name, body, **inputs)``. The default runs it;
+  ``train/graphs.py::StepGraphs`` captures it in a CUDA graph at first use
+  and replays it for the other batches. So a body reads and writes the
+  training state only through tensors that stay in place, and takes the
+  batch's position as a device tensor.
 
 Nothing here reads a value back from the device: losses, MI values and
 outputs are returned as device tensors, and the non-finite guard
@@ -23,7 +35,7 @@ flag. Parameters, optimizer state and banks are updated in place.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -86,15 +98,30 @@ class FeatureBank:
         return self
 
     @torch.no_grad()
-    def write(self, offset: int, labels, F, T, A, V,
+    def copy_(self, other: "FeatureBank") -> "FeatureBank":
+        """Every field <- ``other``'s, in place (the valid mask is fixed)."""
+        for dst, src in zip(self.tensors(), other.tensors()):
+            dst.copy_(src)
+        return self
+
+    def rows(self, offset, n: int) -> torch.Tensor:
+        """The row ids [offset, offset + n) on the bank's device; ``offset``
+        is an int or a device tensor."""
+        return torch.arange(n, device=self.C.device) + offset
+
+    @torch.no_grad()
+    def write(self, offset, labels, F, T, A, V,
               ok: Optional[torch.Tensor] = None) -> None:
-        """Rows [offset, offset + bs) <- this batch; with ``ok`` (a device
-        bool) false, the rows keep what they held."""
+        """Rows [offset, offset + bs) <- this batch (``offset``: an int or
+        a device tensor); with ``ok`` (a device bool) false, the rows keep
+        what they held."""
         new = (labels.reshape(-1, 1), F, T, A, V)
+        rows = self.rows(offset, labels.shape[0])
         for bank, x in zip(self.tensors(), new):
-            rows = bank[offset:offset + x.shape[0]]
             x = x.detach().to(bank.dtype)
-            rows.copy_(x if ok is None else torch.where(ok, x, rows))
+            if ok is not None:
+                x = torch.where(ok, x, bank.index_select(0, rows))
+            bank.index_copy_(0, rows, x)
 
 
 def sample_all_knn(generator: Optional[torch.Generator], bank: FeatureBank,
@@ -154,15 +181,30 @@ def _grads(loss, params: List[nn.Parameter]) -> List[torch.Tensor]:
             for p, g in zip(params, grads)]
 
 
+def host_tensors(batch: Dict, labels: np.ndarray, task: str, pin: bool = False
+                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Host batch -> the model's inputs, the sample mask and the labels as
+    CPU tensors (int64 labels for classification, float32 otherwise), in
+    page-locked memory with ``pin`` (for copies that do not block the
+    host)."""
+    model_batch = {k: torch.from_numpy(np.asarray(batch[k]))
+                   for k in MODEL_INPUTS + ("sample_mask",) if k in batch}
+    labels = np.asarray(labels)
+    labels = torch.from_numpy(
+        labels.astype(np.int64 if task == "classification" else np.float32))
+    if pin:
+        model_batch = {k: v.pin_memory() for k, v in model_batch.items()}
+        labels = labels.pin_memory()
+    return model_batch, labels
+
+
 def to_device(batch: Dict, labels: np.ndarray, task: str, device
               ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """Host batch -> the model's inputs, the sample mask and the labels on
-    the device (int64 labels for classification, float32 otherwise)."""
-    model_batch = {k: torch.from_numpy(np.asarray(batch[k])).to(device)
-                   for k in MODEL_INPUTS + ("sample_mask",) if k in batch}
-    labels = np.asarray(labels)
-    labels = labels.astype(np.int64 if task == "classification" else np.float32)
-    return model_batch, torch.from_numpy(labels).to(device)
+    the device (``host_tensors``, then copies in stream order)."""
+    model_batch, labels = host_tensors(batch, labels, task)
+    return ({k: v.to(device, non_blocking=True) for k, v in model_batch.items()},
+            labels.to(device, non_blocking=True))
 
 
 def _forward(model: MimrlModel, batch: Dict[str, torch.Tensor], generator):
@@ -191,15 +233,24 @@ def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
     return total, mis, out, feats
 
 
-def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
-                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
-                bank: FeatureBank, generator: Optional[torch.Generator],
-                anchors: Optional[Dict[str, torch.Tensor]] = None):
-    """Stage 1: one update of the estimator parameters. Returns (loss,
-    the 11 MI estimates) as device tensors."""
+def features_step(model: MimrlModel, batch: Dict[str, torch.Tensor],
+                  generator: Optional[torch.Generator]) -> List[torch.Tensor]:
+    """The training-mode forward (dropout on) under ``no_grad``: [F_F,
+    T_F, A_F, V_F], constants of stage 1."""
     model.train()
     with torch.no_grad():
         _, *feats = _forward(model, batch, generator)
+    return feats
+
+
+def critic_update(model: MimrlModel, opt_vmi: ChainOptimizer,
+                  cfg: MimrlConfig, feats: Sequence[torch.Tensor],
+                  labels: torch.Tensor, bank: FeatureBank,
+                  generator: Optional[torch.Generator],
+                  anchors: Optional[Dict[str, torch.Tensor]] = None):
+    """One update of the estimator parameters from given features.
+    Returns (loss, the 11 MI estimates) as device tensors."""
+    model.train()
     knn = sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
                          cfg.radius, anchors)
     mis, losses = model.compute_vmi_loss_stage1(labels, *feats, knn)
@@ -209,13 +260,25 @@ def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
     return total.detach(), torch.stack(mis).detach()
 
 
+def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
+                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+                bank: FeatureBank, generator: Optional[torch.Generator],
+                anchors: Optional[Dict[str, torch.Tensor]] = None):
+    """Stage 1: a fresh forward, then one update of the estimator
+    parameters. Returns (loss, the 11 MI estimates) as device tensors."""
+    feats = features_step(model, batch, generator)
+    return critic_update(model, opt_vmi, cfg, feats, labels, bank, generator,
+                         anchors)
+
+
 def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
-               bank: FeatureBank, new_bank: FeatureBank, offset: int,
+               bank: FeatureBank, new_bank: FeatureBank, offset,
                generator: Optional[torch.Generator], use_mi: bool,
                anchors: Optional[Dict[str, torch.Tensor]] = None):
     """Stage 2: one update of the main and BERT parameters, and the
-    batch's features written to ``new_bank`` at ``offset``. Returns (loss,
+    batch's features written to ``new_bank`` at ``offset`` (an int or a
+    device tensor). Returns (loss,
     the 8 MI channels, the model's output) as device tensors."""
     model.train()
     knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
@@ -245,3 +308,150 @@ def eval_step(model: MimrlModel, cfg: MimrlConfig,
                           cfg.radius, anchors) if use_mi else None)
     loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn, None)
     return loss, mis, out, tuple(feats)
+
+
+# ---------------------------------------------------------------------- #
+# The --epoch_scan rung: one epoch's stage over the stacked batches.
+
+
+def call(name: str, body: Callable, **inputs):
+    """Run a step body (the default ``run`` of the epoch functions; ``name``
+    keys a captured graph in ``train/graphs.py``)."""
+    del name
+    return body(**inputs)
+
+
+def _batch_at(batches: Dict[str, torch.Tensor], i: int
+             ) -> Dict[str, torch.Tensor]:
+    """Batch ``i`` of an epoch stacked as [NB, bs, ...] tensors."""
+    return {k: v[i] for k, v in batches.items()}
+
+
+def _anchor_kw(anchors: Optional[Sequence[Dict]], j: int) -> Dict:
+    return {} if anchors is None else {"anchors": anchors[j]}
+
+
+def _pass_sums(losses: List[torch.Tensor], n_passes: int) -> torch.Tensor:
+    """[n_passes] sums of the per-step losses, in pass order."""
+    return torch.stack(losses).reshape(n_passes, -1).sum(dim=1)
+
+
+def critic_epoch_fresh(model: MimrlModel, opt_vmi: ChainOptimizer,
+                       cfg: MimrlConfig, batches: Dict[str, torch.Tensor],
+                       labels: torch.Tensor, bank: FeatureBank,
+                       generator: Optional[torch.Generator], n_passes: int,
+                       run: Callable = call,
+                       anchors: Optional[Sequence[Dict]] = None
+                       ) -> torch.Tensor:
+    """Stage 1 as the reference runs it (the default under
+    ``--epoch_scan``): a fresh forward, with its own dropout draw, for every
+    pass over every batch (steps.py:386-434). ``anchors``: one dict per
+    step, pass-major. Returns the [n_passes] critic-loss sums."""
+    nb = labels.shape[0]
+
+    def body(batch, labels, anchors=None):
+        return critic_step(model, opt_vmi, cfg, batch, labels, bank,
+                           generator, anchors)
+
+    losses = [run("critic_step", body, batch=_batch_at(batches, i),
+                  labels=labels[i], **_anchor_kw(anchors, p * nb + i))[0]
+              for p in range(n_passes) for i in range(nb)]
+    return _pass_sums(losses, n_passes)
+
+
+def critic_epoch(model: MimrlModel, opt_vmi: ChainOptimizer,
+                 cfg: MimrlConfig, batches: Dict[str, torch.Tensor],
+                 labels: torch.Tensor, bank: FeatureBank,
+                 generator: Optional[torch.Generator], n_passes: int,
+                 run: Callable = call,
+                 anchors: Optional[Sequence[Dict]] = None) -> torch.Tensor:
+    """Stage 1 under ``--fast_stage1``: one forward per batch, then
+    ``n_passes`` sweeps of critic updates over the cached features
+    (steps.py:346-384). Returns the [n_passes] critic-loss sums."""
+    nb = labels.shape[0]
+
+    def features(batch):
+        return features_step(model, batch, generator)
+
+    def update(feats, labels, anchors=None):
+        return critic_update(model, opt_vmi, cfg, feats, labels, bank,
+                             generator, anchors)
+
+    cached = [run("features_step", features, batch=_batch_at(batches, i))
+              for i in range(nb)]
+    losses = [run("critic_update", update, feats=cached[i], labels=labels[i],
+                  **_anchor_kw(anchors, p * nb + i))[0]
+              for p in range(n_passes) for i in range(nb)]
+    return _pass_sums(losses, n_passes)
+
+
+def critic_epoch_cached(model: MimrlModel, opt_vmi: ChainOptimizer,
+                        cfg: MimrlConfig, bank: FeatureBank, nb: int,
+                        generator: Optional[torch.Generator], n_passes: int,
+                        run: Callable = call,
+                        anchors: Optional[Sequence[Dict]] = None
+                        ) -> torch.Tensor:
+    """Stage 1 under ``--stage1_cached``: no forward; the features and
+    labels of batch i are rows [i * bs, (i + 1) * bs) of the epoch-stale
+    bank, which the previous epoch's stage 2 wrote (steps.py:436-496).
+    Returns the [n_passes] critic-loss sums."""
+    bs = cfg.batch_size
+    offsets = torch.arange(nb, device=bank.C.device) * bs
+
+    def update(offset, anchors=None):
+        rows = bank.rows(offset, bs)
+        feats = [f.index_select(0, rows) for f in (bank.F, bank.T, bank.A,
+                                                    bank.V)]
+        labels = bank.C.index_select(0, rows)[:, 0].float()
+        return critic_update(model, opt_vmi, cfg, feats, labels, bank,
+                             generator, anchors)
+
+    losses = [run("critic_update_cached", update, offset=offsets[i],
+                  **_anchor_kw(anchors, p * nb + i))[0]
+              for p in range(n_passes) for i in range(nb)]
+    return _pass_sums(losses, n_passes)
+
+
+def train_epoch(model: MimrlModel, opt_main: ChainOptimizer,
+                cfg: MimrlConfig, batches: Dict[str, torch.Tensor],
+                labels: torch.Tensor, bank: FeatureBank,
+                new_bank: FeatureBank, generator: Optional[torch.Generator],
+                use_mi: bool, run: Callable = call,
+                anchors: Optional[Sequence[Dict]] = None):
+    """Stage 2 over the epoch (steps.py:498-520): batch i's features go to
+    rows [i * bs, (i + 1) * bs) of ``new_bank``. Returns (losses [NB], MI
+    channels [NB, 8], outputs [NB, bs, C])."""
+    nb = labels.shape[0]
+    offsets = torch.arange(nb, device=labels.device) * cfg.batch_size
+
+    def body(batch, labels, offset, anchors=None):
+        return train_step(model, opt_main, cfg, batch, labels, bank,
+                          new_bank, offset, generator, use_mi, anchors)
+
+    steps = [run("train_step_mi" if use_mi else "train_step", body,
+                 batch=_batch_at(batches, i), labels=labels[i],
+                 offset=offsets[i], **_anchor_kw(anchors, i))
+             for i in range(nb)]
+    return tuple(torch.stack(x) for x in zip(*steps))
+
+
+def eval_epoch(model: MimrlModel, cfg: MimrlConfig,
+               batches: Dict[str, torch.Tensor], labels: torch.Tensor,
+               bank: FeatureBank, generator: Optional[torch.Generator],
+               use_mi: bool, run: Callable = call,
+               anchors: Optional[Sequence[Dict]] = None):
+    """``eval_step`` over a stacked split (steps.py:522-536). Returns
+    (losses [NB], MI channels [NB, 8], outputs [NB, bs, C], the four
+    feature stacks [NB, bs, d])."""
+    nb = labels.shape[0]
+
+    def body(batch, labels, anchors=None):
+        loss, mis, out, feats = eval_step(model, cfg, batch, labels, bank,
+                                          generator, use_mi, anchors)
+        return (loss, mis, out, *feats)
+
+    steps = [run("eval_step_mi" if use_mi else "eval_step", body,
+                 batch=_batch_at(batches, i), labels=labels[i],
+                 **_anchor_kw(anchors, i)) for i in range(nb)]
+    losses, mis, outs, *feats = (torch.stack(x) for x in zip(*steps))
+    return losses, mis, outs, tuple(feats)

@@ -5,6 +5,7 @@ parsing, tokenizer, synthetic Dec fixture, Dec loader and batch pipeline
 """
 
 import dataclasses
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -113,6 +114,23 @@ def test_pipeline_matches_jax(tmp_path, shuffle):
             np.testing.assert_array_equal(g["labels"][0], w["labels"][0])
         # 11 samples in batches of 4: the last batch is cycle-padded
         assert batches[-1][0]["sample_mask"].tolist() == [1, 1, 1, 0]
+    # prefetch (--num_workers): the same batches through the background
+    # thread as through JAX's; an iterator's error is raised in the
+    # consumer; a consumer that leaves early stops the thread
+    for g, w in zip(pipeline.prefetch(iter(got), 2), jpipe.prefetch(iter(want), 2)):
+        np.testing.assert_array_equal(g["audio"], w["audio"])
+
+    def failing():
+        yield 1
+        raise ValueError("loader")
+
+    with pytest.raises(ValueError, match="loader"):
+        list(pipeline.prefetch(failing()))
+    threads = threading.active_count()
+    early = pipeline.prefetch(iter(range(100)), 2)
+    assert next(early) == 0
+    early.close()
+    assert threading.active_count() == threads
 
 
 def test_loader_refuses_unported_families():

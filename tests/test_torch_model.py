@@ -6,10 +6,11 @@ into the port. BERT runs with ``flash_attn='on'``, so the JAX side goes
 through the Pallas kernel in interpret mode and the port through its
 plain attention route. Tolerance atol = rtol = 1e-4: the two sides sum
 in different orders in the 2 BERT layers, the GRU scan (XLA scan vs the
-packed torch GRU) and the LayerNorms (flax's fast variance vs torch's).
+torch GRU per direction) and the LayerNorms (flax's fast variance vs torch's).
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from mimrl_tpu.models import bert as jbert
 from mimrl_tpu.models import cubemlp as jcube
@@ -26,6 +28,7 @@ from mimrl_tpu.models.model import init_full
 from mimrl_tpu_torch.models.bert import BertConfig
 from mimrl_tpu_torch.models.convert import state_dict_from_jax
 from mimrl_tpu_torch.models.cubemlp import MLPEncoder
+from mimrl_tpu_torch.models import encoders
 from mimrl_tpu_torch.models.encoders import (BiRnnEncoder,
                                              lengths_from_sequence,
                                              prefix_mask)
@@ -152,6 +155,19 @@ def test_bigru_matches_jax(pair, name, d_in):
     with torch.no_grad():
         got = enc(_t(x), lengths_from_sequence(_t(x)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the lengths stay on the device: the same GRU over packed sequences
+    # (which needs them on the host) gives the same outputs, and the
+    # encoder's source copies nothing to the host
+    lengths = lengths_from_sequence(_t(x))
+    packed = pack_padded_sequence(_t(x), lengths, batch_first=True,
+                                  enforce_sorted=False)
+    with torch.no_grad():
+        out, _ = nn.GRU.forward(enc, packed)
+    fwd, bwd = pad_packed_sequence(out, batch_first=True, total_length=T)[0].chunk(2, -1)
+    np.testing.assert_allclose(got.numpy(), (fwd + bwd).numpy(), rtol=0,
+                               atol=1e-6)
+    source = inspect.getsource(encoders)
+    assert not any(s in source for s in (".cpu()", ".item()", "pack_padded"))
 
 
 @pytest.mark.parametrize("ln_first", [False, True])

@@ -135,6 +135,9 @@ def test_injected_learning_rate_takes_effect():
     opt = optim.make_vmi_optimizer(cfg, {"vmi_x.w": p})
     opt.step([torch.ones(3)])
     opt.learning_rate = 1e-3
+    # the rate is a tensor on the parameters' device that the step reads
+    # (a CUDA graph replays the step with the rate of its epoch)
+    assert opt._neg_lr.device == p.device and opt._neg_lr.item() == pytest.approx(-1e-3)
     opt.step([torch.zeros(3)])  # momentum 0.9 of the first gradient
     torch.testing.assert_close(p.detach(), torch.full((3,), -1e-2 - 0.9e-3))
 
@@ -169,4 +172,5 @@ def test_lr_scheduler_matches_jax(kind, iters):
     losses = [1.0, 0.9, 0.95, 0.97, 0.99, 0.5, 0.6, 0.7, 0.8]
     for loss in losses:
         assert ps.step(loss) == js.step(loss)
+    assert ps.needs_metric == js.needs_metric == (kind == "plateau")
     assert ps.factor < 1.0

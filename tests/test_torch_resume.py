@@ -8,8 +8,9 @@ the schedule's restored state matters inside the run): A goes through;
 B receives a real SIGTERM in epoch 1 and stops after it; C resumes B for
 epoch 2. C's final slot (weights, both optimizers' moments, the feature
 bank, the schedule, the loader's passes, the generators) and its epoch-2
-telemetry equal A's. Three faulty resumes, each leaving one piece of the
-state out, must each end with other weights.
+telemetry equal A's; the same holds for the ``--epoch_scan`` rung, whose
+epochs are dispatched ahead of their host work. Three faulty resumes, each
+leaving one piece of the state out, must each end with other weights.
 """
 
 import json
@@ -102,6 +103,27 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
                                 "factor": pytest.approx(0.1), "epoch": 3}
     assert _scalars(f"{runs}/C", 2) == _scalars(f"{runs}/A", 2)
     assert not _scalars(f"{runs}/C", 1)
+
+    # the --epoch_scan rung (pipelined): a SIGTERM while epoch 1 is
+    # dispatched stops the run after it, and the resumed run equals the
+    # uninterrupted rung run
+    dispatch = Solver._train_epoch_scan_dispatch
+
+    def dispatch_with_sigterm(self, epoch):
+        if epoch == 1:
+            signal.raise_signal(signal.SIGTERM)
+        return dispatch(self, epoch)
+
+    scan_a = run("scan_A", "--epoch_scan")
+    with monkeypatch.context() as m:
+        m.setattr(Solver, "_train_epoch_scan_dispatch", dispatch_with_sigterm)
+        scan_b = run("scan_B", "--epoch_scan")
+    assert scan_b["epoch"] == 1 and scan_b["loader_passes"] == 2
+    scan_c = run("scan_C", "--epoch_scan", "--resume", f"{runs}/scan_B")
+    assert _same(scan_c, scan_a), [k for k in scan_a
+                                   if not _same(scan_a[k], scan_c[k])]
+    assert _scalars(f"{runs}/scan_C", 2) == _scalars(f"{runs}/scan_A", 2)
+    assert not _same(scan_a["model"], a["model"])  # one shuffle an epoch
 
     # faulty resumes: each leaves one piece of the state out
     resume = Solver._resume

@@ -7,21 +7,44 @@ the reference's channels, and ``Predictor`` loads the ``best_valid`` slot
 the run wrote, and its ``latest`` slot holds the whole training state.
 Flags whose path is not ported raise; the two kernel flags
 (``--use_pallas``, ``--quant``) train and serve through the plain versions.
+
+The schedule rungs (``test_rungs``): each stage-1 mode's epoch function,
+then ``train_epoch`` and ``eval_epoch``, against the JAX package's epoch
+programs (``StepFactory``) from the same weights, stacked batches, bank
+and kNN anchors (the ones JAX draws, injected), with dropout 0, SGD and
+plain XLA / PyTorch attention on both sides (the attention kernels' parity
+is held in test_torch_steps.py); and ``cli.main`` for 3 epochs on the rung,
+whose ``scalars.jsonl`` ``--no_pipeline_epochs`` repeats exactly.
+Tolerances: losses, MI values, outputs, bank rows and features 1e-4, as in
+test_torch_steps.py; parameters 1e-5 after the 6 critic updates or 3 train
+updates of a stage (SGD holds every entry; a step's 2e-6 grows with the
+steps). Eval runs at the initial weights and reads the seeded bank: at the
+updated weights a few fused features moved by up to 6.5e-4, and the new
+bank's rows (the tiny model's features) hold near-ties of the kNN order.
 """
 
 import json
 import os
 
+import jax
+import jax.numpy as jnp
+
 import numpy as np
 import pytest
 import torch
 
+from mimrl_tpu.train import optim as joptim
+from mimrl_tpu.train import steps as jsteps
 from mimrl_tpu_torch.cli.main import main
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import parse_args
 from mimrl_tpu_torch.data.synthetic import make_dec_fixture
 from mimrl_tpu_torch.eval.predict import Predictor
+from mimrl_tpu_torch.models.convert import state_dict_from_jax
+from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.solver import MI_NAMES, Solver
+from test_torch_steps import (BS as S_BS, D_C, MAIN_GROUPS, N_BANK, N_VALID, Pair,
+                              _batch, _jax_anchors)
 
 torch.set_num_threads(1)
 
@@ -113,7 +136,9 @@ def test_predictor_loads_the_best_valid_slot(run):
 def test_two_runs_of_one_seed_agree(run):
     """Weights, batches, kNN anchors and dropout all derive from --seed."""
     root, task, scores = run
-    again = main(_argv(root, "--task_name", "again", "--no_save_models"))
+    # (and --num_workers 0, stage 2 without its background thread)
+    again = main(_argv(root, "--task_name", "again", "--no_save_models",
+                       "--num_workers", "0"))
     assert again[0]["mae"] == pytest.approx(scores[0]["mae"], rel=1e-6)
     assert not os.path.exists(f"{root}/runs/again/best_valid_model.pt")
     other = main(_argv(root, "--task_name", "other", "--seed", "1",
@@ -122,7 +147,6 @@ def test_two_runs_of_one_seed_agree(run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--epoch_scan"], ["--fast_stage1"], ["--epoch_scan", "--stage1_cached"],
     ["--epoch_group", "2"], ["--check_gradient"],
     ["--custom_loss", "mod:fn"], ["--mesh_model", "2"], ["--mesh_data", "4"],
     ["--fusion", "tfn"], ["--encoders", "lstm"], ["--profile_dir", "x"],
@@ -194,3 +218,129 @@ def test_solver_needs_cuda_unless_asked(run, monkeypatch):
     assert next(solver.model.parameters()).device.type == "cpu"
     assert solver.generator.device.type == "cpu"
     solver.writer.close()
+
+
+RUNGS = {  # stage-1 mode -> (its runs' flags, the JAX epoch program)
+    "fresh": ([["--epoch_scan"]], "critic_epoch_fresh"),
+    "fast": ([["--fast_stage1"], ["--epoch_scan", "--fast_stage1"]],
+             "critic_epoch"),
+    "cached": ([["--epoch_scan", "--stage1_cached"]], "critic_epoch_cached"),
+}
+_RUNG_PAIR = []
+
+
+def _rung_pair():
+    if not _RUNG_PAIR:
+        _RUNG_PAIR.append(Pair(optm="SGD"))
+    return _RUNG_PAIR[0]
+
+
+def _anchors_of(keys):
+    return [{k: torch.from_numpy(v) for k, v in _jax_anchors(key).items()}
+            for key in keys]
+
+
+def _close(got, want, what):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4, err_msg=what)
+
+
+@pytest.mark.parametrize("mode", sorted(RUNGS))
+def test_rungs(run, mode):
+    """One stage-1 mode of the schedule rungs against the JAX epoch
+    programs, then through ``cli.main`` (see the module's docstring)."""
+    flag_sets, program = RUNGS[mode]
+    p = _rung_pair()
+    nb, n_passes = N_BANK // S_BS, 2
+    host = [_batch(seed) for seed in range(nb)]
+    stacked = {k: np.stack([b[k] for b, _ in host]) for k in host[0][0]}
+    labels = np.stack([y for _, y in host])
+    jb = {k: jnp.asarray(v) for k, v in stacked.items()}
+    main_p, bert_p, vmi_p, jbank = p.jax_state()
+    f = p.factory
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(11), 3)
+    model, opt_main, opt_vmi, bank, new_bank, _, _ = p.port_state()
+    pb = {k: torch.from_numpy(v) for k, v in stacked.items()}
+    plabels = torch.from_numpy(labels)
+
+    # eval at the initial weights (after the updates below, their 1e-5
+    # differences move a few features by more than 1e-4)
+    want = f.eval_epoch(main_p, bert_p, vmi_p, jb, jnp.asarray(labels), jbank,
+                        k3, use_mi=True)
+    got = steps.eval_epoch(model, p.cfg, pb, plabels, bank, None, True,
+                           anchors=_anchors_of(jax.random.split(k3, nb)))
+    for g, w, what in zip(got[:3] + got[3], want[:3] + tuple(want[3]),
+                          ("loss", "MI", "output", "F", "T", "A", "V")):
+        _close(g, w, f"eval {what}")
+
+    # stage 1: the anchors of each update, pass-major
+    jstate = p.jopt_vmi.init(vmi_p)
+    if mode == "cached":
+        vmi_p, _, want = f.critic_epoch_cached(
+            main_p, bert_p, vmi_p, jstate, jbank, k1, n_passes=n_passes, nb=nb)
+        keys = jax.random.split(jax.random.split(k1)[1], nb * n_passes)
+        got = steps.critic_epoch_cached(model, opt_vmi, p.cfg, bank, nb, None,
+                                        n_passes, anchors=_anchors_of(keys))
+    else:
+        vmi_p, _, want = getattr(f, program)(
+            main_p, bert_p, vmi_p, jstate, jb, jnp.asarray(labels), jbank, k1,
+            n_passes=n_passes)
+        if mode == "fast":
+            keys = jax.random.split(jax.random.split(k1)[1], nb * n_passes)
+        else:  # each step splits its key into dropout and kNN keys
+            keys = [jax.random.split(k)[1]
+                    for k in jax.random.split(k1, nb * n_passes)]
+        fn = steps.critic_epoch if mode == "fast" else steps.critic_epoch_fresh
+        got = fn(model, opt_vmi, p.cfg, pb, plabels, bank, None, n_passes,
+                 anchors=_anchors_of(keys))
+    assert got.shape == (n_passes,)
+    _close(got.sum(), want, "critic loss")
+    vmi_names = tuple(n for n, _ in model.named_children()
+                      if n.startswith(("vmi_", "vcmi_")))
+    _assert_params(p, model, vmi_p, vmi_names)
+
+    # stage 2 with MI, its features into a new bank
+    jstate = p.jopt_main.init(joptim.merge_params(main_p, bert_p))
+    (main_p, bert_p, _, losses, mis, outs, jnew) = f.train_epoch(
+        main_p, bert_p, vmi_p, jstate, jb, jnp.asarray(labels), jbank,
+        jsteps.FeatureBank.create(N_BANK, N_VALID, D_C), k2, use_mi=True)
+    keys = [jax.random.split(k)[1] for k in jax.random.split(k2, nb)]
+    got = steps.train_epoch(model, opt_main, p.cfg, pb, plabels, bank,
+                            new_bank, None, True, anchors=_anchors_of(keys))
+    for g, w, what in zip(got, (losses, mis, outs), ("loss", "MI", "output")):
+        _close(g, w, f"train {what}")
+    for field in "CFTAV":
+        _close(getattr(new_bank, field), getattr(jnew, field), f"bank {field}")
+    _assert_params(p, model, joptim.merge_params(main_p, bert_p),
+                   MAIN_GROUPS)
+
+    # the rung end to end: 3 epochs, pipelined or not, the same scalars
+    root = run[0]
+    for flags in flag_sets:
+        name = "rung_" + "_".join(x.strip("-") for x in flags)
+        scores = main(_argv(root, "--task_name", name, "--epochs_num", "3",
+                            *flags))
+        assert all(np.isfinite(v) for s in scores for v in s.values())
+        rows = open(f"{root}/runs/{name}/scalars.jsonl").read()
+        mi = [json.loads(r)["value"] for r in rows.splitlines()
+              if json.loads(r)["tag"].startswith("Train/MI_")]
+        assert len(mi) == 24 and any(v != 0.0 for v in mi[8:])
+        log = open(f"{root}/runs/{name}/Running.log").read()
+        assert log.count("pass2:[") == 2, name
+        if "--epoch_scan" in flags:
+            main(_argv(root, "--task_name", name + "_np", "--epochs_num", "3",
+                       "--no_pipeline_epochs", *flags))
+            assert open(f"{root}/runs/{name}_np/scalars.jsonl").read() == rows
+
+
+def _assert_params(p, model, jparams, groups):
+    """Every entry of the named groups against the JAX tree (SGD)."""
+    tree = dict(p.params_np)
+    tree.update(jax.tree_util.tree_map(np.asarray, jparams))
+    want = state_dict_from_jax(tree, model)
+    got = model.state_dict()
+    names = [n for n in want if n.split(".")[0] in groups]
+    assert names and {n.split(".")[0] for n in names} == set(groups)
+    for name in names:
+        np.testing.assert_allclose(got[name].numpy(), want[name].numpy(),
+                                   rtol=0, atol=1e-5, err_msg=name)

@@ -103,7 +103,7 @@ class Pair:
         self.batch, self.labels = _batch()
         c = self.jcfg
         bert = dataclasses.replace(
-            jbert.BertConfig.tiny(), vocab_size=VOCAB, flash_attn="on",
+            jbert.BertConfig.tiny(), vocab_size=VOCAB, flash_attn=c.flash_attn,
             hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
             max_position_embeddings=512, quant=c.quant)
         self.jmodel = JaxMimrlModel(
@@ -321,6 +321,13 @@ def test_bank_holds_fused_features_of_any_width():
     assert bank.F.shape == (6, 12) and bank.C[2:4, 0].tolist() == [7.0, 8.0]
     assert bank.F[2:4].eq(1.0).all() and bank.V[2:4].eq(4.0).all()
     assert not bank.F[:2].any() and not bank.F[4:].any()
+    # the offset as a device tensor (one captured train_step serves every
+    # batch position) writes the same rows, and copy_ carries them over
+    other = steps.FeatureBank(6, 5, d_common=4, d_fused=12)
+    other.write(torch.tensor(2), torch.tensor([7.0, 8.0]), *feats)
+    assert all(torch.equal(a, b) for a, b in zip(other.tensors(), bank.tensors()))
+    assert all(torch.equal(a, b) for a, b in zip(
+        steps.FeatureBank(6, 5, 4, 12).copy_(bank).tensors(), bank.tensors()))
     bank.write(2, torch.zeros(2), *[torch.zeros_like(f) for f in feats],
                ok=torch.tensor(False))
     assert bank.F[2:4].eq(1.0).all()  # a refused write keeps the rows
