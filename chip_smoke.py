@@ -97,6 +97,30 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            and a stage-1 pass (profiler), capture s per graph and peak
            memory, for G and E; and the per-batch path's stage-2 ms per step
            with ``--num_workers`` 0 and 4, two runs each, in turns.
+8. families  the dataset families and encoders of the ninth slice, each
+           through ``cli.main`` for 2 epochs at its recipe's widths with
+           seeded weights, on fixtures from the port's ``data/synthetic.py``
+           (every split's size printed), and each run's ``best_valid`` slot
+           served by ``Predictor``: ``recipes/mosi_local.sh`` (``mosi_50``,
+           dense text, no BERT parameter) without and with
+           ``--use_pallas``, every axis-MLP launch of one forward held
+           against its plain version; ``recipes/avec2019.sh`` (selection by
+           CCC; every attention launch of one train step checked; the
+           stacked epochs of ``--epoch_scan`` hold the per-batch loader's
+           random words of the same pass, other words each pass; one
+           float32 ``--use_pallas --quant int8`` train step bit-equal with
+           the int8 kernel's plain version, its launches at M 3200 each
+           checked); ``recipes/pom_sdk.sh`` (the POM battery); the canonical
+           recipe for 1 epoch with ``--encoders lstm`` and ``conv``, each
+           encoder on the card against the same weights on the CPU; and
+           ``mosi_local.sh`` with the LSTM and ``avec2019.sh`` on
+           ``--epoch_scan``, graphs against eager by the rungs gate.
+           Launches per run exact; host ms per step, a train step by CUDA
+           events, samples/s of the epoch and of serving, peak memory. The
+           kernels at its new shapes are held against their plain versions
+           and timed beside their bounds right after the kernel phase
+           (float32 attention at bs 32 and 64, the axis MLP at T 50, int8
+           at M 3200, bit for bit).
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -235,7 +259,7 @@ RESUME_GAP_FACTOR = 10.0
 # reads a learning rate that changed after its capture); the three stage-1
 # modes of --epoch_scan on the flag-free recipe, then the flagged recipe
 RUNG_ARGS = ["--epochs_num", "3", "--lr_decrease_iter", "2-60",
-             "--no_save_models"]
+             "--no_save_models", "--save_latest_every", "0"]
 RUNGS = (("scan", ["--epoch_scan"]), ("fast", ["--epoch_scan", "--fast_stage1"]),
          ("cached", ["--epoch_scan", "--stage1_cached"]))
 # substrings of the CUDA kernels' names in ops/csrc, for the profiler
@@ -2263,6 +2287,80 @@ def capture_failure_check() -> dict:
     return dict(raised=message[:200])
 
 
+def rung_run(runs: str, name: str, argv, graphs=True, stage1=None, patches=(),
+         timed=True):
+    """``cli.main`` on ``argv`` with its run in ``runs/name``, with CUDA
+    graphs or eagerly; returns the run's readings and its final slot's
+    tensors (``rung_profile``'s reading with ``stage1``)."""
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.train.graphs import StepGraphs
+    from mimrl_tpu_torch.train.solver import Solver
+
+    originals = {"solve": vars(Solver)["solve"],
+                 "finalize": vars(Solver)["_finalize_epoch"],
+                 "sync": vars(Solver)["_synchronize"],
+                 "call": vars(StepGraphs)["__call__"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info = dict(step_ms={}, epoch_s=[], syncs=[])
+
+    def solve(self):
+        info["solver"] = self
+        return originals["solve"](self)
+
+    def finalize(self, tracking, epoch, dt, *args, **kwargs):
+        info["epoch_s"].append(dt)
+        return originals["finalize"](self, tracking, epoch, dt, *args,
+                                     **kwargs)
+
+    def timed_call(self, step, body, **inputs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["call"](self, step, body, **inputs)
+        torch.cuda.synchronize()
+        info["step_ms"].setdefault(step, []).append(
+            1e3 * (time.perf_counter() - t0))
+        return out
+
+    def synchronize(self):
+        originals["sync"](self)
+        info["syncs"].append(time.perf_counter())
+
+    argv = list(argv) + ["--task_dir", runs, "--task_name", name]
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched([(Solver, "solve", solve),
+                  (Solver, "_finalize_epoch", finalize),
+                  (Solver, "_synchronize", synchronize),
+                  *([(StepGraphs, "__call__", timed_call)] if timed else []),
+                  *patches]):
+        cli_main(argv, graphs=graphs)
+    info.update(wall_s=time.perf_counter() - t0, launches=counts(),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    solver = info.pop("solver")
+    names = {id(p): n for n, p in solver.model.named_parameters()}
+    opt_names = {k: [names[id(p)] for p in getattr(solver, k).params]
+                 for k in ("opt_main", "opt_vmi")}
+    task = f"{runs}/{name}"
+    last = solver.opt.epochs_num - 1
+    # the state a latest slot of the last epoch would hold, taken in
+    # memory: a BERT-base slot is 1.1 GB, and the script's dozens of runs
+    # would otherwise write tens of GB that nothing reads back
+    slot = solver._snapshot(last)
+    info["tensors"] = dict(
+        {k: v.cpu() for k, v in slot_tensors(slot, opt_names).items()},
+        last_epoch_values=torch.tensor(epoch_values(task, last),
+                                       dtype=torch.float64))
+    info["graphs"] = solver.graphs.stats()
+    if stage1 is not None:
+        info["profile"] = rung_profile(solver, stage1)
+    del solver, slot
+    return info
+
+
 def rungs_phase(root: str):
     """The --epoch_scan rungs at full width and depth through ``cli.main``,
     3 epochs each, with CUDA graphs (G), eagerly (E) and eagerly again
@@ -2277,11 +2375,8 @@ def rungs_phase(root: str):
 
     import torch
 
-    from mimrl_tpu_torch.cli.main import main as cli_main
-    from mimrl_tpu_torch.core.checkpoint import CheckpointManager
     from mimrl_tpu_torch.data.synthetic import make_dec_fixture
     from mimrl_tpu_torch.train.graphs import StepGraphs
-    from mimrl_tpu_torch.train.solver import Solver
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2289,68 +2384,11 @@ def rungs_phase(root: str):
     if not os.path.isdir(data):
         make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
                          d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
-    originals = {"solve": vars(Solver)["solve"],
-                 "finalize": vars(Solver)["_finalize_epoch"],
-                 "sync": vars(Solver)["_synchronize"],
-                 "call": vars(StepGraphs)["__call__"]}
+    call = vars(StepGraphs)["__call__"]
 
-    def run(name, flags, graphs=True, stage1=None, patches=(), timed=True):
-        """cli.main; returns the run's readings and its final slot's
-        tensors (and keeps its Solver for the profile)."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        info = dict(step_ms={}, epoch_s=[], syncs=[])
-
-        def solve(self):
-            info["solver"] = self
-            return originals["solve"](self)
-
-        def finalize(self, tracking, epoch, dt, *args, **kwargs):
-            info["epoch_s"].append(dt)
-            return originals["finalize"](self, tracking, epoch, dt, *args,
-                                         **kwargs)
-
-        def timed_call(self, step, body, **inputs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = originals["call"](self, step, body, **inputs)
-            torch.cuda.synchronize()
-            info["step_ms"].setdefault(step, []).append(
-                1e3 * (time.perf_counter() - t0))
-            return out
-
-        def synchronize(self):
-            originals["sync"](self)
-            info["syncs"].append(time.perf_counter())
-
-        argv = CANONICAL_MOSI + CANONICAL_TRAIN + RUNG_ARGS + flags + [
-            "--data_dir", data, "--task_dir", runs, "--task_name", name]
-        zero_counts()
-        t0 = time.perf_counter()
-        with patched([(Solver, "solve", solve),
-                      (Solver, "_finalize_epoch", finalize),
-                      (Solver, "_synchronize", synchronize),
-                      *([(StepGraphs, "__call__", timed_call)] if timed else []),
-                      *patches]):
-            cli_main(argv, graphs=graphs)
-        info.update(wall_s=time.perf_counter() - t0, launches=counts(),
-                    peak_gb=torch.cuda.max_memory_allocated() / 1e9)
-        solver = info.pop("solver")
-        names = {id(p): n for n, p in solver.model.named_parameters()}
-        opt_names = {k: [names[id(p)] for p in getattr(solver, k).params]
-                     for k in ("opt_main", "opt_vmi")}
-        task = f"{runs}/{name}"
-        last = solver.opt.epochs_num - 1
-        slot = CheckpointManager(task).restore("latest", map_location="cpu")
-        info["tensors"] = dict(
-            slot_tensors(slot, opt_names), last_epoch_values=torch.tensor(
-                epoch_values(task, last), dtype=torch.float64))
-        info["graphs"] = solver.graphs.stats()
-        if stage1 is not None:
-            info["profile"] = rung_profile(solver, stage1)
-        del solver, slot
-        return info
+    def run(name, flags, **kwargs):
+        return rung_run(runs, name, CANONICAL_MOSI + CANONICAL_TRAIN
+                        + RUNG_ARGS + flags + ["--data_dir", data], **kwargs)
 
     def medians(info):
         """Median ms of each step's calls after its first (the first runs
@@ -2397,7 +2435,7 @@ def rungs_phase(root: str):
                 if step in frozen:
                     for gen, state in zip(self.generators, frozen[step]):
                         gen.set_state(state)
-                out = originals["call"](self, step, body, **inputs)
+                out = call(self, step, body, **inputs)
                 if step not in frozen and step in self.steps:
                     frozen[step] = [gen.get_state() for gen in self.generators]
                 return out
@@ -2437,6 +2475,603 @@ def rungs_phase(root: str):
     return add(*totals), quant_launches
 
 
+# ---------------------------------------------------------------------- #
+# The families phase: three recipes of recipes/ at their full widths, and
+# the canonical recipe with the LSTM and the Conv encoder.
+
+FAMILY_COMMON = [  # the flags the three recipes share (recipes/*.sh)
+    "--log_scale", "0-0-0", "--normalize", "0-1-1", "--d_common", "128",
+    "--encoders", "gru", "--activate", "gelu", "--dropout_mlp", "0.0-0.0-0.0",
+    "--dropout", "0.1-0.1-0.1-0.1", "--bias", "--res_project", "1-1",
+    "--critic_type", "separate", "--baseline_type", "constant",
+    "--bound_type", "infonce",
+    "--loss_mi_coefficient1", "1-1-1-1-1-1-1-1-1-1-1",
+    "--loss_mi_coefficient2", "0.01-0.01-0.01-0.01-0.01-0.01-0.01-0.01",
+    "--k_neighbor", "2", "--stage1_n", "2", "--seed", "0",
+    "--gradient_clip", "1.5", "--epochs_num", "2", "--optm", "Adam",
+    "--lr_decrease", "multi_step", "--lr_decrease_rate", "0.1", "--parallel",
+    # the best slots only, which Predictor serves (see rung_run's note)
+    "--save_latest_every", "0"]
+CUBE_T100 = ["--time_len", "100", "--d_hiddens", "50-3-128=10-3-128",
+             "--d_outs", "50-3-128=10-3-128"]
+# recipe -> (its own flags, (train, valid, test) sizes); every recipe keeps
+# its own widths, only the epochs are cut to 2. AVEC2019: the public
+# DAIC-WOZ session counts; POM: its published split
+FAMILIES = {
+    "mosi_local": (["--dataset", "mosi_50", "--batch_size", "128",
+                    "--time_len", "50", "--d_hiddens", "25-3-128=5-3-128",
+                    "--d_outs", "25-3-128=5-3-128", "--loss", "MAE",
+                    "--learning_rate", "4e-3", "--lr_decrease_iter", "9-60"],
+                   (384, 128, 128)),
+    "avec2019": (["--dataset", "avec2019", "--text", "text", "--audio", "mfcc",
+                  "--video", "au", "--batch_size", "32", *CUBE_T100,
+                  "--loss", "CCC", "--learning_rate", "1e-3",
+                  "--bert_lr_rate", "0.01", "--lr_decrease_iter", "20-40"],
+                 (163, 56, 56)),
+    "pom_sdk": (["--dataset", "pom_SDK", "--text", "text", "--audio",
+                 "covarep", "--video", "facet42", "--batch_size", "64",
+                 *CUBE_T100, "--loss", "MAE", "--learning_rate", "2e-3",
+                 "--bert_freeze", "no", "--bert_lr_rate", "0.01",
+                 "--lr_decrease_iter", "25-45"], (600, 100, 203)),
+}
+# the canonical MOSI encoder (bi-GRU) swapped: an encoder's output on the
+# card against the same weights on the CPU, both float32 (TF32 off): the
+# CPU tests hold the port to JAX at this tolerance
+ENCODER_CPU_TOL = 1e-4
+# the axis MLP's six shapes at mosi_local.sh's widths (25-3-128=5-3-128 on
+# [128, 50, 3, 128]), and the int8 products of one BERT-base layer at
+# AVEC2019's M = 32 x 100
+FAMILY_AXIS_MLP_SHAPES = [
+    ((BATCH, 50, 3, 128), 1, 25, 25), ((BATCH, 25, 3, 128), 2, 3, 3),
+    ((BATCH, 25, 3, 128), 3, 128, 128), ((BATCH, 25, 3, 128), 1, 5, 5),
+    ((BATCH, 5, 3, 128), 2, 3, 3), ((BATCH, 5, 3, 128), 3, 128, 128)]
+AVEC_ROWS = 32 * TIME_LEN
+
+
+def card() -> str:
+    """nvidia-smi's name and power limit of the card, for the records."""
+    if not hasattr(card, "line"):
+        card.line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+    return card.line
+
+
+def family_launches(kind: str, raw: bool, use_pallas: bool, quant: str,
+                    n: int = 1):
+    """``step_launches`` of a recipe: without raw text there is no BERT,
+    so neither attention nor int8 products."""
+    c = step_launches(kind, use_pallas, quant, n)
+    return c if raw else (0, 0, c[2], 0)
+
+
+def family_data(root: str, family: str) -> str:
+    """The recipe's synthetic dataset (the port's ``data/synthetic.py``) at
+    its feature widths; every split's size is printed."""
+    import os
+
+    from mimrl_tpu_torch.data import synthetic
+
+    data = f"{root}/family_data/{family}"
+    n = FAMILIES[family][1]
+    if not os.path.isdir(data):
+        if family == "mosi_local":
+            synthetic.make_local_fixture(data, "mosi_50", n, dims=(300, 5, 20),
+                                         time_len=50, seed=3)
+        elif family == "avec2019":  # up to 100 sentences a session
+            synthetic.make_avec_fixture(data, n, d_mfcc=39, d_au=49,
+                                        max_len=TIME_LEN + 1, seed=4)
+        else:
+            synthetic.make_sdk_fixture(data, "pom", n, d_text=300, d_audio=43,
+                                       d_video=35, max_len=TIME_LEN + 1, seed=5)
+        emit(phase="families", step="data", family=family,
+             train=n[0], valid=n[1], test=n[2])
+    return data
+
+
+def family_argv(root: str, family: str, *extra) -> list:
+    return FAMILY_COMMON + FAMILIES[family][0] + list(extra) + [
+        "--data_dir", family_data(root, family)]
+
+
+def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
+               quant="none", epochs: int = 2):
+    """``cli.main`` per batch with the counts set to 0 just before and
+    read just after: launches against the steps the run took, finite
+    scores, MI telemetry after epoch 0; host ms per step (a synchronise on
+    each side), the train epoch's samples/s, peak memory. Returns (record,
+    launches, the run's Solver)."""
+    import numpy as np
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = {k: [] for k in ("train_step", "critic_step", "eval_step")}
+    info = dict(train_s=[])
+    originals = {k: getattr(steps, k) for k in step_ms}
+    solve, train = vars(Solver)["solve"], vars(Solver)["train"]
+
+    def timed(k):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[k](*args, **kwargs)
+            torch.cuda.synchronize()
+            step_ms[k].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return wrapper
+
+    def keep_solver(self):
+        info["solver"] = self
+        return solve(self)
+
+    def timed_train(self, epoch):
+        t0 = time.perf_counter()
+        out = train(self, epoch)
+        info["train_s"].append(time.perf_counter() - t0)
+        return out
+
+    task = f"{root}/family_runs/{name}"
+    full = list(argv) + ["--task_dir", f"{root}/family_runs",
+                         "--task_name", name]
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched([(steps, k, timed(k)) for k in step_ms]
+                 + [(Solver, "solve", keep_solver),
+                    (Solver, "train", timed_train)]):
+        scores = cli_main(full)
+    wall = time.perf_counter() - t0
+    launches = counts()
+    solver = info.pop("solver")
+    n = {k: len(v) for k, v in step_ms.items()}
+    want = add(*(family_launches(k.split("_")[0], raw, use_pallas, quant, n[k])
+                 for k in step_ms))
+    require(launches == want, f"{name}: launches {launches} for {n} steps, "
+            f"want {want} (order {KERNEL_NAMES})")
+    nb = len(solver.train_loader)
+    require(n["train_step"] == epochs * nb
+            and n["critic_step"] == 2 * (epochs - 1) * nb,
+            f"{name}: {n} steps for {nb} train batches")
+    instances = (int8_instances(name, launches) if quant != "none"
+                 else None)
+    axis_instances = (axis_mlp_instances(name, launches) if use_pallas
+                      else None)
+    require(scores[0] is not None and all(
+        np.isfinite(v) for s in scores for v in s.values()),
+        f"{name}: non-finite best scores {scores}")
+    rows = [json.loads(r) for r in open(f"{task}/scalars.jsonl")]
+    require(all(np.isfinite(r["value"]) for r in rows),
+            f"{name}: a non-finite scalar")
+    mi = [r["value"] for r in rows if r["step"] == 1
+          and r["tag"].startswith("Train/MI_")]
+    log = open(f"{task}/Running.log").read()
+    line = next(x for x in log.splitlines() if "Parameters: " in x)
+    require((", bert 0, " in line) != raw, f"{name}: {line}")
+    require(epochs == 1 or len(mi) == 8 and any(v != 0.0 for v in mi),
+            f"{name}: epoch 1 MI channels {mi}")
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    events_ms = cuda_ms(lambda: steps.train_step(
+        solver.model, solver.opt_main, solver.opt, mb, labels, solver.bank,
+        solver.new_bank, 0, solver.generator, True), 2, 5)
+    n_train = len(solver.train_loader.ds)
+    record = dict(
+        phase="families", step=name, card=card(),
+        launches=dict(zip(KERNEL_NAMES, launches)),
+        steps=n, int8_instances=instances, axis_mlp_instances=axis_instances,
+        parameters=line.split("Parameters: ")[1], best_valid=scores[0],
+        wall_s=wall, train_s=info["train_s"],
+        # the last epoch's steps; the first epoch's warmed them up
+        train_step_ms_median=statistics.median(step_ms["train_step"][-nb:]),
+        critic_step_ms_median=(statistics.median(step_ms["critic_step"][nb:])
+                               if epochs > 1 else None),
+        eval_batch_ms_median=statistics.median(step_ms["eval_step"]),
+        train_step_events_ms=events_ms,
+        train_epoch_samples_per_s=n_train / info["train_s"][-1],
+        stage2_samples_per_s=n_train / (1e-3 * sum(step_ms["train_step"][-nb:])),
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return record, launches, solver
+
+
+def family_serve(name: str, task: str, raw: bool, use_pallas=False,
+                 quant="none"):
+    """``Predictor`` on the run's ``best_valid`` slot: the test split's
+    launches (the counts set to 0 just before it), its metrics, samples/s
+    after a warm-up pass. Returns (metrics, samples/s, launches)."""
+    import numpy as np
+
+    from mimrl_tpu_torch.eval.predict import Predictor
+
+    predictor = Predictor(task)
+    predictor.evaluate_split("test")  # warm-up
+    n_batches = len(predictor.test_loader)
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = predictor.evaluate_split("test")
+    wall = time.perf_counter() - t0
+    served = counts()
+    want = family_launches("eval", raw, use_pallas, quant, n_batches)
+    require(served == want, f"{name}: Predictor launched {served}, want {want}")
+    require(all(np.isfinite(v) for v in metrics.values()),
+            f"{name}: non-finite served metrics {metrics}")
+    samples = len(predictor.test_loader.ds)
+    del predictor
+    return metrics, samples / wall, served
+
+
+def checked_axis_mlp(errors):
+    """Patches under which every axis-MLP kernel launch also runs its plain
+    version on the same inputs and appends its ``rel_err``."""
+    from mimrl_tpu_torch.ops import cubemlp_kernel as ck
+
+    forward = ck._forward
+
+    def checked(x, w1, w2, b1, b2, axis, activate):
+        out = forward(x, w1, w2, b1, b2, axis, activate)
+        errors.append(rel_err(out, ck.fused_axis_mlp_plain(
+            x, w1, w2, b1, b2, axis, activate)))
+        return out
+
+    return ((ck, "_forward", checked),)
+
+
+def checked_int8(seen):
+    """Patches under which every int8 product of ``ops/quant.py`` also runs
+    the plain version; each launch appends (M, K, N, bit-equal)."""
+    import torch
+
+    from mimrl_tpu_torch.ops import quant
+    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul, int8_matmul_plain
+
+    def checked(a, b, sa, sb, out_dtype):
+        out = int8_matmul(a, b, sa, sb, out_dtype)
+        want = int8_matmul_plain(a, b, sa, sb, out_dtype)
+        seen.append((a.shape[0], a.shape[1], b.shape[1],
+                     bool(torch.equal(out, want))))
+        return out
+
+    return ((quant, "int8_matmul", checked),)
+
+
+def profiled_ms(fn, kernel_name):
+    """``profiler_ms`` with up to three sessions, as ``int8_phase`` reads
+    it: a session has come back without the kernel's records."""
+    for _ in range(3):
+        ms = profiler_ms(fn, kernel_name)
+        if ms is not None:
+            return ms
+    return None
+
+
+def family_kernel_shapes() -> dict:
+    """The kernels at the slice's new shapes against their plain versions,
+    timed (queued CUDA events and the profiler) beside the bound and the
+    one-call PyTorch equivalent: attention forward and backward at AVEC's
+    bs 32 and POM's bs 64 in float32 (the recipes' compute type: the SIMT
+    instances), with dropout; the axis MLP at mosi_local.sh's six shapes;
+    the int8 products of a BERT-base layer at M 3200, forward and dw, bit
+    for bit. Returns {kernel name: [records]}."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.ops import cubemlp_kernel as ck
+    from mimrl_tpu_torch.ops import flash_attention as fa
+    from mimrl_tpu_torch.ops.int8_matmul import (int8_matmul,
+                                                 int8_matmul_plain, plan)
+
+    out = {name: [] for name in KERNEL_NAMES}
+    dtype = torch.float32
+    for bs in (32, 64):
+        q, k, v, bias = attention_inputs(bs, N_HEADS, TIME_LEN, HEAD_DIM,
+                                         dtype, seed=bs)
+        seed = torch.tensor([bs], device="cuda")
+        d_out = torch.randn_like(q)
+        shape = [bs, N_HEADS, TIME_LEN, HEAD_DIM]
+        for kernel, backward in (("flash_attention_fwd", False),
+                                 ("flash_attention_bwd", True)):
+            instance = fa._instance(dtype, TIME_LEN, HEAD_DIM, backward)
+            if backward:
+                err = max(rel_err(g, w) for g, w in zip(
+                    fa.flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P),
+                    fa.flash_attention_bwd_plain(q, k, v, bias, seed, d_out,
+                                                 DROPOUT_P)))
+                qq, kk, vv = (x.detach().clone().requires_grad_()
+                              for x in (q, k, v))
+                sdpa = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias)
+                times = timings(
+                    lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out, 0.0),
+                    lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out,
+                                                   DROPOUT_P),
+                    lambda: fa.flash_attention_bwd_plain(q, k, v, bias, seed,
+                                                         d_out, 0.0),
+                    lambda: torch.autograd.grad(sdpa, (qq, kk, vv), d_out,
+                                                retain_graph=True),
+                    KERNEL_SYMBOLS[("bwd", instance)])
+                del sdpa, qq, kk, vv
+                tol = BWD_TOL["float32"]
+            else:
+                err = rel_err(fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                              fa.flash_attention_plain(q, k, v, bias, seed,
+                                                       DROPOUT_P))
+                times = timings(
+                    lambda: fa.flash_attention(q, k, v, bias),
+                    lambda: fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                    lambda: fa.flash_attention_plain(q, k, v, bias),
+                    lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           attn_mask=bias),
+                    KERNEL_SYMBOLS[("fwd", instance)])
+                tol = KERNEL_TOL["float32"]
+            require(err <= tol, f"{kernel} {shape} float32 with dropout: "
+                    f"relative error {err} > {tol}")
+            bound, by = attention_bound(q, bias, backward=backward)
+            out[kernel].append(dict(shape=shape, dtype="float32",
+                                    instance=instance, max_rel_err_dropout=err,
+                                    bound_ms=bound, bound_by=by, **times))
+        del q, k, v, bias, d_out
+
+    sms = ck._sm_count(torch.device("cuda", 0))
+    for shape, axis, d_hidden, d_out_ in FAMILY_AXIS_MLP_SHAPES:
+        p = ck.plan(math.prod(shape[:axis]), shape[axis], d_hidden, d_out_,
+                    math.prod(shape[axis + 1:]), sms)
+        require(p.instance == AXIS_MLP_INSTANCE[axis],
+                f"axis MLP {shape} axis {axis}: planned {p.instance}")
+        args = axis_mlp_inputs(shape, axis, d_hidden, d_out_, True,
+                               seed=sum(shape) + axis)
+        err = rel_err(ck.fused_axis_mlp(*args, axis, "gelu"),
+                      ck.fused_axis_mlp_plain(*args, axis, "gelu"))
+        require(err <= AXIS_MLP_TOL,
+                f"axis MLP {shape} axis {axis}: {err} > {AXIS_MLP_TOL}")
+        bound, by, rate, _ = axis_mlp_bound(*args, axis)
+        out["cubemlp_axis_mlp"].append(dict(
+            shape=list(shape), axis=axis, d_hidden=d_hidden, d_out=d_out_,
+            instance=p.instance, max_rel_err=err,
+            ms=cuda_ms(lambda: ck.fused_axis_mlp(*args, axis, "gelu"), inner=20),
+            profiler_ms=profiled_ms(lambda: ck.fused_axis_mlp(
+                *args, axis, "gelu"), "axis_mlp_"),
+            plain_ms=cuda_ms(lambda: ck.fused_axis_mlp_plain(
+                *args, axis, "gelu"), inner=20),
+            bound_ms=bound, bound_by=by, bound_rate=rate, library_ms=None))
+
+    for role, (k_, n_) in [(r, s) for r in ("forward", "dw")
+                           for s in INT8_LAYER_SHAPES]:
+        m, k, n = (AVEC_ROWS, k_, n_) if role == "forward" else (k_, AVEC_ROWS, n_)
+        dtype = torch.bfloat16 if role == "forward" else torch.float32
+        a, b, sa, sb = int8_inputs(m, k, n, seed=m + k + n)
+        p = plan(m, n, k, sms)
+        got = int8_matmul(a, b, sa, sb, dtype)
+        require(torch.equal(got, int8_matmul_plain(a, b, sa, sb, dtype)),
+                f"int8 {role} {(m, k, n)}: differs from the plain version")
+        require(p.instance == "wgmma", f"int8 {role} {(m, k, n)}: {p.instance}")
+        bound, by = int8_bound(m, k, n, dtype)
+        ms = cuda_ms(lambda: int8_matmul(a, b, sa, sb, dtype), inner=10)
+        out["int8_matmul"].append(dict(
+            role=role, shape=[m, k, n], instance=p.instance,
+            stream_k=p.stream_k, grid=p.grid, bit_equal=True, ms=ms,
+            profiler_ms=profiled_ms(lambda: int8_matmul(a, b, sa, sb, dtype), (
+                "int8_matmul_wgmma_kernel", "int8_matmul_wgmma_reduce")),
+            plain_ms=cuda_ms(lambda: int8_matmul_plain(a, b, sa, sb, dtype),
+                             2, 5),
+            library_ms=cuda_ms(lambda: (torch._int_mm(a, b).float() * sa
+                                        * sb).to(dtype), inner=10),
+            bound_ms=bound, bound_by=by, tops=2 * m * n * k / (1e-3 * ms) / 1e12))
+    for name, recs in out.items():
+        emit(phase="families", step="kernel_shapes", card=card(), kernel=name,
+             shapes=recs)
+    return out
+
+
+def families_phase(root: str):
+    """The slice's recipes end to end on the card (see the module's
+    docstring); returns the launch counts of its counted runs together."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.data.universal import get_data_loader
+    from mimrl_tpu_torch.eval.metrics import calc_metrics_pom
+    from mimrl_tpu_torch.models.encoders import lengths_from_sequence
+    from mimrl_tpu_torch.ops import quant
+    from mimrl_tpu_torch.ops.int8_matmul import int8_matmul_plain
+    from mimrl_tpu_torch.train import steps
+
+    totals = []
+    runs = f"{root}/family_runs"
+
+    # 1. mosi_local.sh: dense text, no BERT; without and with --use_pallas
+    for use_pallas in (False, True):
+        name = "mosi_local" + ("_pallas" if use_pallas else "")
+        argv = family_argv(root, "mosi_local",
+                           *(["--use_pallas"] if use_pallas else []))
+        record, launches, solver = family_run(root, name, argv, False,
+                                              use_pallas)
+        totals.append(launches)
+        require(not any(n.startswith("bertmodel.")
+                        for n in solver.model.state_dict()),
+                f"{name}: the dense-text model holds BERT parameters")
+        if use_pallas:  # every axis-MLP launch of one forward, checked
+            errors = []
+            mb, labels, _ = solver._prep(next(iter(solver.valid_loader)))
+            with patched(checked_axis_mlp(errors)):
+                steps.eval_step(solver.model, solver.opt, mb, labels,
+                                solver.bank, solver.generator, True)
+            require(len(errors) == 6 and max(errors) <= AXIS_MLP_TOL,
+                    f"{name}: axis-MLP launches vs plain {errors}")
+            record.update(axis_mlp_launch_rel_err=errors, tol=AXIS_MLP_TOL)
+        del solver
+        metrics, sps, c = family_serve(name, f"{runs}/{name}", False,
+                                       use_pallas)
+        totals.append(c)
+        emit(**record, served=metrics, serve_samples_per_s=sps)
+
+    # 2. avec2019.sh: CCC selection, random words per pass
+    name = "avec2019"
+    argv = family_argv(root, name)
+    record, launches, solver = family_run(root, name, argv, True)
+    totals.append(launches)
+    rows = [json.loads(r) for r in open(f"{runs}/{name}/scalars.jsonl")]
+    val_ccc = [r["value"] for r in rows if r["tag"] == "Val/ccc"]
+    require(len(val_ccc) == 2 and record["best_valid"]["ccc"] == max(val_ccc),
+            f"{name}: best valid {record['best_valid']} is not the epoch of "
+            f"the largest valid CCC {val_ccc}")
+    errors = {"fwd": [], "bwd": []}  # every attention launch of a step
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    with patched(checked_launches(errors)):
+        steps.train_step(solver.model, solver.opt_main, solver.opt, mb,
+                         labels, solver.bank, solver.new_bank, 0,
+                         solver.generator, True)
+    torch.cuda.synchronize()
+    require(len(errors["fwd"]) == 12 and len(errors["bwd"]) == 12
+            and max(errors["fwd"]) <= KERNEL_TOL["float32"]
+            and max(errors["bwd"]) <= BWD_TOL["float32"],
+            f"{name}: attention launches of a train step vs plain {errors}")
+    # the stacked epochs of --epoch_scan hold the per-batch loader's words
+    twin = get_data_loader(solver.opt, solver.tokenizer)[0]
+    stacks = []
+    for p in range(2):
+        solver.train_loader.passes = p
+        stacks.append(solver._stack_epoch(solver.train_loader)[0][
+            "bert_sentences"].cpu())
+        want = np.stack([b["bert_sentences"] for b in twin])
+        require(np.array_equal(stacks[-1].numpy(), want),
+                f"{name}: pass {p}'s stacked tokens differ from the loader's")
+    require(not torch.equal(*stacks), f"{name}: both passes drew one text")
+    record.update(attention_launches_checked=len(errors["fwd"]) * 2,
+                  attention_fwd_rel_err_max=max(errors["fwd"]),
+                  attention_bwd_rel_err_max=max(errors["bwd"]),
+                  tokens_changed=float((stacks[0] != stacks[1]).float().mean()))
+    del solver
+    metrics, sps, c = family_serve(name, f"{runs}/{name}", True)
+    totals.append(c)
+    emit(**record, served=metrics, serve_samples_per_s=sps)
+
+    # one float32 train step under --use_pallas --quant int8, dropout 0:
+    # the int8 kernel against its plain version, bit for bit
+    results, seen = {}, []
+    for route, patches in (("kernels", checked_int8(seen)),
+                           ("plain_int8", ((quant, "int8_matmul",
+                                            int8_matmul_plain),))):
+        cfg = parse_args(argv + ["--use_pallas", "--quant", "int8"]).replace(
+            compute_dtype="float32", bert_dropout=0.0, dropout=[0.0] * 4,
+            dropout_mlp=[0.0] * 3, task_name=f"avec_quant_{route}",
+            task_dir=runs, save_models=False)
+        results[route] = recorded_train_step(cfg, patches)
+    (l_k, o_k, g_k, c_k), (l_i, o_i, g_i, _) = results.values()
+    require(c_k == family_launches("train", True, True, "int8"),
+            f"avec quant step: launches {c_k}")
+    tables = [n for n in g_k if "embeddings" in n and "LayerNorm" not in n]
+    unequal = [n for n in g_k if n not in tables
+               and not torch.equal(g_k[n], g_i[n])]
+    table_gap = max(rel_err(g_k[n], g_i[n]) for n in tables)
+    ms_seen = sorted({m for m, _, _, _ in seen})
+    require(l_k == l_i and torch.equal(o_k, o_i) and not unequal
+            and table_gap <= EMBEDDING_GRAD_TOL and all(e for *_, e in seen)
+            and AVEC_ROWS in ms_seen and len(seen) == c_k[3],
+            f"avec quant step: the int8 kernel changed the step (loss {l_k} "
+            f"vs {l_i}, {unequal[:3]}, tables {table_gap}, M {ms_seen})")
+    emit(phase="families", step="avec2019_quant_route_check", card=card(),
+         loss=l_k,
+         int8_launches_checked=len(seen), int8_m=ms_seen,
+         bit_equal_gradients=len(g_k) - len(tables),
+         embedding_tables_rel_diff=table_gap)
+    del results
+
+    # 3. pom_sdk.sh: the POM battery
+    name = "pom_sdk"
+    record, launches, solver = family_run(root, name, family_argv(root, name),
+                                          True)
+    totals.append(launches)
+    battery = set(calc_metrics_pom(np.arange(4.0), np.arange(4.0)[::-1]))
+    require(set(record["best_valid"]) == battery,
+            f"{name}: scores {sorted(record['best_valid'])}, want {battery}")
+    del solver
+    metrics, sps, c = family_serve(name, f"{runs}/{name}", True)
+    totals.append(c)
+    emit(**record, served=metrics, serve_samples_per_s=sps)
+
+    # 4. the canonical recipe with the other two encoders, 1 epoch each
+    for encoder in ("lstm", "conv"):
+        name = f"canonical_{encoder}"
+        argv = CANONICAL_MOSI + CANONICAL_TRAIN + [
+            "--encoders", encoder, "--epochs_num", "1",
+            "--save_latest_every", "0", "--data_dir", f"{root}/train_data"]
+        record, launches, solver = family_run(root, name, argv, True,
+                                              epochs=1)
+        totals.append(launches)
+        # the encoders on the card against the same weights on the CPU
+        batch = next(iter(solver.valid_loader))
+        gaps = {}
+        for mod in ("audio", "video"):
+            enc = getattr(solver.model, ("conv_" if encoder == "conv" else
+                                         "rnn_") + mod[0]).eval()
+            x = torch.from_numpy(batch[mod])
+            with torch.no_grad():
+                outs = [e(x.to(dev)) if encoder == "conv" else
+                        e(x.to(dev), lengths_from_sequence(x.to(dev)))
+                        for e, dev in ((enc, "cuda"),
+                                       (copy.deepcopy(enc).cpu(), "cpu"))]
+            gaps[mod] = (outs[0].cpu() - outs[1]).abs().max().item()
+        require(max(gaps.values()) <= ENCODER_CPU_TOL,
+                f"{name}: the encoders on the card vs the CPU {gaps}")
+        del solver
+        metrics, sps, c = family_serve(name, f"{runs}/{name}", True)
+        totals.append(c)
+        emit(**record, encoder_card_vs_cpu=gaps, tol=ENCODER_CPU_TOL,
+             served=metrics, serve_samples_per_s=sps)
+
+    # 5. --epoch_scan: mosi_local.sh with the LSTM and avec2019.sh, graphs
+    # (G) against eager (E) with a second eager run (E2) as the control
+    # AVEC in bf16: in float32 two eager runs of this card differ in every
+    # tensor after the first update (the token-type table's gradient, whose
+    # sum changes its order from run to run, feeds the float32 forward;
+    # ROADMAP §3), so the gate would have no fixed point; bf16's cast of
+    # the embeddings hides it as on the canonical rungs
+    for family, extra, raw in (
+            ("mosi_local", ["--encoders", "lstm"], False),
+            ("avec2019", ["--compute_dtype", "bfloat16"], True)):
+        argv = family_argv(root, family, "--epoch_scan", "--no_save_models",
+                           *extra)
+        g = rung_run(runs, f"{family}_scan_graphs", argv)
+        e = rung_run(runs, f"{family}_scan_eager", argv, graphs=False)
+        e2 = rung_run(runs, f"{family}_scan_eager2", argv, graphs=False,
+                      timed=False)
+        n_train, n_valid, n_test = FAMILIES[family][1]
+        bs = int(argv[argv.index("--batch_size") + 1])
+        nb = -(-n_train // bs)
+        n_eval = -(-n_valid // bs) + -(-n_test // bs)
+        want = add(family_launches("train", raw, False, "none", 2 * nb),
+                   family_launches("eval", raw, False, "none", 2 * n_eval),
+                   family_launches("critic", raw, False, "none", 2 * nb))
+        for r in (g, e):
+            require(r["launches"] == want, f"{family} rung: launches "
+                    f"{r['launches']}, want {want}")
+        passed, gate = gap_gate(g["tensors"], e["tensors"], e2["tensors"])
+        steps_ms = {k: statistics.median(v[1:]) for k, v in g["step_ms"].items()
+                    if len(v) > 1}
+        eager_ms = {k: statistics.median(v[1:]) for k, v in e["step_ms"].items()
+                    if len(v) > 1}
+        emit(phase="families", step=f"{family}_scan", card=card(), flags=extra,
+             graphs_vs_eager=gate, gate_passed=passed,
+             tensors_compared=len(e["tensors"]),
+             launches=dict(zip(KERNEL_NAMES, g["launches"])),
+             step_ms_graphs=steps_ms, step_ms_eager=eager_ms,
+             epoch_s_graphs=g["epoch_s"], epoch_s_eager=e["epoch_s"],
+             peak_gb_graphs=g["peak_gb"], peak_gb_eager=e["peak_gb"],
+             graphs=g["graphs"])
+        require(passed, f"{family} rung: graphs vs eager {gate}")
+        totals.append(g["launches"])
+        del g, e, e2
+    return add(*totals)
+
+
 def main() -> int:
     import torch
 
@@ -2456,6 +3091,9 @@ def main() -> int:
     fwd, bwd = kernel_phase()
     axis_mlp = axis_mlp_phase()
     int8 = int8_phase()
+    # the families phase's shapes, beside the other kernel timings: later
+    # in the run the profiler has returned sessions without kernel records
+    family_shapes = family_kernel_shapes()
     with tempfile.TemporaryDirectory() as root:
         task = write_run(root)
         serve, serve_quant = serve_phase(task)
@@ -2467,15 +3105,16 @@ def main() -> int:
         quant_mode_steps(quant_argv)
         resume = resume_phase(root)
         rungs, rungs_quant = rungs_phase(root)
+        families = families_phase(root)
 
     # launches: each path was driven with all four counts set to 0 just
     # before it and read just after: serving and training without flags,
     # serving and training with --use_pallas --quant int8, and the resumed
     # epoch of the resume phase, the three flag-free rung runs with graphs
-    # and the flagged one
+    # and the flagged one, and the families phase's runs and serving
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
-                 rungs_quant=rungs_quant)
+                 rungs_quant=rungs_quant, families=families)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -2488,6 +3127,7 @@ def main() -> int:
                    source=f"mimrl_tpu_torch/ops/csrc/{sources[i]}",
                    replaces=replaces[i],
                    launches=sum(c[i] for c in paths.values()),
+                   shapes_families=family_shapes[KERNEL_NAMES[i]],
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
         for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
                     "ms_one_launch", "library_events_ms", "bound_rate",
@@ -2503,7 +3143,8 @@ def main() -> int:
             "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
             "library_events_ms", "bound_rate", "bound_ms_fp32_pipes", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "launches_resume",
-            "launches_rungs", "launches_rungs_quant", "shapes")
+            "launches_rungs", "launches_rungs_quant", "launches_families",
+            "shapes", "shapes_families")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

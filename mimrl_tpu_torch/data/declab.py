@@ -20,13 +20,12 @@ from typing import List
 import numpy as np
 
 from mimrl_tpu_torch.data import registry
-from mimrl_tpu_torch.data.pipeline import ArrayDataset
+from mimrl_tpu_torch.data.pipeline import ArrayDataset, check_split
 
 
 def load_dec_dataset(dataset: str, mode: str,
                      data_path: str | None = None) -> ArrayDataset:
-    if mode not in ("train", "valid", "test"):
-        raise ValueError(f"unknown split {mode!r}")
+    check_split(mode)
     name = "mosi" if "mosi" in dataset else "mosei"
     data_path = data_path or registry.Data_path_DecLab
     with open(os.path.join(data_path, f"{name}_{mode}.pkl"), "rb") as f:

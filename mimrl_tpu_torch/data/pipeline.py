@@ -1,12 +1,16 @@
 """Static-shape batch pipeline (the port's copy of
 ``mimrl_tpu.data.pipeline``).
 
-Every batch has the same shapes — ``[bs, time_len, d]`` modality arrays,
-``[bs, time_len]`` token ids of the raw text (tokenized once, when the
-pipeline is built). A partial final batch is cycle-padded with
-samples from the epoch start, and ``sample_mask`` marks the real rows
-(1) against the padding (0); predictions and metrics keep only the real
-rows. Padding is done with numpy.
+Every batch has the same shapes: ``[bs, time_len, d]`` modality arrays,
+and the text as ``[bs, time_len]`` token ids of the raw words or as dense
+``[bs, time_len, d_t]`` features. Raw text is tokenised once, when the
+pipeline is built, except AVEC2019's random-word text, which draws one
+word per sentence and epoch (ref: Customization.py:66-76) from the
+epoch's generator after its shuffle, and is tokenised then. A partial
+final batch is cycle-padded with samples from the epoch start, and
+``sample_mask`` marks the real rows (1) against the padding (0);
+predictions and metrics keep only the real rows. Padding is done with
+numpy.
 """
 
 from __future__ import annotations
@@ -14,20 +18,30 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
 from mimrl_tpu_torch.data.tokenizer import WordPieceTokenizer
 
+SPLITS = ("train", "valid", "test")
+
+
+def check_split(mode: str) -> None:
+    if mode not in SPLITS:
+        raise ValueError(f"unknown split {mode!r}")
+
 
 @dataclass
 class ArrayDataset:
-    """Variable-length per-sample features + label arrays."""
+    """Variable-length per-sample features + label arrays; the text is
+    words (``text_words``) or dense features (``text_feat``), or absent."""
 
-    text_words: List[List[str]] = field(default_factory=list)
+    text_words: Optional[List[List[str]]] = None
+    text_feat: Optional[List[np.ndarray]] = None
     audio: List[np.ndarray] = field(default_factory=list)
     video: List[np.ndarray] = field(default_factory=list)
+    # ordered label arrays; the Solver routes them per dataset
     labels: List[np.ndarray] = field(default_factory=list)
 
     def __len__(self) -> int:
@@ -53,7 +67,8 @@ class BatchPipeline:
 
     Batch dict fields:
       bert_sentences / bert_sentence_types / bert_sentence_att_mask
-          [bs, time_len] int32
+          [bs, time_len] int32 (raw text)
+      text  [bs, time_len, d_t] float32 (dense text)
       audio [bs, time_len, d_a], video [bs, time_len, d_v]
       labels: list of [bs, ...] arrays
       sample_mask [bs] float32 (1 = real sample)
@@ -64,14 +79,16 @@ class BatchPipeline:
         dataset: ArrayDataset,
         batch_size: int,
         time_len: int,
-        tokenizer: WordPieceTokenizer,
+        tokenizer: Optional[WordPieceTokenizer] = None,
         shuffle: bool = False,
         drop_last: bool = False,
         seed: int = 0,
+        avec_random_word: bool = False,
     ):
         self.ds = dataset
         self.bs = batch_size
         self.time_len = time_len
+        self.tokenizer = tokenizer
         self.shuffle = shuffle
         self.seed = seed
         self._passes = 0
@@ -79,6 +96,8 @@ class BatchPipeline:
         n = len(dataset)
         if n == 0:
             raise ValueError("empty dataset")
+        if dataset.text_words is not None and tokenizer is None:
+            raise ValueError("raw text needs a tokenizer")
         if drop_last and n >= batch_size:
             self.n_batches = n // batch_size
         else:
@@ -86,8 +105,13 @@ class BatchPipeline:
 
         self._audio = _pad_stack(dataset.audio, time_len)
         self._video = _pad_stack(dataset.video, time_len)
-        self._tokens = tokenizer.batch_encode(
-            [" ".join(w[:time_len]) for w in dataset.text_words], time_len)
+        self._text_feat = (None if dataset.text_feat is None
+                           else _pad_stack(dataset.text_feat, time_len))
+        # the token ids of every sample, when they are the same each epoch
+        self._tokens = None
+        if dataset.text_words is not None and not avec_random_word:
+            self._tokens = tokenizer.batch_encode(
+                [" ".join(w[:time_len]) for w in dataset.text_words], time_len)
 
     def __len__(self) -> int:
         return self.n_batches
@@ -103,6 +127,13 @@ class BatchPipeline:
         if n < 0:
             raise ValueError(f"passes={n}: must be >= 0")
         self._passes = int(n)
+
+    @property
+    def static_tensors(self) -> bool:
+        """True when every tensor an epoch draws from is the same each
+        epoch, so that an epoch is its index plan; AVEC's random-word text
+        is the one exception."""
+        return self.ds.text_words is None or self._tokens is not None
 
     def epoch_index_plan(self, rng: np.random.Generator):
         """The epoch's batches as ([NB, bs] row ids, [NB, bs] float32
@@ -124,22 +155,48 @@ class BatchPipeline:
             mask_rows.append(mask)
         return np.stack(idx_rows), np.stack(mask_rows)
 
-    def __iter__(self) -> Iterator[Dict]:
+    def epoch_tokens(self, rng: np.random.Generator):
+        """(ids, types, attention mask) [n, time_len] of every sample in
+        dataset order for the epoch whose generator is ``rng`` (drawn from
+        after the shuffle), or None without raw text. AVEC2019: one random
+        word of each sentence (ref: Customization.py:66-76)."""
+        if self.ds.text_words is None or self._tokens is not None:
+            return self._tokens
+        texts = []
+        for sample in self.ds.text_words:
+            words = []
+            for sent in sample[: self.time_len]:
+                parts = str(sent).lower().split(" ")
+                words.append(parts[rng.integers(0, len(parts))])
+            texts.append(" ".join(words))
+        return self.tokenizer.batch_encode(texts, self.time_len)
+
+    def next_epoch(self):
+        """Begin a pass: (row ids, sample mask, tokens) of the epoch with
+        the seed ``seed + passes``; ``passes`` advances by one."""
         rng = np.random.default_rng(self.seed + self._passes)
         idx_plan, mask_plan = self.epoch_index_plan(rng)
+        tokens = self.epoch_tokens(rng)
         self._passes += 1
+        return idx_plan, mask_plan, tokens
 
-        ids, types, amask = self._tokens
+    def __iter__(self) -> Iterator[Dict]:
+        idx_plan, mask_plan, tokens = self.next_epoch()
         for idx, mask in zip(idx_plan, mask_plan):
-            yield {
-                "bert_sentences": ids[idx],
-                "bert_sentence_types": types[idx],
-                "bert_sentence_att_mask": amask[idx],
+            batch = {
                 "audio": self._audio[idx],
                 "video": self._video[idx],
                 "labels": [np.asarray(lab)[idx] for lab in self.ds.labels],
                 "sample_mask": mask,
             }
+            if tokens is not None:
+                ids, types, amask = tokens
+                batch["bert_sentences"] = ids[idx]
+                batch["bert_sentence_types"] = types[idx]
+                batch["bert_sentence_att_mask"] = amask[idx]
+            if self._text_feat is not None:
+                batch["text"] = self._text_feat[idx]
+            yield batch
 
 
 class _Failure:

@@ -4,7 +4,9 @@
 checkpoint slot), builds the tokenizer, the data loaders and the model
 itself, and serves batched predictions with the training-time static
 shapes: ``model(..., return_features=False)`` in eval mode under
-``torch.inference_mode()``, one call per batch.
+``torch.inference_mode()``, one call per batch, fed BERT's inputs or,
+for a dense-text run, the text features. Labels and metrics follow the
+run's dataset family.
 
 The slot is this package's ``{slot}_model.pt`` or, in a run directory of
 ``mimrl_tpu``, its ``{slot}_model.msgpack``, read without flax
@@ -23,22 +25,14 @@ import torch
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
-from mimrl_tpu_torch.data.universal import get_data_loader
+from mimrl_tpu_torch.data.universal import (get_data_loader,
+                                            get_label_from_datas,
+                                            uses_raw_text)
 from mimrl_tpu_torch.device import resolve_device
 from mimrl_tpu_torch.eval.metrics import get_score_from_result
 from mimrl_tpu_torch.models.convert import state_dict_from_jax_slot
-from mimrl_tpu_torch.models.model import build_model
-
-_MODEL_INPUTS = ("bert_sentences", "bert_sentence_types",
-                 "bert_sentence_att_mask", "audio", "video")
-
-
-def get_label_from_datas(cfg: MimrlConfig, batch: Dict) -> np.ndarray:
-    """Per-dataset label routing (train/solver.py:251-276); the Dec
-    family carries one label array."""
-    if cfg.dataset in ("mosi_Dec", "mosei_Dec"):
-        return np.asarray(batch["labels"][0])
-    raise NotImplementedError(cfg.dataset)
+from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
+                                          forward_batch)
 
 
 class Predictor:
@@ -70,9 +64,10 @@ class Predictor:
 
         tokenizer = build_tokenizer(self.cfg.bert_vocab)
         (self.train_loader, self.valid_loader, self.test_loader,
-         _d_t, d_a, d_v) = get_data_loader(self.cfg, tokenizer)
+         d_t, d_a, d_v) = get_data_loader(self.cfg, tokenizer)
         self.model = build_model(self.cfg, tokenizer.vocab_size, d_a, d_v,
-                                 self.device)
+                                 self.device, d_t=d_t,
+                                 raw_text=uses_raw_text(self.cfg))
         if state is None:
             state = state_dict_from_jax_slot(jax_slot, self.model)
         self.model.load_state_dict(state, strict=True)
@@ -80,16 +75,16 @@ class Predictor:
 
     def forward(self, batch: Dict) -> torch.Tensor:
         """The model's output [bs, num_class] for one host batch."""
-        inputs = [torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                  for k in _MODEL_INPUTS]
+        inputs = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                  for k in MODEL_INPUTS if k in batch}
         with torch.inference_mode():
-            return self.model(*inputs, return_features=False)[0]
+            return forward_batch(self.model, inputs, return_features=False)[0]
 
     def predict_loader(self, loader) -> Tuple[np.ndarray, np.ndarray]:
         """Predictions + targets for a BatchPipeline (mask-filtered)."""
         preds, targets = [], []
         for batch in loader:
-            labels = get_label_from_datas(self.cfg, batch)
+            labels = np.asarray(get_label_from_datas(self.cfg, batch))
             out = self.forward(batch).float().cpu().numpy()
             mask = batch["sample_mask"] > 0.5
             preds.append(out[mask])

@@ -9,14 +9,18 @@ and ``mimrl_tpu/models/bert.py::convert_hf_torch_state_dict``):
 - flax ``Dense.kernel`` [in, out] -> ``nn.Linear.weight`` [out, in];
 - BERT's fused ``qkv`` kernel [H, 3H] / bias [3H] -> HF's separate
   ``attention.self.{query,key,value}``;
-- ``rnn_*/l{k}_{fwd,bwd}/w_ih`` [in, 3H] -> ``weight_ih_l{k}[_reverse]``
-  [3H, in] (same gate order), likewise ``w_hh``/``b_ih``/``b_hh``;
+- ``rnn_*/l{k}_{fwd,bwd}/w_ih`` [in, GH] -> ``weight_ih_l{k}[_reverse]``
+  [GH, in] (same gate order; G = 3 for the GRU, 4 for the LSTM), likewise
+  ``w_hh``/``b_ih``/``b_hh``;
+- ``conv_*/conv/kernel`` [3, in, out] -> ``conv_*.weight`` [out, in, 3]
+  (``mimrl_tpu/utils/torch_import.py:160-165``);
 - CubeMLP ``block_{i}/mlp_{x}/w1`` [in, hidden] ->
   ``mlp_encoder.layers_stack.{i}.mlp_{x}.fc1.weight``;
 - LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
 
 The classifier keeps the names ``MimrlModel`` creates (model.py:190-195):
-``classifier``, or ``classifier_hidden`` + ``classifier``.
+``classifier``, or ``classifier_hidden`` + ``classifier``. A dense-text
+model has no ``bertmodel``, and its ``W_t`` kernel is [d_t, d_common].
 
 The ``vmi_*``/``vcmi_*`` estimator groups are trees of Dense layers whose
 flax names are the port's module names
@@ -132,6 +136,11 @@ def _rules(params: Dict):
     for name in ("rnn_a", "rnn_v"):
         if name in params:
             yield from _rnn_rules(params[name], name)
+    for name in ("conv_a", "conv_v"):
+        if name in params:
+            yield ((name, "conv", "kernel"), f"{name}.weight",
+                   lambda x: x.transpose(2, 1, 0))
+            yield (name, "conv", "bias"), f"{name}.bias", None
     for name in ("ln_a", "ln_v"):
         if name in params:
             yield from _layer_norm(name, (name,))

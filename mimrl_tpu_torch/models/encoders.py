@@ -1,15 +1,17 @@
 """Audio/video sequence encoders (PyTorch port of
 ``mimrl_tpu.models.encoders``).
 
-``BiRnnEncoder`` is a stacked bidirectional GRU (ref: Model.py:437-461):
-inner layers feed the concat of both directions forward, and the last
-layer's two directions are summed. torch's GRU has the gate order (r, z, n)
-and the ``n = tanh(W_in x + b_in + r * (W_hn h + b_hn))`` form of
-``encoders.py:94-105``; its parameter names (``weight_ih_l0``,
-``weight_hh_l0_reverse``, ...) are the reference's, so the module
-subclasses ``nn.GRU`` and adds no wrapper level. The JAX package left
-the recurrence to XLA (no Pallas kernel), so the port leaves it to
-cuDNN, one unidirectional ``torch.gru`` call per direction and layer.
+``BiRnnEncoder`` is a stacked bidirectional GRU or LSTM (ref:
+Model.py:437-461): inner layers feed the concat of both directions
+forward, and the last layer's two directions are summed. torch's GRU has
+the gate order (r, z, n) and the ``n = tanh(W_in x + b_in + r * (W_hn h +
+b_hn))`` form of ``encoders.py:94-105``; its LSTM the gate order (i, f,
+g, o) of ``encoders.py:116-122``. The parameter names (``weight_ih_l0``,
+``weight_hh_l0_reverse``, ...) are the reference's, so the module is an
+``nn.RNNBase`` and adds no wrapper level. The JAX package left the
+recurrence to XLA (no Pallas kernel), so the port leaves it to cuDNN, one
+unidirectional ``torch.gru`` / ``torch.lstm`` call per direction and
+layer.
 
 The lengths stay on the device, so a forward makes no host copy and can
 be captured in a CUDA graph. The JAX scan holds the state under a prefix
@@ -20,8 +22,12 @@ mask (``encoders.py:145-180``); here:
   it, and outputs at ``t >= length`` are set to 0;
 - the backward direction reverses each sample's valid prefix with a
   device gather (``index = length - 1 - t`` for ``t < length``, padded
-  positions stay in place), runs the reverse weights as a forward GRU
+  positions stay in place), runs the reverse weights as a forward RNN
   from a zero state, masks the output and gathers it back.
+
+``ConvEncoder`` is the reference's ``Conv1d(d_in, d_common, 3, padding=1)``
+over time (Model.py:248-249; flax's ``SAME`` padding at kernel 3),
+applied to the padded sequence as the JAX package does.
 """
 
 from __future__ import annotations
@@ -30,18 +36,17 @@ import torch
 from torch import nn
 
 
-class BiRnnEncoder(nn.GRU):
-    """Stacked bidirectional GRU; returns the last layer's forward and
-    backward outputs summed, [bs, T, hidden]."""
+class BiRnnEncoder(nn.RNNBase):
+    """Stacked bidirectional GRU (``cell='gru'``) or LSTM (``'lstm'``);
+    returns the last layer's forward and backward outputs summed,
+    [bs, T, hidden]."""
 
     def __init__(self, cell: str, d_in: int, hidden: int, num_layers: int,
                  device=None):
-        if cell != "gru":
-            raise NotImplementedError(
-                f"encoder cell {cell!r}: only the GRU is ported; LSTM and "
-                "Conv encoders are ROADMAP.md item 'Encoders and dataset "
-                "families'")
-        super().__init__(d_in, hidden, num_layers=num_layers,
+        modes = {"gru": "GRU", "lstm": "LSTM"}
+        if cell not in modes:
+            raise ValueError(f"recurrent cell {cell!r}: one of {sorted(modes)}")
+        super().__init__(modes[cell], d_in, hidden, num_layers=num_layers,
                          batch_first=True, bidirectional=True, device=device)
 
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -62,11 +67,25 @@ class BiRnnEncoder(nn.GRU):
         return x
 
     def _direction(self, x, h0, suffix: str) -> torch.Tensor:
-        """One direction of one layer as a forward GRU over x."""
+        """One direction of one layer as a forward RNN over x."""
         weights = [getattr(self, f"{name}_{suffix}") for name in
                    ("weight_ih", "weight_hh", "bias_ih", "bias_hh")]
+        if self.mode == "LSTM":
+            return torch.lstm(x, (h0, h0), weights, True, 1, 0.0,
+                              self.training, False, True)[0]
         return torch.gru(x, h0, weights, True, 1, 0.0, self.training, False,
                          True)[0]
+
+
+class ConvEncoder(nn.Conv1d):
+    """Conv1d over time, kernel 3, stride 1, padding 1; [bs, T, d_in] ->
+    [bs, T, d_out]."""
+
+    def __init__(self, d_in: int, d_out: int, device=None):
+        super().__init__(d_in, d_out, 3, padding=1, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)
 
 
 def _take_time(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

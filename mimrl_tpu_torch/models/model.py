@@ -1,16 +1,17 @@
-"""The MIMRL model (PyTorch port of ``mimrl_tpu.models.model``): BERT
-text tower, bi-GRU audio/video encoders, CubeMLP fusion and the
-classifier (``MimrlModel.__call__``, model.py:224-331), plus the embedded
-MI / conditional-MI estimator bank and the two stage losses
-(model.py:197-219, :336-448).
+"""The MIMRL model (PyTorch port of ``mimrl_tpu.models.model``): the
+text tower (BERT over token ids, or dense text features with no BERT),
+the audio/video encoders (2-layer bi-GRU, 1-layer bi-LSTM or Conv1d),
+CubeMLP fusion and the classifier (``MimrlModel.__call__``,
+model.py:224-331), plus the embedded MI / conditional-MI estimator bank
+and the two stage losses (model.py:197-219, :336-448).
 
 Sub-module names are the reference torch ``Model``'s (``bertmodel``,
-``W_t``, ``rnn_a``, ``ln_a``, ``mlp_encoder``, ``classifier``,
+``W_t``, ``rnn_a`` or ``conv_a``, ``ln_a``, ``mlp_encoder``, ``classifier``,
 ``vmi_estimator_f_t``, ``vcmi_estimator_ac_t``, ...), so the state_dict
 keys are the reference's names and the optimizer's name-based split
 ('bert' / 'vmi' / 'vcmi' / rest) works on them.
 
-Ported: ``encoders='gru'``, ``fusion='cubemlp'``. The estimator bank runs
+Ported: every encoder, ``fusion='cubemlp'``. The estimator bank runs
 its eleven estimators one after the other; ``fused_estimators`` (the JAX
 package's batched execution of the same math, model.py:371-425) is
 accepted and changes nothing here.
@@ -30,7 +31,8 @@ from mimrl_tpu_torch.device import compute_dtype
 from mimrl_tpu_torch.mi.estimators import VCMIEstimator, VMIEstimator
 from mimrl_tpu_torch.models.bert import BertConfig, BertModel
 from mimrl_tpu_torch.models.cubemlp import AxisLayerNorm, MLPEncoder
-from mimrl_tpu_torch.models.encoders import BiRnnEncoder, lengths_from_sequence
+from mimrl_tpu_torch.models.encoders import (BiRnnEncoder, ConvEncoder,
+                                             lengths_from_sequence)
 
 
 # Estimator hyperparameters hard-coded by the reference (ref: Model.py:285-286)
@@ -40,6 +42,9 @@ EST_LAYERS = 2
 EST_ACTIVATION = "relu"
 EST_MU, EST_RHO = 0.0, 1.0
 
+# a batch's model inputs: BERT's three (raw text) or "text" (dense text)
+MODEL_INPUTS = ("bert_sentences", "bert_sentence_types",
+                "bert_sentence_att_mask", "audio", "video", "text")
 VMI_KEYS = ("f_t", "f_a", "f_v", "t_a", "t_v")
 CMI_KEYS = ("ac_t", "ta_c", "vc_t", "tv_c", "tc_a", "tc_v")
 
@@ -70,6 +75,7 @@ def _compose(x: torch.Tensor, how: str, dim: int) -> torch.Tensor:
 
 class MimrlModel(nn.Module):
     def __init__(self, d_a: int, d_v: int, d_common: int = 128,
+                 d_t: int = 768, raw_text: bool = True,
                  encoders: str = "gru", features_compose_t: str = "mean",
                  features_compose_k: str = "mean", num_class: int = 1,
                  activate: str = "gelu", time_len: int = 100,
@@ -95,14 +101,25 @@ class MimrlModel(nn.Module):
         self.radius = radius
         self.features_compose_t = features_compose_t
         self.features_compose_k = features_compose_k
+        self.encoders = encoders
+        self.raw_text = raw_text
 
-        self.bertmodel = BertModel(bert_config, device)
+        # raw text: BERT over the token ids; dense text (glove etc.) goes
+        # to the projector directly and no BERT exists (model.py:235-254)
+        if raw_text:
+            self.bertmodel = BertModel(bert_config, device)
+            d_t = bert_config.hidden_size
         # projector (no bias, ref: Model.py:264)
-        self.W_t = nn.Linear(bert_config.hidden_size, d_common, bias=False,
-                             device=device)
-        # 2-layer bidirectional GRU (ref: Model.py:254-255)
-        self.rnn_a = BiRnnEncoder(encoders, d_a, d_common, 2, device)
-        self.rnn_v = BiRnnEncoder(encoders, d_v, d_common, 2, device)
+        self.W_t = nn.Linear(d_t, d_common, bias=False, device=device)
+        if encoders == "conv":  # ref: Model.py:248-249
+            self.conv_a = ConvEncoder(d_a, d_common, device)
+            self.conv_v = ConvEncoder(d_v, d_common, device)
+        else:
+            # 2-layer bidirectional GRU or 1-layer bidirectional LSTM
+            # (ref: Model.py:251-255)
+            layers = 1 if encoders == "lstm" else 2
+            self.rnn_a = BiRnnEncoder(encoders, d_a, d_common, layers, device)
+            self.rnn_v = BiRnnEncoder(encoders, d_v, d_common, layers, device)
         self.ln_a = nn.LayerNorm(d_common, eps=1e-6, device=device)
         self.ln_v = nn.LayerNorm(d_common, eps=1e-6, device=device)
         self.dropout_t = nn.Dropout(dropout[0])
@@ -141,19 +158,29 @@ class MimrlModel(nn.Module):
 
     def forward(self, bert_sentences, bert_sentence_types,
                 bert_sentence_att_mask, a, v, return_features: bool = True,
-                generator=None):
-        """Token ids/types/mask [bs, T] int, a [bs, T, d_a], v [bs, T, d_v].
-        Returns (out, F_F, T_F, A_F, V_F), or (out,) without features.
-        ``generator`` feeds BERT's attention dropout seeds in training
-        mode."""
+                generator=None, text_features=None):
+        """Token ids/types/mask [bs, T] int (raw text; None for dense
+        text), a [bs, T, d_a], v [bs, T, d_v], ``text_features`` [bs, T,
+        d_t] (dense text). Returns (out, F_F, T_F, A_F, V_F), or (out,)
+        without features. ``generator`` feeds BERT's attention dropout
+        seeds in training mode."""
         T = self.time_len
-        t = self.bertmodel(bert_sentences, bert_sentence_types,
-                           bert_sentence_att_mask, generator)
+        if self.raw_text:
+            t = self.bertmodel(bert_sentences, bert_sentence_types,
+                               bert_sentence_att_mask, generator)
+        elif text_features is None:
+            raise ValueError("a dense-text model takes text_features "
+                             "[bs, T, d_t]")
+        else:
+            t = text_features
         t = self.W_t(t)
 
-        # lengths from non-zero rows, clamped to >=1 (ref: Model.py:425-432)
-        a = self.rnn_a(a, lengths_from_sequence(a))
-        v = self.rnn_v(v, lengths_from_sequence(v))
+        if self.encoders == "conv":
+            a, v = self.conv_a(a), self.conv_v(v)
+        else:
+            # lengths from non-zero rows, clamped to >=1 (ref: Model.py:425-432)
+            a = self.rnn_a(a, lengths_from_sequence(a))
+            v = self.rnn_v(v, lengths_from_sequence(v))
         a = F.relu(self.ln_a(a))
         v = F.relu(self.ln_v(v))
 
@@ -229,6 +256,15 @@ class MimrlModel(nn.Module):
         return mis, losses
 
 
+def forward_batch(model: MimrlModel, batch: Dict[str, torch.Tensor],
+                  return_features: bool = True, generator=None):
+    """The model on a batch dict of MODEL_INPUTS; a batch holds the raw or
+    the dense text, as its model takes."""
+    return model(*(batch.get(k) for k in MODEL_INPUTS[:5]),
+                 return_features=return_features, generator=generator,
+                 text_features=batch.get("text"))
+
+
 def bert_config_from(cfg: MimrlConfig, vocab_size: int) -> BertConfig:
     """The BERT tower's config for a run (as the JAX Solver builds it)."""
     return BertConfig(
@@ -247,12 +283,16 @@ def bert_config_from(cfg: MimrlConfig, vocab_size: int) -> BertConfig:
 
 
 def build_model(cfg: MimrlConfig, vocab_size: int, d_a: int, d_v: int,
-                device=None) -> MimrlModel:
+                device=None, d_t: int = 768, raw_text: bool = True
+                ) -> MimrlModel:
     """A MimrlModel for a run config, with uninitialised storage on
-    ``device`` (load a state_dict or call ``init_weights`` next)."""
+    ``device`` (load a state_dict or call ``init_weights`` next).
+    ``raw_text``: BERT over token ids (the DeclareLab family's default);
+    else dense text of width ``d_t`` and no BERT (``uses_raw_text``)."""
     with torch.device("meta"):
         model = MimrlModel(
-            d_a=d_a, d_v=d_v, d_common=cfg.d_common, encoders=cfg.encoders,
+            d_a=d_a, d_v=d_v, d_common=cfg.d_common, d_t=d_t,
+            raw_text=raw_text, encoders=cfg.encoders,
             features_compose_t=cfg.features_compose_t,
             features_compose_k=cfg.features_compose_k,
             num_class=cfg.num_class, activate=cfg.activate,
@@ -276,18 +316,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     included, drawn from ``generator`` (a CPU generator, so the weights do
     not depend on the device): Linear weights normal with std
     1/sqrt(fan_in) and zero bias; embeddings normal with std 0.02;
-    LayerNorms ones/zeros; GRU weights uniform in +-1/sqrt(hidden), then
-    every recurrent ``weight_hh`` re-initialised orthogonal per gate-stacked
-    matrix, as ``apply_orthogonal_whh`` does (model.py:504-519,
-    ref: Customization.py:18-21)."""
+    LayerNorms ones/zeros; GRU and LSTM weights uniform in
+    +-1/sqrt(hidden), then every recurrent ``weight_hh`` re-initialised
+    orthogonal per gate-stacked matrix, as ``apply_orthogonal_whh`` does
+    (model.py:504-519, ref: Customization.py:18-21); Conv1d kernels normal
+    with std 1/sqrt(fan_in) and zero bias."""
 
     def fill(p, draw):
         p.copy_(draw(torch.empty(p.shape, dtype=p.dtype)))
 
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (nn.Linear, nn.Conv1d)):
+            fan_in = m.weight[0].numel()
             fill(m.weight, lambda t: t.normal_(
-                0.0, 1.0 / math.sqrt(m.in_features), generator=generator))
+                0.0, 1.0 / math.sqrt(fan_in), generator=generator))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
@@ -295,7 +337,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (nn.LayerNorm, AxisLayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, nn.GRU):
+        elif isinstance(m, nn.RNNBase):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():
                 fill(p, lambda t: t.uniform_(-bound, bound,

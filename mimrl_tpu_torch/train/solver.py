@@ -58,13 +58,15 @@ from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
 from mimrl_tpu_torch.data.pipeline import prefetch
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
-from mimrl_tpu_torch.data.universal import get_data_loader, uses_raw_text
+from mimrl_tpu_torch.data.universal import (get_data_loader,
+                                            get_label_from_datas,
+                                            uses_raw_text)
 from mimrl_tpu_torch.device import resolve_device
 from mimrl_tpu_torch.eval.metrics import (current_result_better,
                                           get_score_from_result)
-from mimrl_tpu_torch.eval.predict import get_label_from_datas
 from mimrl_tpu_torch.models.bert import load_bert_weights
-from mimrl_tpu_torch.models.model import build_model, init_weights
+from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
+                                          init_weights)
 from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.graphs import StepGraphs
 from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
@@ -85,7 +87,6 @@ def _refuse_unported(opt: MimrlConfig) -> None:
             opt.mesh_data > 1 or opt.mesh_model > 1 or opt.mesh_pipe > 1
             or opt.mesh_dcn > 1),
         "--fusion other than cubemlp": opt.fusion != "cubemlp",
-        "--encoders other than gru": opt.encoders != "gru",
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -119,6 +120,7 @@ class Solver:
         log_message(str(opt))
         log_message("Making logger and dataset...")
 
+        self.raw_text = uses_raw_text(opt)  # else dense text, no BERT
         self.tokenizer = build_tokenizer(opt.bert_vocab)
         (self.train_loader, self.valid_loader, self.test_loader,
          self.d_t, self.d_a, self.d_v) = get_data_loader(opt, self.tokenizer)
@@ -129,9 +131,10 @@ class Solver:
         self.generator.manual_seed(opt.seed)
         self.graphs = StepGraphs(self.device, [self.generator], enabled=graphs)
         self.model = build_model(opt, self.tokenizer.vocab_size, self.d_a,
-                                 self.d_v, self.device)
+                                 self.d_v, self.device, d_t=self.d_t,
+                                 raw_text=self.raw_text)
         init_weights(self.model, torch.Generator().manual_seed(opt.seed))
-        if opt.bert_weights and uses_raw_text(opt):
+        if opt.bert_weights and self.raw_text:
             load_bert_weights(opt.bert_weights, self.model.bertmodel)
             log_message(f"Loaded BERT weights from {opt.bert_weights}")
         if opt.print_params:
@@ -140,6 +143,10 @@ class Solver:
 
         # optimizers + schedules (dual, ref: Solver.py:119-170)
         params_main, params_bert, params_vmi = partition_params(self.model)
+        log_message("Parameters: " + ", ".join(
+            f"{group} {sum(p.numel() for p in params.values())}"
+            for group, params in (("main", params_main), ("bert", params_bert),
+                                  ("vmi", params_vmi))))
         self.opt_main = make_main_optimizer(opt, params_main, params_bert)
         self.opt_vmi = make_vmi_optimizer(opt, params_vmi)
         self.lr_schedule = LRScheduler(opt)
@@ -374,24 +381,30 @@ class Solver:
         """The epoch's batches stacked on the device: ([NB, bs, ...] model
         inputs and sample mask, [NB, bs] labels, host labels per batch,
         host masks per batch). The dataset-order tensors are uploaded once;
-        each epoch gathers them by the loader's own ``epoch_index_plan``
-        with the seed ``seed + passes`` and advances ``passes`` by one, as
-        JAX's ``_stack_epoch_device_shuffle`` does. Unshuffled loaders (the
-        valid and test splits) are stacked once."""
+        each epoch gathers them by the loader's own plan for the pass with
+        the seed ``seed + passes`` and advances ``passes`` by one, as JAX's
+        ``_stack_epoch_device_shuffle`` does. AVEC2019's random-word tokens
+        are drawn anew each pass, after its shuffle, and uploaded for that
+        pass (JAX restacks such an epoch from its loader,
+        ``mimrl_tpu/train/solver.py:329-333``). Unshuffled loaders of fixed
+        tensors (the valid and test splits) are stacked once."""
         if loader in self._stacks:
             return self._stacks[loader]
         if loader not in self._flats:
-            ids, types, amask = loader._tokens
-            self._flats[loader] = {
-                k: torch.from_numpy(v).to(self.device) for k, v in (
-                    ("bert_sentences", ids), ("bert_sentence_types", types),
-                    ("bert_sentence_att_mask", amask), ("audio", loader._audio),
-                    ("video", loader._video))}
-        idx_plan, mask_plan = loader.epoch_index_plan(
-            np.random.default_rng(loader.seed + loader.passes))
-        loader.passes += 1
+            fields = [("audio", loader._audio), ("video", loader._video)]
+            if loader._text_feat is not None:
+                fields.append(("text", loader._text_feat))
+            if loader._tokens is not None:
+                fields += zip(MODEL_INPUTS[:3], loader._tokens)
+            self._flats[loader] = {k: torch.from_numpy(v).to(self.device)
+                                   for k, v in fields}
+        idx_plan, mask_plan, tokens = loader.next_epoch()
+        flats = self._flats[loader]
+        if not loader.static_tensors:
+            flats = dict(flats, **{k: torch.from_numpy(v).to(self.device)
+                                   for k, v in zip(MODEL_INPUTS[:3], tokens)})
         idx = torch.from_numpy(idx_plan).to(self.device)
-        batches = {k: v[idx] for k, v in self._flats[loader].items()}
+        batches = {k: v[idx] for k, v in flats.items()}
         batches["sample_mask"] = torch.from_numpy(mask_plan).to(self.device)
         ds_labels = [np.asarray(lab) for lab in loader.ds.labels]
         labels_np = [np.asarray(get_label_from_datas(
@@ -401,7 +414,7 @@ class Solver:
             np.int64 if self.opt.task == "classification" else np.float32))
         result = (batches, labels.to(self.device), labels_np,
                   [m > 0.5 for m in mask_plan])
-        if not loader.shuffle:
+        if not loader.shuffle and loader.static_tensors:
             self._stacks[loader] = result
         return result
 

@@ -43,12 +43,10 @@ from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.mi.knn import prod_knn_sample
-from mimrl_tpu_torch.models.model import CMI_KEYS, MimrlModel
+from mimrl_tpu_torch.models.model import (CMI_KEYS, MODEL_INPUTS, MimrlModel,
+                                          forward_batch)
 from mimrl_tpu_torch.train.losses import compute_task_loss
 from mimrl_tpu_torch.train.optim import ChainOptimizer
-
-MODEL_INPUTS = ("bert_sentences", "bert_sentence_types",
-                "bert_sentence_att_mask", "audio", "video")
 
 
 class FeatureBank:
@@ -207,11 +205,6 @@ def to_device(batch: Dict, labels: np.ndarray, task: str, device
             labels.to(device, non_blocking=True))
 
 
-def _forward(model: MimrlModel, batch: Dict[str, torch.Tensor], generator):
-    return model(*(batch[k] for k in MODEL_INPUTS), return_features=True,
-                 generator=generator)
-
-
 def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
                 batch: Dict[str, torch.Tensor], labels: torch.Tensor,
                 knn: Optional[Dict[str, Tuple]],
@@ -220,7 +213,7 @@ def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
     ``sum(coef2 * mi_loss)`` when ``knn`` holds the bank's samples (None:
     no MI, zero telemetry). Returns (loss, the 8 MI channels detached,
     output, [F_F, T_F, A_F, V_F])."""
-    out, *feats = _forward(model, batch, generator)
+    out, *feats = forward_batch(model, batch, generator=generator)
     total = compute_task_loss(cfg.loss, cfg.num_class, out, labels,
                               batch.get("sample_mask"))
     if knn is not None:
@@ -239,7 +232,7 @@ def features_step(model: MimrlModel, batch: Dict[str, torch.Tensor],
     T_F, A_F, V_F], constants of stage 1."""
     model.train()
     with torch.no_grad():
-        _, *feats = _forward(model, batch, generator)
+        _, *feats = forward_batch(model, batch, generator=generator)
     return feats
 
 

@@ -1,10 +1,12 @@
 """The port's copies of the JAX package's host modules give the same
 results: config (a file written by ``mimrl_tpu`` loads unchanged), CLI
-parsing, tokenizer, synthetic Dec fixture, Dec loader and batch pipeline
-(cycle-pad and sample mask), and the activation registry.
+parsing, tokenizer, synthetic fixtures, every dataset family's loader and
+the batch pipeline (cycle-pad and sample mask, dense text, AVEC2019's
+random words), and the activation registry.
 """
 
 import dataclasses
+import importlib
 import threading
 
 import jax.numpy as jnp
@@ -133,11 +135,103 @@ def test_pipeline_matches_jax(tmp_path, shuffle):
     assert threading.active_count() == threads
 
 
-def test_loader_refuses_unported_families():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_data_loader(config.MimrlConfig(dataset="mosi_SDK"))
-    with pytest.raises(ValueError):
+# (dataset, flags, fixture writer and its arguments); a/v widths as the
+# registry's, text narrowed
+FAMILIES = [
+    ("mosi_SDK", dict(text="text", audio="covarep", video="facet41"),
+     "make_sdk_fixture", dict(dataset="mosi", d_text=12, d_audio=74, d_video=47)),
+    ("mosi_SDK", dict(text="glove", audio="covarep", video="facet42",
+                      log_scale=[True, True, True]),
+     "make_sdk_fixture", dict(dataset="mosi", d_text=300, d_audio=74, d_video=35)),
+    ("mosei_SDK", dict(text="glove", audio="covarep", video="facet42"),
+     "make_sdk_fixture", dict(dataset="mosei", d_text=300, d_audio=74, d_video=35)),
+    ("pom_SDK", dict(text="text", audio="covarep", video="facet42"),
+     "make_sdk_fixture", dict(dataset="pom", d_text=12, d_audio=43, d_video=35)),
+    ("pom_SDK", dict(text="glove", audio="covarep", video="facet42",
+                     normalize=[True, False, True]),
+     "make_sdk_fixture", dict(dataset="pom", d_text=300, d_audio=43, d_video=35)),
+    ("avec2019", dict(text="text", audio="mfcc", video="au"),
+     "make_avec_fixture", dict(d_mfcc=39, d_au=49)),
+    ("avec2019", dict(text="ege", audio="ds", video="resnet",
+                      log_scale=[False, True, True]),
+     "make_avec_fixture", dict(d_mfcc=39, d_au=49)),
+    ("mosi_50", dict(log_scale=[False, True, True]),
+     "make_local_fixture", dict(dataset="mosi_50", dims=(300, 5, 20))),
+    ("pom", dict(), "make_local_fixture", dict(dataset="pom", dims=(300, 43, 43))),
+]
+
+
+def _family_loaders(pkg, cfg_cls, root, dataset, flags):
+    """The JAX package's or the port's three pipelines and dims. AVEC with
+    dense text has no registry width, so its loaders are built by hand."""
+    cfg = cfg_cls(dataset=dataset, data_dir=root, batch_size=4, time_len=9,
+                  seed=3, **flags)
+    if dataset == "avec2019" and flags["text"] != "text":
+        load = importlib.import_module(f"{pkg}.data.avec").load_avec_dataset
+        pipe = importlib.import_module(f"{pkg}.data.pipeline").BatchPipeline
+        splits = [load(mode, text=cfg.text, audio=cfg.audio, video=cfg.video,
+                       normalize=cfg.normalize, log_scale=cfg.log_scale,
+                       data_path=root) for mode in ("train", "valid", "test")]
+        return [pipe(ds, batch_size=4, time_len=9, shuffle=mode == "train",
+                     seed=3) for mode, ds in zip(("train", "valid", "test"),
+                                                 splits)]
+    return importlib.import_module(f"{pkg}.data.universal").get_data_loader(cfg)
+
+
+def test_families_match_jax(tmp_path):
+    """Every family's batches (the SDK family with words and with dense
+    glove, AVEC2019 with random words and with dense text, the local
+    family), two passes of each split, bit for bit against the JAX
+    package's pipelines on fixtures that both packages' writers make from
+    one seed (and that are byte-identical); AVEC's random words are drawn
+    anew each pass. The dispatcher also routes raw against dense text as
+    JAX does, and refuses an unknown dataset."""
+    from mimrl_tpu.data.universal import uses_raw_text as jax_raw
+    from mimrl_tpu_torch.data.universal import uses_raw_text
+
+    with pytest.raises(ValueError, match="unknown dataset"):
         get_data_loader(config.MimrlConfig(dataset="nope"))
+    for n, (dataset, flags, writer, args) in enumerate(FAMILIES):
+        roots = {}
+        for mod, pkg in ((synthetic, "mimrl_tpu_torch"), (jsyn, "mimrl_tpu")):
+            roots[pkg] = str(tmp_path / f"{n}_{pkg}")
+            getattr(mod, writer)(roots[pkg], n_per_split=(7, 3, 5), seed=n,
+                                 **args)
+        files = sorted(p.relative_to(roots["mimrl_tpu"]) for p in
+                       (tmp_path / f"{n}_mimrl_tpu").rglob("*.pkl"))
+        assert len(files) == 3
+        for f in files:
+            assert ((tmp_path / f"{n}_mimrl_tpu_torch" / f).read_bytes()
+                    == (tmp_path / f"{n}_mimrl_tpu" / f).read_bytes()), f
+        got = _family_loaders("mimrl_tpu_torch", config.MimrlConfig,
+                              roots["mimrl_tpu_torch"], dataset, flags)
+        want = _family_loaders("mimrl_tpu", jconfig.MimrlConfig,
+                               roots["mimrl_tpu"], dataset, flags)
+        assert tuple(got[3:]) == tuple(want[3:])
+        cfg = config.MimrlConfig(dataset=dataset, **flags)
+        raw = uses_raw_text(cfg)
+        assert raw == jax_raw(jconfig.MimrlConfig(dataset=dataset, **flags))
+        for g_pipe, w_pipe, n_split in zip(got[:3], want[:3], (7, 3, 5)):
+            assert len(g_pipe) == len(w_pipe) == -(-n_split // 4)
+            assert g_pipe.static_tensors == w_pipe.static_tensors
+            for _pass in range(2):
+                for g, w in zip(g_pipe, w_pipe):
+                    assert sorted(g) == sorted(w)
+                    assert ("text" in g) == (not raw)
+                    assert ("bert_sentences" in g) == raw
+                    for key in g:
+                        if key != "labels":
+                            np.testing.assert_array_equal(g[key], w[key],
+                                                          err_msg=key)
+                    assert len(g["labels"]) == len(w["labels"])
+                    for gl, wl in zip(g["labels"], w["labels"]):
+                        assert gl.dtype == wl.dtype
+                        np.testing.assert_array_equal(gl, wl)
+        avec_words = dataset == "avec2019" and raw
+        assert got[0].static_tensors == (not avec_words)
+        if avec_words:  # the two passes drew other words
+            first, second = (got[0].next_epoch()[2][0] for _ in range(2))
+            assert (first != second).any()
 
 
 @pytest.mark.parametrize("name", sorted(_ACTIVATIONS))

@@ -5,8 +5,9 @@ JAX weights come from ``init_full``; ``state_dict_from_jax`` carries them
 into the port. BERT runs with ``flash_attn='on'``, so the JAX side goes
 through the Pallas kernel in interpret mode and the port through its
 plain attention route. Tolerance atol = rtol = 1e-4: the two sides sum
-in different orders in the 2 BERT layers, the GRU scan (XLA scan vs the
-torch GRU per direction) and the LayerNorms (flax's fast variance vs torch's).
+in different orders in the 2 BERT layers, the GRU and LSTM scans (XLA
+scan vs the torch RNN per direction), the Conv1d and the LayerNorms
+(flax's fast variance vs torch's).
 """
 
 import dataclasses
@@ -232,3 +233,95 @@ def test_wide_classifier_branch_matches_jax(pair):
     with torch.no_grad():
         got = pm(*map(_t, batch), return_features=False)[0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+D_T = 12  # dense text width
+
+
+def test_encoders_and_dense_text_match_jax():
+    """The 1-layer bi-LSTM, the Conv1d encoder and the 2-layer bi-GRU, each
+    on the dense-text route (glove-like text into W_t, no BERT), against
+    the JAX model on the same converted weights: output and the four
+    features within TOL. A dense-text model has no ``bertmodel`` on either
+    side and a ``W_t`` of [d_common, d_t]; the LSTM's device-side form
+    equals torch's LSTM over packed sequences; the converted weights go
+    back exactly by the JAX package's own import rules (``_import_rnn``,
+    and the Conv1d kernel transpose of ``reference_state_dict_to_params``)."""
+    for encoders in ("lstm", "conv", "gru"):
+        _check_encoder_and_dense_text(encoders)
+
+
+def _check_encoder_and_dense_text(encoders):
+    from mimrl_tpu.utils.torch_import import _import_rnn
+
+    # K axes of width 3 (see test_cubemlp_matches_jax)
+    cube = ((T, 3, D_C), (4, 3, D_C))
+    kw = dict(_model_kw(cube[1]), encoders=encoders, d_hiddens=cube,
+              d_outs=cube)
+    jm = JaxMimrlModel(d_t=D_T, bert_config=jbert.BertConfig.tiny(), **kw)
+    ids, types, mask, a, v = _batch(seed=4)
+    text = np.random.default_rng(5).normal(size=(BS, T, D_T)).astype(np.float32)
+    params = init_full(jm, {"params": jax.random.PRNGKey(6)},
+                       *map(jnp.asarray, (ids, types, mask, a, v)),
+                       text_features=jnp.asarray(text))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    assert "bertmodel" not in params
+    assert params["W_t"]["kernel"].shape == (D_T, D_C)
+    want = jax.jit(lambda p, *x: jm.apply(
+        {"params": p}, *x[:5], deterministic=True, return_features=True,
+        text_features=x[5]))(params, ids, types, mask, a, v, text)
+
+    pm = MimrlModel(d_t=D_T, raw_text=False, bert_config=BertConfig.tiny(),
+                    **kw)
+    sd = state_dict_from_jax(params, pm)
+    pm.load_state_dict(sd, strict=True)
+    pm.eval()
+    assert not any(k.startswith("bertmodel") for k in pm.state_dict())
+    assert pm.W_t.weight.shape == (D_C, D_T)
+    with torch.no_grad():
+        got = pm(None, None, None, _t(a), _t(v), text_features=_t(text))
+    assert len(got) == 5
+    for g, w in zip(got, want):
+        assert np.isfinite(g.numpy()).all()
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+    with pytest.raises(ValueError, match="text_features"):
+        pm(None, None, None, _t(a), _t(v))
+
+    sd = {k: x.numpy() for k, x in sd.items()}
+    np.testing.assert_array_equal(sd["W_t.weight"].T, params["W_t"]["kernel"])
+    if encoders == "conv":
+        assert not any(k.startswith("rnn_") for k in sd)
+        for name in ("conv_a", "conv_v"):
+            assert sd[f"{name}.weight"].shape[2] == 3
+            np.testing.assert_array_equal(sd[f"{name}.weight"].transpose(2, 1, 0),
+                                          params[name]["conv"]["kernel"])
+            np.testing.assert_array_equal(sd[f"{name}.bias"],
+                                          params[name]["conv"]["bias"])
+        return
+    layers = 1 if encoders == "lstm" else 2
+    for name in ("rnn_a", "rnn_v"):
+        _assert_tree_equal(_import_rnn(sd, name, layers), params[name])
+    enc = pm.rnn_a
+    assert enc.mode == encoders.upper() and enc.num_layers == layers
+    lengths = lengths_from_sequence(_t(a))
+    packed = pack_padded_sequence(_t(a), lengths, batch_first=True,
+                                  enforce_sorted=False)
+    ref = getattr(nn, encoders.upper())(D_A, D_C, num_layers=layers,
+                                         batch_first=True, bidirectional=True)
+    ref.load_state_dict(enc.state_dict())
+    with torch.no_grad():
+        out, _ = ref(packed)
+        mine = enc(_t(a), lengths)
+    fwd, bwd = pad_packed_sequence(out, batch_first=True,
+                                   total_length=T)[0].chunk(2, -1)
+    np.testing.assert_allclose(mine.numpy(), (fwd + bwd).numpy(), rtol=0,
+                               atol=1e-6)
+
+
+def _assert_tree_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        if isinstance(want[k], dict):
+            _assert_tree_equal(got[k], want[k])
+        else:
+            np.testing.assert_array_equal(np.asarray(got[k]), want[k], err_msg=k)

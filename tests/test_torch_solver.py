@@ -14,7 +14,11 @@ programs (``StepFactory``) from the same weights, stacked batches, bank
 and kNN anchors (the ones JAX draws, injected), with dropout 0, SGD and
 plain XLA / PyTorch attention on both sides (the attention kernels' parity
 is held in test_torch_steps.py); and ``cli.main`` for 3 epochs on the rung,
-whose ``scalars.jsonl`` ``--no_pipeline_epochs`` repeats exactly.
+whose ``scalars.jsonl`` ``--no_pipeline_epochs`` repeats exactly. Two
+of its cases also train another dataset family per batch and on
+``--epoch_scan`` (``_family_runs``): ``mosi_50`` (dense text, no BERT,
+with ``Predictor`` serving the run) and AVEC2019 (random words drawn
+anew each pass, also in the stacked epochs of ``--epoch_scan``).
 Tolerances: losses, MI values, outputs, bank rows and features 1e-4, as in
 test_torch_steps.py; parameters 1e-5 after the 6 critic updates or 3 train
 updates of a stage (SGD holds every entry; a step's 2e-6 grows with the
@@ -38,7 +42,10 @@ from mimrl_tpu.train import steps as jsteps
 from mimrl_tpu_torch.cli.main import main
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import parse_args
-from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+from mimrl_tpu_torch.data.synthetic import (make_avec_fixture,
+                                            make_dec_fixture,
+                                            make_local_fixture)
+from mimrl_tpu_torch.data.universal import get_data_loader
 from mimrl_tpu_torch.eval.predict import Predictor
 from mimrl_tpu_torch.models.convert import state_dict_from_jax
 from mimrl_tpu_torch.train import steps
@@ -149,7 +156,7 @@ def test_two_runs_of_one_seed_agree(run):
 @pytest.mark.parametrize("flags", [
     ["--epoch_group", "2"], ["--check_gradient"],
     ["--custom_loss", "mod:fn"], ["--mesh_model", "2"], ["--mesh_data", "4"],
-    ["--fusion", "tfn"], ["--encoders", "lstm"], ["--profile_dir", "x"],
+    ["--fusion", "tfn"], ["--profile_dir", "x"],
     ["--distributed"]])
 def test_unported_flags_raise(run, flags):
     root = run[0]
@@ -331,6 +338,71 @@ def test_rungs(run, mode):
             main(_argv(root, "--task_name", name + "_np", "--epochs_num", "3",
                        "--no_pipeline_epochs", *flags))
             assert open(f"{root}/runs/{name}_np/scalars.jsonl").read() == rows
+    family = {"fresh": "avec2019", "fast": "mosi_50"}.get(mode)
+    if family:
+        _family_runs(root, family)
+
+
+FAMILY_FLAGS = {
+    "mosi_50": ["--dataset", "mosi_50"],
+    "avec2019": ["--dataset", "avec2019", "--text", "text", "--audio", "mfcc",
+                 "--video", "au", "--loss", "CCC"],
+}
+
+
+def _family_runs(root, dataset):
+    """A dataset family other than DeclareLab through ``cli.main``, per
+    batch and on ``--epoch_scan``, two epochs each: finite scores and MI
+    telemetry after epoch 0, and ``Predictor`` repeats the run's valid
+    score (AVEC's from the words of the best epoch's pass). ``mosi_50``: no BERT parameter exists and the model reads the
+    dense text. AVEC2019: the stacked epochs of ``--epoch_scan`` hold the
+    words that the per-batch loader draws for the same pass, other words
+    each pass, and the unshuffled splits are not stacked once."""
+    data = f"{root}/{dataset}"
+    if dataset == "avec2019":
+        make_avec_fixture(data, n_per_split=(N_TRAIN, N_VALID, N_TEST), seed=5)
+    else:
+        make_local_fixture(data, dataset, n_per_split=(N_TRAIN, N_VALID, N_TEST),
+                           dims=(300, 5, 20), time_len=14, seed=5)
+    flags = FAMILY_FLAGS[dataset] + ["--data_dir", data]
+    for scan in ([], ["--epoch_scan"]):
+        name = f"{dataset}{'_scan' if scan else ''}"
+        scores = main(_argv(root, "--task_name", name, *flags, *scan))
+        assert all(np.isfinite(v) for s in scores for v in s.values())
+        rows = [json.loads(r) for r in open(f"{root}/runs/{name}/scalars.jsonl")]
+        mi = [r["value"] for r in rows if r["step"] == 1
+              and r["tag"].startswith("Train/MI_")]
+        assert len(mi) == 8 and any(v != 0.0 for v in mi)
+        predictor = Predictor(f"{root}/runs/{name}", device="cpu")
+        # AVEC's valid words are those of the pass of the best epoch
+        predictor.valid_loader.passes = CheckpointManager(
+            f"{root}/runs/{name}").restore("best_valid")["epoch"]
+        key = "ccc" if dataset == "avec2019" else "mae"
+        assert predictor.evaluate_split("valid")[key] == pytest.approx(
+            scores[0][key], rel=1e-5)
+        params = dict(predictor.model.named_parameters())
+        raw = dataset == "avec2019"
+        assert any(k.startswith("bertmodel.") for k in params) == raw
+        if not raw:
+            assert params["W_t.weight"].shape == (16, 300)
+            log = open(f"{root}/runs/{name}/Running.log").read()
+            assert ", bert 0, " in log
+
+    if dataset != "avec2019":
+        return
+    solver = Solver(parse_args(_argv(root, "--task_name", "stack", *flags,
+                                     "--epoch_scan")), device="cpu")
+    twin = get_data_loader(solver.opt, solver.tokenizer)[0]
+    stacks = [solver._stack_epoch(solver.train_loader)[0]["bert_sentences"]
+              for _ in range(2)]
+    for stack in stacks:  # pass 0, then pass 1 of the per-batch loader
+        np.testing.assert_array_equal(
+            stack.numpy(), np.stack([b["bert_sentences"] for b in twin]))
+    assert (stacks[0] != stacks[1]).any()
+    for _ in range(2):
+        solver._stack_epoch(solver.valid_loader)
+    assert solver.valid_loader.passes == 2 and not solver._stacks
+    solver.writer.close()
 
 
 def _assert_params(p, model, jparams, groups):
