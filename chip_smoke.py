@@ -10,12 +10,15 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            variant, all started together.
 2. kernel  each kernel against its plain PyTorch version on the card, at
            the canonical shape, at T 150, at ragged small shapes, at the
-           tensor-core backward's T limit and one past it, and at hd 128,
-           with random key padding and a fully padded row, in bf16 (the
-           tensor-core instances, but past the limit) and float32 (the SIMT
-           ones): the attention forward without and with dropout (same
-           Philox mask on both sides, keep rate, same seed same bits), the
-           attention backward without and with dropout (two runs bit-equal);
+           tensor-core backward's T limits (bf16 and float32) and one past
+           each, and at hd 128, with random key padding and a fully padded
+           row, in bf16 and float32 (the tensor-core instances, bf16 mma
+           and 3xTF32; the backward past its limit on SIMT): the attention
+           forward without and with dropout (same Philox mask on both
+           sides, keep rate, same seed same bits), the attention backward
+           without and with dropout (two runs bit-equal); at the timed
+           float32 shapes the SIMT instances timed beside them through
+           their C entry points;
            the fused CubeMLP axis MLP at the six shapes of the
            canonical encoder with and without bias, each on its axis's
            instance (the D mix on tf32x3_rows, the L mix on tf32x3_cols,
@@ -53,7 +56,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            loss, and in every parameter's gradient the same step with the
            backward kernel's plain version in its place, one bf16 train
            step (dropout on) must match the plain route in its loss, and
-           ``Predictor`` must score the checkpoint the run wrote.
+           ``Predictor`` must score the checkpoint the run wrote; one
+           float32 train step as the README's quick start runs it (no
+           ``--compute_dtype``) profiled: busy ms, idle share, attention
+           rows. Every attention launch of every counted path must take the
+           tensor-core instance.
 5. quant   the same run again with ``--use_pallas --quant int8``: launches
            of all four kernels per epoch (a train step 12 + 12 attention,
            6 axis-MLP, 96 int8 GEMM; a critic step or an eval batch
@@ -332,9 +339,32 @@ def counts():
 def zero_counts() -> None:
     for w in kernel_wrappers():
         w.launches = 0
-    for w in kernel_wrappers()[2:]:
         for key in w.instance_launches:
             w.instance_launches[key] = 0
+
+
+def attention_instances(step: str, launches) -> dict:
+    """The attention launches of a counted run by instance (set to 0 with
+    the counts): at the main paths' shapes (T 100, hd 64, bf16 or float32)
+    every forward and every backward must have taken the tensor-core
+    instance, none the SIMT one."""
+    fwd, bwd = kernel_wrappers()[:2]
+    instances = dict(fwd=dict(fwd.instance_launches),
+                     bwd=dict(bwd.instance_launches))
+    require(instances == dict(
+        fwd={"tensor_core": launches[0], "simt": 0},
+        bwd={"tensor_core": launches[1], "simt": 0}),
+        f"{step}: attention launches by instance {instances}, want all "
+        f"{launches[:2]} on tensor_core")
+    return instances
+
+
+def attention_instance_counts():
+    """(forward, backward) launches on the tensor-core instance and on the
+    SIMT one so far: ((tc, simt), (tc, simt))."""
+    return tuple((w.instance_launches["tensor_core"],
+                  w.instance_launches["simt"])
+                 for w in kernel_wrappers()[:2])
 
 
 def int8_instances(step: str, launches) -> dict:
@@ -460,12 +490,45 @@ def attention_inputs(bs, nh, t, hd, dtype, seed):
     return [x.cuda().to(dtype) for x in (q, k, v)] + [bias.cuda()]
 
 
+def simt_attention(q, k, v, bias, seed=None, dropout_p=0.0, d_out=None):
+    """The float32 SIMT instance through its C entry point, the "before"
+    reading beside the tensor-core instance: the forward (no shape routes
+    there any longer) or, with ``d_out``, the backward (the wrapper takes it
+    only past the tensor-core T limit). Counts no launch."""
+    import torch
+
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    bs, nh, t, hd = q.shape
+    seed_ptr, drop, threshold, inv_keep = fa._dropout_args(seed, dropout_p)
+    tail = (bs, nh, t, hd, fa._DTYPE_CODES[q.dtype], 1.0 / hd ** 0.5, drop,
+            threshold, inv_keep, torch.cuda.current_stream().cuda_stream)
+    if d_out is None:
+        out = torch.empty_like(q)
+        rc = fa._entry(fa.SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), seed_ptr, *tail)
+        require(rc == 0, f"SIMT forward: CUDA error {rc}")
+        return out
+    require(q.dtype == torch.float32, "the SIMT backward's dq_acc is dq")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    rc = fa._entry(fa.SOURCE_BWD, "mimrl_flash_attention_bwd", 10, q.dtype)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        d_out.data_ptr(), seed_ptr, dq.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *tail)
+    require(rc == 0, f"SIMT backward: CUDA error {rc}")
+    return dq, dk, dv
+
+
 def attention_bound(q, bias, backward: bool = False):
-    """(ms, 'bytes' | 'operations'). Forward: q, k, v, bias read once and
+    """(ms, 'bytes' | 'operations', ms with float32's operations on the
+    FP32 pipes only (None for bf16)). Forward: q, k, v, bias read once and
     out written once at the HBM rate, against 4 * bs * nh * T^2 * hd
-    operations (two products) at the peak rate of the input type.
-    Backward: q, k, v, dO, bias read and dq, dk, dv written once, against
-    10 * bs * nh * T^2 * hd operations (five products)."""
+    operations (two products); backward: q, k, v, dO, bias read and dq,
+    dk, dv written once, against 10 * bs * nh * T^2 * hd operations (five
+    products). bf16 operations at the tensor cores' bf16 rate; float32 ones
+    at the faster of the FP32 pipes and 3xTF32 (three TF32 products each)
+    on the tensor cores, as axis_mlp_bound reads them."""
     bs, nh, t, hd = q.shape
     tensors, products = (7, 5) if backward else (4, 2)
     nbytes = (tensors * q.numel() * q.element_size()
@@ -473,7 +536,12 @@ def attention_bound(q, bias, backward: bool = False):
     ops = 2 * products * bs * nh * t * t * hd
     dtype = str(q.dtype).replace("torch.", "")
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_OPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    fp32_pipes = None
+    if dtype == "float32":
+        fp32_pipes = 1e3 * max(t_bytes, t_ops)
+        t_ops = min(t_ops, 3 * ops / PEAK_OPS["tfloat32"])
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", fp32_pipes)
 
 
 def rel_err(got, want) -> float:
@@ -540,7 +608,8 @@ def faulty_backward(fault: float):
 
 def kernel_phase():
     """Both attention kernels against their plain versions; returns the
-    canonical-shape bf16 records (forward, backward) for the kernels line."""
+    canonical-shape records (forward, backward) for the kernels line: the
+    bf16 ones, each with the float32 one under 'float32'."""
     import torch
     import torch.nn.functional as F
 
@@ -549,12 +618,15 @@ def kernel_phase():
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
         flash_attention_plain)
 
-    main_fwd = main_bwd = None
-    limit = fa.max_t_tensor_core_bwd(HEAD_DIM)
+    main = {}
+    limits = [fa.max_t_tensor_core_bwd(HEAD_DIM, d)
+              for d in (torch.bfloat16, torch.float32)]
     # timed: the canonical and the AVEC shapes; then ragged ones, the
-    # tensor-core backward's T limit and one past it (SIMT there), hd 128
+    # tensor-core backward's T limits (bf16 and float32) and one past each
+    # (SIMT there), hd 128 (past float32's limit)
     shapes = [SERVE_SHAPE, AVEC_SHAPE, (3, 2, 37, 16), (2, 2, 512, HEAD_DIM),
-              (2, 2, limit, HEAD_DIM), (2, 2, limit + 1, HEAD_DIM),
+              *[(2, 2, t, HEAD_DIM) for limit in limits
+                for t in (limit, limit + 1)],
               (4, N_HEADS, TIME_LEN, 128)]
     for shape in shapes:
         for dtype in (torch.bfloat16, torch.float32):
@@ -598,16 +670,17 @@ def kernel_phase():
                 require(abs(rec["keep_rate"] - (1.0 - DROPOUT_P)) <= KEEP_RATE_TOL,
                         f"keep rate {rec['keep_rate']} at {shape} {name}")
                 mask = bias.to(dtype)
-                kname = KERNEL_SYMBOLS[("fwd", fwd_instance)]
                 rec.update(timings(
                     lambda: flash_attention(q, k, v, bias),
                     lambda: flash_attention(q, k, v, bias, seed, DROPOUT_P),
                     lambda: flash_attention_plain(q, k, v, bias),
                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
-                    kname))
-                rec["bound_ms"], rec["bound_by"] = attention_bound(q, bias)
-                if shape == SERVE_SHAPE and dtype == torch.bfloat16:
-                    main_fwd = rec
+                    kernel_symbol("fwd", fwd_instance, name),
+                    *simt_timed(q, k, v, bias, seed)))
+                (rec["bound_ms"], rec["bound_by"],
+                 rec["bound_ms_fp32_pipes"]) = attention_bound(q, bias)
+                if shape == SERVE_SHAPE:
+                    main[("fwd", name)] = rec
             emit(**rec)
 
             # ---- backward, without and with dropout ----
@@ -640,7 +713,6 @@ def kernel_phase():
                         for gg, ww in zip(got3, want3))
             rec["bit_equal_twice"] = True
             if timed:
-                kname = KERNEL_SYMBOLS[("bwd", bwd_instance)]
                 qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
                 out = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias.to(dtype))
                 rec.update(timings(
@@ -650,44 +722,79 @@ def kernel_phase():
                     # the backward alone: the forward's graph is built once
                     lambda: torch.autograd.grad(out, (qq, kk, vv), d_out,
                                                 retain_graph=True),
-                    kname))
+                    kernel_symbol("bwd", bwd_instance, name),
+                    *simt_timed(q, k, v, bias, seed, d_out)))
                 del out, qq, kk, vv
-                rec["bound_ms"], rec["bound_by"] = attention_bound(
+                (rec["bound_ms"], rec["bound_by"],
+                 rec["bound_ms_fp32_pipes"]) = attention_bound(
                     q, bias, backward=True)
-                if shape == SERVE_SHAPE and dtype == torch.bfloat16:
-                    main_bwd = rec
+                if shape == SERVE_SHAPE:
+                    main[("bwd", name)] = rec
             emit(**rec)
-    return main_fwd, main_bwd
+    for kind in ("fwd", "bwd"):
+        main[(kind, "bfloat16")]["float32"] = {
+            k: v for k, v in main[(kind, "float32")].items()
+            if k not in ("phase", "kernel", "shape", "dtype")}
+    return main[("fwd", "bfloat16")], main[("bwd", "bfloat16")]
 
 
-# the CUDA kernels' names, for the profiler's records
-KERNEL_SYMBOLS = {("fwd", "tensor_core"): "flash_fwd_tc_kernel",
-                  ("fwd", "simt"): "flash_fwd_kernel",
-                  ("bwd", "tensor_core"): "flash_bwd_tc_kernel",
-                  ("bwd", "simt"): "flash_bwd_kernel"}
+def kernel_symbol(kind: str, instance: str, dtype: str) -> str:
+    """The CUDA kernel's name of an attention instance, for the profiler's
+    records: ``kind`` 'fwd' or 'bwd', ``dtype`` 'bfloat16' or 'float32'."""
+    if instance == "simt":
+        return f"flash_{kind}_kernel"
+    return f"flash_{kind}_{'tc' if dtype == 'bfloat16' else 'tf32x3'}_kernel"
 
 
-def timings(kernel, kernel_dropout, plain, library, kernel_name) -> dict:
+def simt_timed(q, k, v, bias, seed, d_out=None):
+    """For a float32 record, (simt, simt with dropout, its kernel name):
+    the SIMT instance through its entry point, timed beside the tensor-core
+    one in the same call; () for bf16."""
+    import torch
+
+    if q.dtype != torch.float32:
+        return ()
+    kind = "fwd" if d_out is None else "bwd"
+    return (lambda: simt_attention(q, k, v, bias, d_out=d_out),
+            lambda: simt_attention(q, k, v, bias, seed, DROPOUT_P, d_out),
+            kernel_symbol(kind, "simt", "float32"))
+
+
+def timings(kernel, kernel_dropout, plain, library, kernel_name, simt=None,
+            simt_dropout=None, simt_name=None) -> dict:
     """The times of one attention record, ms on the device: the kernel with
     20 queued launches per pair of CUDA events ('ms', 'ms_dropout') and by
-    the profiler's kernel records ('profiler_ms', 'profiler_ms_dropout');
+    the profiler's kernel records ('profiler_ms', 'profiler_ms_dropout', up
+    to three profiler runs each, 'profiler_tries' says how many);
     one launch per pair ('ms_one_launch', which reads the wrapper's host
     time where that is longer); the plain version; the one-call PyTorch
     yardstick by the profiler ('library_ms', the device time of all of its
     kernels; queued events where the profiler gives no records) and by 20
     queued calls per pair of events ('library_events_ms', which for the
-    backward reads autograd's time on the host)."""
+    backward reads autograd's time on the host). With ``simt``: the float32
+    SIMT instance the same two ways ('ms_simt', 'profiler_ms_simt', and
+    with dropout)."""
     library_events_ms = cuda_ms(library, inner=20)
     library_ms = profiler_ms(library)
-    return dict(
+    tries = []
+    out = dict(
         ms=cuda_ms(kernel, inner=20),
         ms_dropout=cuda_ms(kernel_dropout, inner=20),
-        profiler_ms=profiler_ms(kernel, kernel_name),
-        profiler_ms_dropout=profiler_ms(kernel_dropout, kernel_name),
+        profiler_ms=profiled_ms(kernel, kernel_name, tries),
+        profiler_ms_dropout=profiled_ms(kernel_dropout, kernel_name, tries),
         ms_one_launch=cuda_ms(kernel),
         plain_ms=cuda_ms(plain, inner=5),
         library_ms=library_events_ms if library_ms is None else library_ms,
         library_events_ms=library_events_ms)
+    if simt is not None:
+        out.update(
+            ms_simt=cuda_ms(simt, inner=20),
+            ms_simt_dropout=cuda_ms(simt_dropout, inner=20),
+            profiler_ms_simt=profiled_ms(simt, simt_name, tries),
+            profiler_ms_simt_dropout=profiled_ms(simt_dropout, simt_name,
+                                                 tries))
+    out["profiler_tries"] = tries
+    return out
 
 
 def keep_rate(shape, dtype, seed) -> float:
@@ -1065,6 +1172,7 @@ def timed_serve(task: str, step: str, overrides: dict, per_batch):
     launches = counts()
     instances = int8_instances(step, launches)
     axis_instances = axis_mlp_instances(step, launches)
+    attention_instances(step, launches)
     predictor.forward = forward
     want = tuple(n * n_batches for n in per_batch)
     require(launches == want,
@@ -1101,7 +1209,13 @@ def serve_phase(task: str):
                             ("f32_plain", {"compute_dtype": "float32",
                                            "flash_attn": "off"})):
         p = Predictor(task, config_overrides=overrides)
+        c0, i0 = counts(), attention_instance_counts()
         preds[name] = p.predict_loader(p.test_loader)[0]
+        got = tuple(sub(b, a) for a, b in zip(i0, attention_instance_counts()))
+        n_fwd = counts()[0] - c0[0]
+        require(got == ((n_fwd, 0), (0, 0))
+                and n_fwd == (60 if name == "f32_kernel" else 0),
+                f"serve {name}: attention launches (tensor_core, simt) {got}")
         del p
     for name, x in preds.items():
         require(x.shape == (N_TEST, 1) and bool(np.isfinite(x).all()),
@@ -1322,6 +1436,7 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
     launches = counts()
     instances = int8_instances(name, launches)
     axis_instances = axis_mlp_instances(name, launches)
+    attention_instances(name, launches)
 
     # ---- launch counts of the four kernels, exactly, per epoch: epoch 0
     # is 3 train steps, epoch 1 is 6 critic steps and 3 train steps; each
@@ -1463,12 +1578,14 @@ def train_breakdown(solver, name: str) -> None:
     train_profile(solver, mb, labels, name)
 
 
-def train_profile(solver, mb, labels, name: str) -> None:
-    """torch.profiler over three bf16 train steps: device time by kernel
+def train_profile(solver, mb, labels, name: str,
+                  step_name: str = "profile_train_step") -> None:
+    """torch.profiler over three train steps: device time by kernel
     name (the twelve largest, and every row of the port's own kernels,
     whose names carry the sources' kernel names), the device's busy time
     per step (the sum over
-    kernels and copies), the device's span of the same three steps (CUDA
+    kernels and copies) and the attention kernels' part of it, the device's
+    span of the same three steps (CUDA
     events around them, inside the profiler) and from these two the idle
     share, and the host's wall time under the profiler. Informative only:
     without device records it says so."""
@@ -1504,8 +1621,11 @@ def train_profile(solver, mb, labels, name: str) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows) / 3e3
-    emit(phase=name, step="profile_train_step", steps=3,
+    attention_ms = sum(r[1] for r in rows if "flash_" in r[0]) / 3e3
+    emit(phase=name, step=step_name, steps=3, card=card(),
          wall_ms_per_step_profiled=wall_ms, device_busy_ms_per_step=busy_ms,
+         attention_ms_per_step=attention_ms,
+         attention_share_of_busy=attention_ms / busy_ms if rows else None,
          device_span_ms_per_step_profiled=span_ms,
          device_idle_share_profiled=(1.0 - busy_ms / span_ms) if rows else None,
          device_records=bool(rows),
@@ -1514,6 +1634,37 @@ def train_profile(solver, mb, labels, name: str) -> None:
          port_kernels=[dict(name=k[:80], ms_per_step=t / 3e3,
                             calls_per_step=c / 3) for k, t, c in rows
                        if any(n in k for n in PORT_KERNEL_SYMBOLS)])
+
+
+def train_f32_profile(argv) -> None:
+    """One float32 ``train_step`` of the canonical recipe as the README's
+    quick start runs it (no ``--compute_dtype``: float32, dropout on),
+    profiled as ``train_profile`` reads the bf16 one: busy ms, idle share,
+    the attention rows (12 forward and 12 backward launches, every one on
+    the tensor-core instance)."""
+    import torch
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.train.solver import Solver
+
+    i = argv.index("--compute_dtype")
+    f32_argv = argv[:i] + argv[i + 2:]
+    cfg = parse_args(f32_argv).replace(task_name="f32_profile",
+                                       save_models=False)
+    require(cfg.compute_dtype == "float32", "the README recipe is not float32")
+    solver = Solver(cfg)
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    zero_counts()
+    train_profile(solver, mb, labels, "train", "profile_train_step_f32")
+    # the profiled run: 1 warm-up and 3 profiled steps
+    launches = counts()
+    attention_instances("train_f32_profile", launches)
+    require(launches == step_launches("train", False, "none", 4),
+            f"float32 train_step profile: launches {launches}")
+    solver.writer.close()
+    del solver
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 ROUTES = (  # name, flash_attn, backward through the plain version
@@ -1582,7 +1733,8 @@ def train_route_check(argv, routes=ROUTES) -> None:
 
         opt_main.step = recording_step
         mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
-        c0 = fwd_counter.launches, bwd_counter.launches
+        c0, i0 = (fwd_counter.launches, bwd_counter.launches), \
+            attention_instance_counts()
         if plain_backward:
             fa.flash_attention_bwd = fa.flash_attention_bwd_plain
         try:
@@ -1597,6 +1749,10 @@ def train_route_check(argv, routes=ROUTES) -> None:
                 12 if flash_attn == "on" and not plain_backward else 0)
         require((c1[0] - c0[0], c1[1] - c0[1]) == want,
                 f"route {route}: launches {c0} -> {c1}, want {want}")
+        got = tuple(sub(b, a) for a, b in zip(i0, attention_instance_counts()))
+        require(got == ((want[0], 0), (want[1], 0)),
+                f"route {route}: float32 attention launches (tensor_core, "
+                f"simt) {got}, want {want} all on tensor_core")
         require(len(grads) == len(opt_main.params), "train_step took no step")
         results[route] = (loss.item(), out, grads, {
             n: p.detach() - before[n] for n, p in solver.model.named_parameters()})
@@ -1738,13 +1894,17 @@ def recorded_train_step(cfg, patches=()):
 
     opt_main.step = recording_step
     mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
-    c0 = counts()
+    c0, i0 = counts(), attention_instance_counts()
     with patched(patches):
         loss, _, out = steps.train_step(
             solver.model, opt_main, cfg, mb, labels, solver.bank,
             solver.new_bank, 0, solver.generator, False)
     torch.cuda.synchronize()
     launches = sub(counts(), c0)
+    got = tuple(sub(b, a) for a, b in zip(i0, attention_instance_counts()))
+    require(got == ((launches[0], 0), (launches[1], 0)),
+            f"{cfg.task_name}: attention launches (tensor_core, simt) {got}, "
+            f"want {launches[:2]} all on tensor_core")
     require(len(grads) == len(opt_main.params), "train_step took no step")
     solver.writer.close()
     return loss.item(), out, grads, launches
@@ -2099,6 +2259,7 @@ def resume_phase(root: str):
         (steps, "train_step", counted_train_step),
         (Solver, "_resume", timed_resume)])
     launches = counts()
+    attention_instances("resume", launches)
     want = add(step_launches("critic", False, "none", 6),
                step_launches("train", False, "none", 3),
                step_launches("eval", False, "none", 2))
@@ -2340,6 +2501,7 @@ def rung_run(runs: str, name: str, argv, graphs=True, stage1=None, patches=(),
         cli_main(argv, graphs=graphs)
     info.update(wall_s=time.perf_counter() - t0, launches=counts(),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    attention_instances(name, info["launches"])
     solver = info.pop("solver")
     names = {id(p): n for n, p in solver.model.named_parameters()}
     opt_names = {k: [names[id(p)] for p in getattr(solver, k).params]
@@ -2628,6 +2790,7 @@ def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
         scores = cli_main(full)
     wall = time.perf_counter() - t0
     launches = counts()
+    attention_instances(name, launches)
     solver = info.pop("solver")
     n = {k: len(v) for k, v in step_ms.items()}
     want = add(*(family_launches(k.split("_")[0], raw, use_pallas, quant, n[k])
@@ -2695,6 +2858,7 @@ def family_serve(name: str, task: str, raw: bool, use_pallas=False,
     metrics = predictor.evaluate_split("test")
     wall = time.perf_counter() - t0
     served = counts()
+    attention_instances(f"{name} served", served)
     want = family_launches("eval", raw, use_pallas, quant, n_batches)
     require(served == want, f"{name}: Predictor launched {served}, want {want}")
     require(all(np.isfinite(v) for v in metrics.values()),
@@ -2738,22 +2902,26 @@ def checked_int8(seen):
     return ((quant, "int8_matmul", checked),)
 
 
-def profiled_ms(fn, kernel_name):
+def profiled_ms(fn, kernel_name, tries=None):
     """``profiler_ms`` with up to three sessions, as ``int8_phase`` reads
-    it: a session has come back without the kernel's records."""
-    for _ in range(3):
+    it: a session has come back without the kernel's records. The number
+    of profiler runs it took is appended to ``tries``."""
+    for tried in range(1, 4):
         ms = profiler_ms(fn, kernel_name)
         if ms is not None:
-            return ms
-    return None
+            break
+    if tries is not None:
+        tries.append(tried)
+    return ms
 
 
 def family_kernel_shapes() -> dict:
     """The kernels at the slice's new shapes against their plain versions,
     timed (queued CUDA events and the profiler) beside the bound and the
     one-call PyTorch equivalent: attention forward and backward at AVEC's
-    bs 32 and POM's bs 64 in float32 (the recipes' compute type: the SIMT
-    instances), with dropout; the axis MLP at mosi_local.sh's six shapes;
+    bs 32 and POM's bs 64 in float32 (the recipes' compute type: the
+    tensor-core instances, timed beside the SIMT ones), with dropout; the
+    axis MLP at mosi_local.sh's six shapes;
     the int8 products of a BERT-base layer at M 3200, forward and dw, bit
     for bit. Returns {kernel name: [records]}."""
     import math
@@ -2793,7 +2961,8 @@ def family_kernel_shapes() -> dict:
                                                          d_out, 0.0),
                     lambda: torch.autograd.grad(sdpa, (qq, kk, vv), d_out,
                                                 retain_graph=True),
-                    KERNEL_SYMBOLS[("bwd", instance)])
+                    kernel_symbol("bwd", instance, "float32"),
+                    *simt_timed(q, k, v, bias, seed, d_out))
                 del sdpa, qq, kk, vv
                 tol = BWD_TOL["float32"]
             else:
@@ -2806,14 +2975,18 @@ def family_kernel_shapes() -> dict:
                     lambda: fa.flash_attention_plain(q, k, v, bias),
                     lambda: F.scaled_dot_product_attention(q, k, v,
                                                            attn_mask=bias),
-                    KERNEL_SYMBOLS[("fwd", instance)])
+                    kernel_symbol("fwd", instance, "float32"),
+                    *simt_timed(q, k, v, bias, seed))
                 tol = KERNEL_TOL["float32"]
             require(err <= tol, f"{kernel} {shape} float32 with dropout: "
                     f"relative error {err} > {tol}")
-            bound, by = attention_bound(q, bias, backward=backward)
+            require(instance == "tensor_core",
+                    f"{kernel} {shape} float32: instance {instance}")
+            bound, by, fp32_pipes = attention_bound(q, bias, backward=backward)
             out[kernel].append(dict(shape=shape, dtype="float32",
                                     instance=instance, max_rel_err_dropout=err,
-                                    bound_ms=bound, bound_by=by, **times))
+                                    bound_ms=bound, bound_by=by,
+                                    bound_ms_fp32_pipes=fp32_pipes, **times))
         del q, k, v, bias, d_out
 
     sms = ck._sm_count(torch.device("cuda", 0))
@@ -3100,6 +3273,7 @@ def main() -> int:
         train, argv = train_phase(root)
         train_route_check(argv)
         train_bf16_route_check(argv)
+        train_f32_profile(argv)
         quant, quant_argv = train_phase(root, "quant", True, "int8")
         quant_route_check(quant_argv)
         quant_mode_steps(quant_argv)
@@ -3131,7 +3305,7 @@ def main() -> int:
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
         for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
                     "ms_one_launch", "library_events_ms", "bound_rate",
-                    "bound_ms_fp32_pipes"):
+                    "bound_ms_fp32_pipes", "float32"):
             rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
@@ -3141,7 +3315,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "dtype", "instance", "ms_dropout", "profiler_ms", "ms_one_launch",
-            "library_events_ms", "bound_rate", "bound_ms_fp32_pipes", "launches_serve", "launches_train",
+            "library_events_ms", "bound_rate", "bound_ms_fp32_pipes",
+            "float32", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
             "shapes", "shapes_families")

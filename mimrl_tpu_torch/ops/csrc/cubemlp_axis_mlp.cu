@@ -25,7 +25,8 @@
 //   float32 in this port (plain TF32 is switched off, device.py), and one
 //   TF32 pass keeps 10 mantissa bits (about 1e-3 off), so each operand is
 //   split as hi = tf32(v), lo = tf32(v - hi), both rounded to nearest, and
-//   the product is taken as lo*hi + hi*lo + hi*hi (3xTF32): about 2^-22 of
+//   the product is taken as lo*hi + hi*lo + hi*hi (3xTF32, tf32x3.cuh,
+//   shared with the float32 attention instances): about 2^-22 of
 //   each product is lost (the lo*lo term and lo's rounding). The tensor
 //   cores sum 16 contraction terms at a time; the chunks are added in
 //   float32 on the FP32 pipes.
@@ -103,6 +104,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -171,24 +174,8 @@ struct TcLayout {
   }
 };
 
-// hi = tf32(v) and lo = tf32(v - hi), each rounded to the nearest tf32
-// (ties away from zero: half a tf32 ulp added to the bit pattern, the low
-// 13 mantissa bits cleared; as cvt.rna.tf32.f32, in two integer operations
-// instead of its longer sequence). v - hi is exact, so hi + lo keeps 22 of
-// v's 24 bits. Finite |v| below 2^128 (1 - 2^-11), as every input here.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = (__float_as_uint(v - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mimrl::mma_tf32;
+using mimrl::split_tf32;  // tf32x3.cuh
 
 // A weight in shared memory as the MMA's A operand: A[m][k] = ws[m * sm +
 // k * sk] (m a unit, k the contraction)

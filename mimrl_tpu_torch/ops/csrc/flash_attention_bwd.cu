@@ -21,16 +21,18 @@
 // products, every product accumulates in float32. Nothing but q, k, v, bias
 // and the seed is kept from the forward: no mask, no P, no output.
 //
-// Bound on the H100 SXM at its 700 W limit (3.35 TB/s, 989 TFLOP/s bf16)
-// at the training shape [128, 12, 100, 64] bf16: q, k, v, dO read and dq,
-// dk, dv written once is 7 x 19.7 MB = 137.6 MB -> 41 us; the five products
-// are 10 * bs * nh * T^2 * hd = 9.8 GFLOP -> 10 us on the tensor cores. The
-// function is bound by bytes.
+// Bound on the H100 SXM at its 700 W limit (3.35 TB/s; 989 TFLOP/s bf16 and
+// 495 TFLOP/s TF32 on the tensor cores) at the training shape
+// [128, 12, 100, 64]: q, k, v, dO read and dq, dk, dv written once is
+// 7 x 19.7 MB = 137.6 MB -> 41 us in bf16, 275 MB -> 82 us in float32; the
+// five products are 10 * bs * nh * T^2 * hd = 9.8 GFLOP -> 10 us on the
+// tensor cores in bf16, 60 us as three TF32 products each in float32. The
+// function is bound by bytes in both types.
 //
 // Two instances, chosen by the wrapper (ops/flash_attention.py::_instance).
 // Neither uses a float atomic, so two runs give the same bits.
 //
-// Tensor cores (bf16 up to max_t, the main path). All products on
+// Tensor cores, bf16 (flash_bwd_tc_kernel, up to max_t, the main path). All products on
 // mma.sync.m16n8k16 bf16 -> float32. One block per (head, batch row)
 // stages the whole head, Q, K, V and dO, once, as bf16 by 16-byte cp.async
 // (rows padded by 16 bytes against ldmatrix bank conflicts): every input is
@@ -66,8 +68,36 @@
 //   dS (T^2 x 2 bytes each) in shared memory, which would cut max_t to
 //   about 160 at hd 64.
 //
-// SIMT (float32, whose 2e-5 tolerance rules out TF32; and bf16 past
-// max_t): the first port's kernel, FP32 pipes, one block of 4 warps per
+// Tensor cores, float32 (flash_bwd_tf32x3_kernel, up to max_t: 192 at
+// hd 64, 96 at hd 128). The passes above, with mma.sync.m16n8k8 tf32 in
+// 3xTF32 (tf32x3.cuh: a rounded hi/lo split of each operand, three
+// products, chunks of 16 terms added in float32), float32 rows hd + 4
+// floats apart (4 mod 32 words), operands read as scalars and split at
+// their use, and an A fragment taken from the C fragment of the previous
+// product in the permuted key order of c_to_a_perm (flash_common.cuh; its
+// B operand read in the same order). The head in float32 is twice as wide:
+// 122 KB at T 100, so one block an SM; it has up to 12 warps at hd <= 64
+// (168 registers: T 150's ten row groups in one round) and 8 at hd 128.
+// Two schedules, by T:
+//   - up to keep_max_t (112 at hd 64, 128 at hd <= 32, 80 at hd 128) the
+//     block keeps S and dP in shared memory, two [T][T + 4] float tiles
+//     (104 KB at T 100, 227.6 KB in all; the keep mask moves into the S
+//     rows' pad). 1a stores S (scaled, biased) and the masked dP as it
+//     computes them; 1b reads them back, turns them into Pd and dS in
+//     place and accumulates dQ; pass 2 reads Pd^T and dS^T off the tiles.
+//     Five products, the algebra's, 15 tensor-core passes per tile pair;
+//   - past it, the nine products of the bf16 instance, 27 passes.
+// At the training shape it read 0.362 ms against the 0.082 ms bound on an
+// H100 80GB HBM3 at 700 W (PERF.md), at T 150 (nine products) 1.19 against
+// 0.134: the mma.sync stream holds it back, as in the forward, with seven
+// warps an SM. Tried and dropped: the nine-product schedule at T 100
+// (slower than SDPA there, and than the kept tiles by far); the hi/lo
+// split on the FP32 pipes (no change; with lo rounded by integer
+// operations, slower); at most 8 warps a block (T 150 then ran two rounds
+// of 5 warps, slower than one round of 10).
+//
+// SIMT (flash_bwd_kernel; either type past its tensor-core T limit): the
+// first port's kernel, FP32 pipes, one block of 4 warps per
 // (head, batch row) owning all of that head's dq, dk and dv, in two phases
 // over 64-query and 32-key tiles staged in shared memory as float32:
 //
@@ -446,12 +476,12 @@ int dispatch_drop(const void* q, const void* k, const void* v,
 }
 
 
+constexpr size_t kTcSmemLimit = 232448;  // the 227 KB a block may use
+
 #if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
 // ---------------------------------------------------------------------------
-// The tensor-core instance (bf16 only): mma.sync.m16n8k16 bf16 -> float32.
+// The bf16 tensor-core instance: mma.sync.m16n8k16 bf16 -> float32.
 // ---------------------------------------------------------------------------
-
-constexpr size_t kTcSmemLimit = 232448;  // the 227 KB a block may use
 
 // 16 warps at hd <= 64 (at most 128 registers a thread), 8 at hd 128,
 // whose pass-1 fragments and accumulators need more. (8 warps at hd 64 were
@@ -777,29 +807,441 @@ __global__ void __launch_bounds__(tc_max_warps<HD>() * 32)
   }
 }
 
+#endif  // the bf16 tensor-core instance
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 0
+// ---------------------------------------------------------------------------
+// The float32 tensor-core instance: mma.sync.m16n8k8 tf32 in 3xTF32.
+// ---------------------------------------------------------------------------
+
+// One block fills an SM's shared memory from T 100 on, so its warps are all
+// the SM has: up to 12 at hd <= 64 (168 registers a thread; T 150 runs 10
+// warps in one round, against 5 in two rounds with 8), 8 at hd 128, whose
+// T limit is 96 (6 warps) and whose accumulators need more registers.
+template <int HD>
+constexpr int f32_max_warps() {
+  return HD <= 64 ? 12 : 8;
+}
+
+template <int HD>
+struct F32BwdSmem {
+  static constexpr int kS = F32Row<HD>::kStride;
+  // Q, K, V, dO: t_pad float32 rows each; bias, m, 1 / l, delta: t_pad
+  // floats each; with dropout the keep mask, t_pad rows of t_pad / 8 bytes
+  static size_t bytes(int t_pad, bool drop) {
+    return (size_t)4 * t_pad * kS * sizeof(float) +
+           (size_t)4 * t_pad * sizeof(float) +
+           (drop ? (size_t)t_pad * (t_pad / 8) : 0);
+  }
+  // the longest sequence whose head fits, mask included
+  static int max_t() {
+    int t = 16;
+    while (bytes(t + 16, true) <= kTcSmemLimit) t += 16;
+    return t;
+  }
+  // kKeep: the head, bias and statistics as above, and the S and dP tiles,
+  // t_pad rows of t_pad + 4 floats each (the keep mask in the 16 bytes of
+  // each S row's pad, so T <= 128)
+  static size_t bytes_keep(int t_pad) {
+    return (size_t)4 * t_pad * kS * sizeof(float) +
+           (size_t)4 * t_pad * sizeof(float) +
+           (size_t)2 * t_pad * (t_pad + 4) * sizeof(float);
+  }
+  static int keep_max_t() {
+    int t = 0;
+    while (t + 16 <= 128 && bytes_keep(t + 16) <= kTcSmemLimit) t += 16;
+    return t;
+  }
+};
+
+template <int HD, bool kDrop, bool kKeep>
+__global__ void __launch_bounds__(f32_max_warps<HD>() * 32, 1)
+    flash_bwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ d_out,
+                            const long long* __restrict__ seed,
+                            float* __restrict__ dq, float* __restrict__ dk,
+                            float* __restrict__ dv, int nh, int t_len,
+                            int t_pad, float scale, uint32_t threshold,
+                            float inv_keep) {
+  constexpr int kS = F32Row<HD>::kStride;
+  constexpr int kDT = F32Row<HD>::kDTiles;
+  constexpr int kSteps = HD < 16 ? 1 : 2;  // k8 steps of a 16-term chunk of hd
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + t_pad * kS;
+  float* sV = sK + t_pad * kS;
+  float* sDO = sV + t_pad * kS;
+  float* sB = sDO + t_pad * kS;
+  float* sM = sB + t_pad;
+  float* sInvL = sM + t_pad;
+  float* sDelta = sInvL + t_pad;
+  // kKeep: the S and dP tiles, [query][key], rows of t_pad + 4 floats (4
+  // or 20 mod 32 words: the transposed fragment reads of pass 2 fall into
+  // distinct banks), the keep mask in each S row's 4 pad floats; else the
+  // mask alone, t_pad / 8 bytes a row
+  const int tstride = t_pad + 4;
+  float* sS = sDelta + t_pad;
+  float* sP = sS + t_pad * tstride;
+  auto mask_row = [&](int row) {
+    return kKeep ? reinterpret_cast<uint8_t*>(sS + row * tstride + t_pad)
+                 : reinterpret_cast<uint8_t*>(sDelta + t_pad) + row * (t_pad / 8);
+  };
+
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.y, h = blockIdx.x;
+  const size_t head = ((size_t)b * nh + h) * (size_t)t_len * HD;
+  const float* bias_row = bias + (size_t)b * t_len;
+  uint2 key = make_uint2(0u, 0u);
+  if (kDrop) key = philox_key(seed);
+  // two C fragments (rows r0 + g and + 8, columns c0 + 8j + 2t and + 1) to
+  // and from a tile
+  auto store_tile = [&](float* tile, int r0, int c0, const float (&c)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(tile + (r0 + g + 8 * r) * tstride + c0 +
+                                   8 * j + 2 * t4) =
+            make_float2(c[j][2 * r], c[j][2 * r + 1]);
+  };
+  auto load_tile = [&](const float* tile, int r0, int c0, float (&c)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float2 x = *reinterpret_cast<const float2*>(
+            tile + (r0 + g + 8 * r) * tstride + c0 + 8 * j + 2 * t4);
+        c[j][2 * r] = x.x;
+        c[j][2 * r + 1] = x.y;
+      }
+  };
+
+  // the whole head, once: each input is read from device memory once
+  stage_rows_f32<HD>(sQ, q + head, 0, t_pad, t_len);
+  stage_rows_f32<HD>(sK, k + head, 0, t_pad, t_len);
+  stage_rows_f32<HD>(sV, v + head, 0, t_pad, t_len);
+  stage_rows_f32<HD>(sDO, d_out + head, 0, t_pad, t_len);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < t_pad; i += blockDim.x)
+    sB[i] = i < t_len ? bias_row[i] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  const int groups = t_pad / 16;
+
+  // X . Y^T for the 16 rows of `x` and of `y` (row g, column t of each),
+  // both [rows][hd] in shared memory, over hd in chunks of 16 terms: the
+  // C fragments of the two n8 tiles of y's rows, each chunk summed on the
+  // tensor cores and added in float32
+  auto rows_product = [&](const float* x, const float* y, float (&c)[2][4]) {
+    zero4(c[0]);
+    zero4(c[1]);
+#pragma unroll
+    for (int d0 = 0; d0 < HD; d0 += 16) {
+      float part[2][4];
+      zero4(part[0]);
+      zero4(part[1]);
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        Tf32A a;
+        load_a<kS>(a, x + d0 + 8 * kk);
+        mma_b_rows(part[0], a, y + d0 + 8 * kk);
+        mma_b_rows(part[1], a, y + 8 * kS + d0 + 8 * kk);
+      }
+      add4(c[0], part[0]);
+      add4(c[1], part[1]);
+    }
+  };
+  // acc[d] += A . Z over 16 rows of z (the contraction), A the C
+  // fragments of two n8 tiles in c_to_a_perm's order; z [rows][hd] at its
+  // row 2t, column g
+  auto cols_product = [&](const float (&c)[2][4], const float* z,
+                          float (&acc)[kDT][4]) {
+    Tf32A a[2];
+    c_to_a_perm(a[0], c[0]);
+    c_to_a_perm(a[1], c[1]);
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) {
+      float part[4];
+      zero4(part);
+      mma_b_perm<kS>(part, a[0], z + 8 * d);
+      mma_b_perm<kS>(part, a[1], z + 8 * kS + 8 * d);
+      add4(acc[d], part);
+    }
+  };
+
+  // ---- pass 1, query rows: 16 a warp ----
+  for (int rg = warp; rg < groups; rg += warps) {
+    const int r0 = rg * 16;
+    const float* sQr = sQ + (r0 + g) * kS + t4;
+    const float* sDOr = sDO + (r0 + g) * kS + t4;
+    // S = Q . K^T and dPd = dO . V^T for the keys [kc, kc + 16); the score
+    // is s * scale + bias rounded twice, as the reference computes it, and
+    // -inf past T
+    auto products = [&](int kc, float (&s)[2][4], float (&dp)[2][4]) {
+      rows_product(sQr, sK + (kc + g) * kS + t4, s);
+      rows_product(sDOr, sV + (kc + g) * kS + t4, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = kc + 8 * j + 2 * t4 + (e & 1);
+          s[j][e] = kk < t_len ? __fadd_rn(__fmul_rn(s[j][e], scale), sB[kk])
+                               : -INFINITY;
+        }
+    };
+
+    // 1a: m, l and delta = rowsum(P * dP) with online rescaling; the keep
+    // mask is drawn here, one Philox call per four (query, key) pairs, and
+    // kept in shared memory as bits
+    float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f},
+          d_part[2] = {0.f, 0.f};
+    for (int kc = 0; kc < t_pad; kc += 16) {
+      float s[2][4], dp[2][4];
+      products(kc, s, dp);
+      if (kDrop) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          bool keep[4];
+          dropout_keep_frag(key, threshold, b, h, r0 + g, kc + 8 * j, lane,
+                            keep);
+          uint32_t lo = (keep[0] << (2 * t4)) | (keep[1] << (2 * t4 + 1));
+          uint32_t hi = (keep[2] << (2 * t4)) | (keep[3] << (2 * t4 + 1));
+          lo |= __shfl_xor_sync(0xffffffffu, lo, 1);
+          lo |= __shfl_xor_sync(0xffffffffu, lo, 2);
+          hi |= __shfl_xor_sync(0xffffffffu, hi, 1);
+          hi |= __shfl_xor_sync(0xffffffffu, hi, 2);
+          if (t4 == 0) mask_row(r0 + g)[kc / 8 + j] = (uint8_t)lo;
+          if (t4 == 1) mask_row(r0 + g + 8)[kc / 8 + j] = (uint8_t)hi;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[j][e] = keep[e] ? dp[j][e] * inv_keep : 0.f;
+        }
+      }
+      if (kKeep) {  // for 1b, which then needs no product of its own
+        store_tile(sS, r0, kc, s);
+        store_tile(sP, r0, kc, dp);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                               fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+        const float m_new = fmaxf(m_run[r], quad_max(mx));
+        const float alpha = softmax_exp(m_run[r] - m_new);  // 0 on the first tile
+        m_run[r] = m_new;
+        l_part[r] *= alpha;
+        d_part[r] *= alpha;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ex = softmax_exp(s[j][e] - m_run[e >> 1]);
+          l_part[e >> 1] += ex;
+          d_part[e >> 1] += ex * dp[j][e];
+        }
+    }
+    float inv_l[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      inv_l[r] = 1.f / quad_sum(l_part[r]);
+      delta[r] = quad_sum(d_part[r]) * inv_l[r];
+      if (t4 == 0) {
+        const int row = r0 + g + 8 * r;
+        sM[row] = m_run[r];
+        sInvL[row] = inv_l[r];
+        sDelta[row] = delta[r];
+      }
+    }
+    __syncwarp();  // this warp's mask rows, for 1b
+
+    // 1b: dS, and dQ = dS . K summed in registers, written once
+    float dqa[kDT][4];
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) zero4(dqa[d]);
+    for (int kc = 0; kc < t_pad; kc += 16) {
+      float s[2][4], dp[2][4];
+      if (kKeep) {
+        load_tile(sS, r0, kc, s);
+        load_tile(sP, r0, kc, dp);  // the keep mask applied already
+      } else {
+        products(kc, s, dp);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t bits[2] = {0u, 0u};
+        if (kDrop) {
+          bits[0] = mask_row(r0 + g)[kc / 8 + j] >> (2 * t4);
+          bits[1] = mask_row(r0 + g + 8)[kc / 8 + j] >> (2 * t4);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool kept = (bits[r] >> (e & 1)) & 1u;
+          float p = softmax_exp(s[j][e] - m_run[r]) * inv_l[r];  // 0 past T
+          float dpv = dp[j][e];
+          if (kKeep) {
+            // rows past T must add nothing to dK and dV in pass 2
+            if (r0 + g + 8 * r >= t_len) p = 0.f;
+            s[j][e] = kDrop ? (kept ? p * inv_keep : 0.f) : p;  // Pd
+          } else if (kDrop) {
+            dpv = kept ? dpv * inv_keep : 0.f;
+          }
+          dp[j][e] = p * (dpv - delta[r]) * scale;
+        }
+      }
+      if (kKeep) {
+        store_tile(sS, r0, kc, s);   // Pd
+        store_tile(sP, r0, kc, dp);  // dS * scale
+      }
+      cols_product(dp, sK + (kc + 2 * t4) * kS + g, dqa);  // dS * scale . K
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + g + 8 * r;
+      if (row >= t_len) continue;
+      float* dst = dq + head + (size_t)row * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d)
+        *reinterpret_cast<float2*>(dst + 8 * d) =
+            make_float2(dqa[d][2 * r], dqa[d][2 * r + 1]);
+    }
+  }
+  __syncthreads();  // every row's m, 1 / l, delta and mask
+
+  // ---- pass 2, keys: 16 a warp; S^T = K . Q^T and dPd^T = V . dO^T
+  // recomputed, dV = Pd^T . dO and dK = dS^T . Q summed in registers ----
+  for (int kg = warp; kg < groups; kg += warps) {
+    const int k0 = kg * 16;
+    const float* sKr = sK + (k0 + g) * kS + t4;
+    const float* sVr = sV + (k0 + g) * kS + t4;
+    bool k_in[2];
+    float bk[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = k0 + g + 8 * r;
+      k_in[r] = kr < t_len;
+      bk[r] = sB[kr];
+    }
+    float dka[kDT][4], dva[kDT][4];
+#pragma unroll
+    for (int d = 0; d < kDT; ++d) {
+      zero4(dka[d]);
+      zero4(dva[d]);
+    }
+
+    for (int qc = 0; qc < t_pad; qc += 16) {
+      float st[2][4], dpt[2][4];
+      if (kKeep) {
+        // Pd^T and dS^T from the tiles, in C order (rows: keys k0 + g and
+        // + 8; columns: queries qc + 8j + 2t and + 1)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int off = (qc + 8 * j + 2 * t4 + (e & 1)) * tstride + k0 +
+                            g + 8 * (e >> 1);
+            st[j][e] = sS[off];
+            dpt[j][e] = sP[off];
+          }
+        const int zrow = (qc + 2 * t4) * kS + g;
+        cols_product(st, sDO + zrow, dva);
+        cols_product(dpt, sQ + zrow, dka);
+        continue;
+      }
+      rows_product(sKr, sQ + (qc + g) * kS + t4, st);
+      rows_product(sVr, sDO + (qc + g) * kS + t4, dpt);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int qi = qc + 8 * j + 2 * t4 + c;  // this column's query
+          const bool q_in = qi < t_len;
+          const float m = sM[qi], il = sInvL[qi], dl = sDelta[qi];
+          // keys k0 .. k0 + 15 of this query's mask row, one bit each
+          const uint32_t bits =
+              kDrop ? *reinterpret_cast<const uint16_t*>(mask_row(qi) + k0 / 8)
+                    : 0u;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 2 * r + c;
+            const float x = __fadd_rn(__fmul_rn(st[j][e], scale), bk[r]);
+            const float p = k_in[r] && q_in ? softmax_exp(x - m) * il : 0.f;
+            float pd = p, dpv = dpt[j][e];
+            if (kDrop) {
+              const bool keep = (bits >> (g + 8 * r)) & 1u;
+              pd = keep ? p * inv_keep : 0.f;
+              dpv = keep ? dpv * inv_keep : 0.f;
+            }
+            st[j][e] = pd;                          // Pd^T
+            dpt[j][e] = p * (dpv - dl) * scale;     // dS^T * scale
+          }
+        }
+      const int zrow = (qc + 2 * t4) * kS + g;
+      cols_product(st, sDO + zrow, dva);
+      cols_product(dpt, sQ + zrow, dka);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = k0 + g + 8 * r;
+      if (kr >= t_len) continue;
+      const size_t off = head + (size_t)kr * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) {
+        *reinterpret_cast<float2*>(dk + off + 8 * d) =
+            make_float2(dka[d][2 * r], dka[d][2 * r + 1]);
+        *reinterpret_cast<float2*>(dv + off + 8 * d) =
+            make_float2(dva[d][2 * r], dva[d][2 * r + 1]);
+      }
+    }
+  }
+}
+#endif  // the float32 tensor-core instance
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE <= 1
+// the tensor-core instance of the library's input type
 template <int HD, bool kDrop>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               const void* d_out, const void* seed, void* dq, void* dk,
               void* dv, int bs, int nh, int t_len, float scale,
               uint32_t threshold, float inv_keep, cudaStream_t stream) {
-  auto kern = flash_bwd_tc_kernel<HD, kDrop>;
   const int t_pad = (t_len + 15) / 16 * 16;
-  if (t_pad > TcBwdSmem<HD>::max_t()) return (int)cudaErrorInvalidValue;
+#if defined(MIMRL_DTYPE) && MIMRL_DTYPE == 0
+  using T = float;
+  using Smem = F32BwdSmem<HD>;
+  // short heads keep their S and dP tiles (five products, not nine)
+  const bool keep = t_pad <= Smem::keep_max_t();
+  auto kern = keep ? flash_bwd_tf32x3_kernel<HD, kDrop, true>
+                   : flash_bwd_tf32x3_kernel<HD, kDrop, false>;
+  const int max_warps = f32_max_warps<HD>();
+  const size_t smem =
+      keep ? Smem::bytes_keep(t_pad) : Smem::bytes(t_pad, kDrop);
+#else
+  using T = bf16;
+  using Smem = TcBwdSmem<HD>;
+  auto kern = flash_bwd_tc_kernel<HD, kDrop>;
+  const int max_warps = tc_max_warps<HD>();
+  const size_t smem = Smem::bytes(t_pad, kDrop);
+#endif
+  if (t_pad > Smem::max_t()) return (int)cudaErrorInvalidValue;
   // ceil(T / 16) groups of 16 rows (pass 1) or keys (pass 2) over the
-  // fewest rounds of at most tc_max_warps warps, evenly
-  const int groups = t_pad / 16, max_warps = tc_max_warps<HD>();
+  // fewest rounds of at most max_warps warps, evenly
+  const int groups = t_pad / 16;
   const int rounds = (groups + max_warps - 1) / max_warps;
   const int warps = (groups + rounds - 1) / rounds;
-  const size_t smem = TcBwdSmem<HD>::bytes(t_pad, kDrop);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(nh, bs), warps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<const bf16*>(d_out), static_cast<const long long*>(seed),
-      static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-      nh, t_len, t_pad, scale, threshold, inv_keep);
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<const T*>(d_out), static_cast<const long long*>(seed),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), nh,
+      t_len, t_pad, scale, threshold, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -823,17 +1265,25 @@ int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
 #undef MIMRL_BWD_TC_CASE
 }
 
+#if defined(MIMRL_DTYPE) && MIMRL_DTYPE == 0
+template <int HD>
+using TcSmem = F32BwdSmem<HD>;
+#else
+template <int HD>
+using TcSmem = TcBwdSmem<HD>;
+#endif
+
 int tc_max_t(int hd) {
   switch (hd) {
-    case 8: return TcBwdSmem<8>::max_t();
-    case 16: return TcBwdSmem<16>::max_t();
-    case 32: return TcBwdSmem<32>::max_t();
-    case 64: return TcBwdSmem<64>::max_t();
-    case 128: return TcBwdSmem<128>::max_t();
+    case 8: return TcSmem<8>::max_t();
+    case 16: return TcSmem<16>::max_t();
+    case 32: return TcSmem<32>::max_t();
+    case 64: return TcSmem<64>::max_t();
+    case 128: return TcSmem<128>::max_t();
     default: return -1;
   }
 }
-#endif  // the tensor-core instance
+#endif  // the tensor-core instances
 
 }  // namespace
 
@@ -869,10 +1319,11 @@ extern "C" int mimrl_flash_attention_bwd(
   return (int)cudaErrorInvalidValue;
 }
 
-#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
-// The tensor-core instance: bf16 tensors, no dq_acc; arguments otherwise as
-// above without the dtype. T must not exceed mimrl_flash_attention_bwd_tc_max_t(hd),
-// and q, k, v, d_out must be 16-byte aligned (the wrapper checks both).
+#if defined(MIMRL_DTYPE) && MIMRL_DTYPE <= 1
+// The tensor-core instance of the library's input type (bf16 or float32
+// tensors), no dq_acc; arguments otherwise as above without the dtype. T
+// must not exceed mimrl_flash_attention_bwd_tc_max_t(hd), and q, k, v, d_out
+// must be 16-byte aligned (the wrapper checks both).
 extern "C" int mimrl_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* bias,
     const void* d_out, const void* seed, void* dq, void* dk, void* dv, int bs,
@@ -889,7 +1340,7 @@ extern "C" int mimrl_flash_attention_bwd_tc(
                             t_len, hd, scale, threshold, inv_keep, s);
 }
 
-// the longest T the tensor-core backward takes at head dim hd (-1: no such
-// instance), from the 227 KB of shared memory a block may use
+// the longest T the library's tensor-core backward takes at head dim hd (-1:
+// no such instance), from the 227 KB of shared memory a block may use
 extern "C" int mimrl_flash_attention_bwd_tc_max_t(int hd) { return tc_max_t(hd); }
 #endif

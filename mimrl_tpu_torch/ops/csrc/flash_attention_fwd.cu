@@ -22,15 +22,18 @@
 // 1 / sum. The kernel without dropout is its own template instance, so
 // dropout_p = 0 compiles to the code it was before dropout existed.
 //
-// Bound on the H100 SXM at its 700 W limit (3.35 TB/s, 989 TFLOP/s bf16)
-// at the serving shape [128, 12, 100, 64] bf16: the kernel must read q, k, v and write out,
-// 4 x 19.7 MB = 78.6 MB -> 23.5 us; the two products are
-// 4 * bs * nh * T^2 * hd = 3.9 GFLOP -> 4 us on the tensor cores. So the
-// function is bound by bytes.
+// Bound on the H100 SXM at its 700 W limit (3.35 TB/s; 989 TFLOP/s bf16 and
+// 495 TFLOP/s TF32 on the tensor cores) at the serving shape
+// [128, 12, 100, 64]: the kernel must read q, k, v and write out, in bf16
+// 4 x 19.7 MB = 78.6 MB -> 23.5 us, in float32 157 MB -> 47 us; the two
+// products are 4 * bs * nh * T^2 * hd = 3.9 GFLOP -> 4 us on the tensor cores
+// in bf16, 24 us as three TF32 products each in float32. So the function is
+// bound by bytes in both types.
 //
-// Two instances, chosen by the wrapper (ops/flash_attention.py::_instance):
+// Two instances, chosen by the wrapper (ops/flash_attention.py::_instance);
+// every shape takes the tensor-core one.
 //
-// Tensor cores (bf16, the main path). Both products on
+// Tensor cores, bf16 (flash_fwd_tc_kernel). Both products on
 // mma.sync.m16n8k16 bf16 -> float32; the SIMT instance below would need
 // 58 us for the FLOPs alone at the same card's 67 TFLOP/s FP32 peak. Each warp owns 16 query
 // rows. One block per (head, batch row) holds ceil(T / 16) warps, split
@@ -54,13 +57,35 @@
 // (flash_common.cuh, softmax_exp). The output is stored from the
 // registers, a bf16 pair per lane.
 //
-// SIMT (float32, whose 2e-5 tolerance rules out TF32): the first port's
-// kernel. One block of 4 warps per (64-query tile, head, batch row) stages
-// its Q tile once, then walks the keys in tiles of 64 staged in shared
-// memory (K, V and the bias converted to float32), with an online softmax:
-// each warp owns 16 query rows, each lane two keys of the tile for Q . K^T
-// and hd/32 output columns for P . V. The arithmetic runs on the FP32
-// pipes, so it is bound by operations there (PERF.md).
+// Tensor cores, float32 (flash_fwd_tf32x3_kernel): the same blocks, warps,
+// tiles, online softmax and dropout, with mma.sync.m16n8k8 tf32 in 3xTF32
+// (tf32x3.cuh: each operand split into a rounded hi and lo, three products,
+// the tensor cores' sums taken in chunks of 16 terms and added in float32),
+// so float32 keeps its 2e-5 tolerance with TF32 switched off. Rows are
+// float32, hd + 4 floats apart (4 mod 32 words: a fragment's eight rows and
+// four columns fall into 32 banks), read as scalars and split at their use.
+// P goes from the S registers into the A fragment of P . V without a
+// shuffle: the C fragment holds keys 2t and 2t + 1, which the A fragment
+// takes as its columns t and t + 4 (c_to_a_perm), and V's B fragment is
+// read in the same key order, rows 2t and 2t + 1. 105 KB of shared memory
+// at hd 64 and T 100: two blocks, 14 warps an SM. It read 0.132 ms against
+// the 0.047 ms bound on an H100 80GB HBM3 at 700 W (PERF.md): 1.2 TB/s and
+// a sixth of the TF32 rate. What holds it back is the mma.sync stream
+// itself, three dependent TF32 products per k8 step for each product of
+// bf16's k16 step, with the fragment loads and splits beside them: moving
+// the splits to the FP32 pipes (hi as (c v) - ((c v) - v), c = 2^13 + 1,
+// lo unrounded) left the time unchanged and was dropped, as was rounding
+// that lo by integer operations (slower).
+//
+// SIMT (flash_fwd_kernel): the first port's kernel, FP32 pipes, either
+// type. No shape routes to it any longer; its C entry point
+// (mimrl_flash_attention_fwd, with a dtype argument) stays for
+// chip_smoke.py, which times it beside the float32 tensor-core instance.
+// One block of 4 warps per (64-query tile, head, batch row) stages its Q
+// tile once, then walks the keys in tiles of 64 staged in shared memory
+// (K, V and the bias converted to float32), with an online softmax: each
+// warp owns 16 query rows, each lane two keys of the tile for Q . K^T and
+// hd/32 output columns for P . V.
 //
 // Masking. Keys past T (the ragged edge of the last tile) get -inf and
 // weight 0. Padded keys inside T keep their additive -1e9 bias exactly as
@@ -283,14 +308,15 @@ int dispatch_drop(const void* q, const void* k, const void* v,
 }
 
 
+// the tensor-core instances, both types
+constexpr int kTcMaxWarps = 8;  // 16 query rows each
+constexpr int kTcKeys = 64;     // keys per staged K/V tile
+
 #if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
 
 // ---------------------------------------------------------------------------
-// The tensor-core instance (bf16 only): mma.sync.m16n8k16 bf16 -> float32.
+// The bf16 tensor-core instance: mma.sync.m16n8k16 bf16 -> float32.
 // ---------------------------------------------------------------------------
-
-constexpr int kTcMaxWarps = 8;  // 16 query rows each
-constexpr int kTcKeys = 64;     // keys per staged K/V tile
 
 template <int HD>
 struct TcFwdSmem {
@@ -471,6 +497,204 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
   }
 }
 
+#endif  // the bf16 tensor-core instance
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 0
+
+// ---------------------------------------------------------------------------
+// The float32 tensor-core instance: mma.sync.m16n8k8 tf32 in 3xTF32.
+// ---------------------------------------------------------------------------
+
+template <int HD>
+struct F32FwdSmem {
+  static constexpr int kS = F32Row<HD>::kStride;
+  // Q: warps * 16 rows; K and V: two buffers of kTcKeys rows each; bias:
+  // two buffers of kTcKeys floats
+  static size_t bytes(int warps) {
+    return ((size_t)warps * 16 * kS + 4 * kTcKeys * kS + 2 * kTcKeys) *
+           sizeof(float);
+  }
+};
+
+template <int HD, bool kDrop>
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
+    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ bias,
+                            float* __restrict__ out,
+                            const long long* __restrict__ seed, int nh,
+                            int t_len, float scale, uint32_t threshold,
+                            float inv_keep) {
+  constexpr int kS = F32Row<HD>::kStride;
+  constexpr int kDT = F32Row<HD>::kDTiles;
+  constexpr int kNT = kTcKeys / 8;  // n8 tiles of one score tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x / 32, rows = warps * 16;
+  float* sQ = reinterpret_cast<float*>(smem_raw);
+  float* sK = sQ + rows * kS;  // buffer j at sK + j * kTcKeys * kS
+  float* sV = sK + 2 * kTcKeys * kS;
+  float* sB = sV + 2 * kTcKeys * kS;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * rows;
+  const size_t head = ((size_t)b * nh + h) * (size_t)t_len * HD;
+  const float* bias_row = bias + (size_t)b * t_len;
+  const int row0 = q0 + warp * 16;
+  const bool active = row0 < t_len;  // a warp past T does no products
+  uint2 key = make_uint2(0u, 0u);
+  if (kDrop) key = philox_key(seed);
+
+  stage_rows_f32<HD>(sQ, q + head, q0, rows, t_len);
+  auto stage_kv = [&](int tile) {
+    const int buf = tile & 1, k0 = tile * kTcKeys;
+    stage_rows_f32<HD>(sK + buf * kTcKeys * kS, k + head, k0, kTcKeys, t_len);
+    stage_rows_f32<HD>(sV + buf * kTcKeys * kS, v + head, k0, kTcKeys, t_len);
+    for (int j = threadIdx.x; j < kTcKeys; j += blockDim.x)
+      cp_async_4(sB + buf * kTcKeys + j,
+                 bias_row + (k0 + j < t_len ? k0 + j : 0),
+                 k0 + j < t_len ? 4 : 0);
+  };
+  stage_kv(0);
+  cp_async_commit();  // group 0: Q and the first K/V tile
+
+  float o[kDT][4];
+#pragma unroll
+  for (int d = 0; d < kDT; ++d) zero4(o[d]);
+  float m_run[2] = {-INFINITY, -INFINITY}, l_part[2] = {0.f, 0.f};
+  // this lane's (row g, column t) of the warp's 16 query rows
+  const float* sQw = sQ + (warp * 16 + g) * kS + t4;
+
+  const int n_tiles = (t_len + kTcKeys - 1) / kTcKeys;
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    // the next tile's loads overlap this tile's products; its buffer was
+    // last read before the __syncthreads that ended the previous iteration
+    if (tile + 1 < n_tiles) stage_kv(tile + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but the newest group has landed
+    __syncthreads();
+    const int k0 = tile * kTcKeys, buf = tile & 1;
+    const float* sKb = sK + buf * kTcKeys * kS;
+    const float* sVb = sV + buf * kTcKeys * kS;
+    const float* sBb = sB + buf * kTcKeys;
+    const int keys_left = t_len - k0;  // >= 1: key k0 lies inside T
+    if (active) {
+      // S = Q . K^T over the tile's 16-key groups that reach inside T, hd
+      // in chunks of 16 terms, each chunk summed on the tensor cores and
+      // added in float32
+      float s[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) zero4(s[j]);
+#pragma unroll
+      for (int c = 0; c < HD; c += 16) {
+        constexpr int kSteps = HD < 16 ? 1 : 2;
+        Tf32A qa[kSteps];
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk) load_a<kS>(qa[kk], sQw + c + 8 * kk);
+#pragma unroll
+        for (int jp = 0; jp < kNT / 2; ++jp) {
+          if (jp * 16 >= keys_left) break;
+          float part[2][4];
+          zero4(part[0]);
+          zero4(part[1]);
+#pragma unroll
+          for (int kk = 0; kk < kSteps; ++kk)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+              mma_b_rows(part[j], qa[kk],
+                         sKb + (jp * 16 + 8 * j + g) * kS + c + 8 * kk + t4);
+          add4(s[2 * jp], part[0]);
+          add4(s[2 * jp + 1], part[1]);
+        }
+      }
+      // s * scale + bias rounded twice, as the reference computes it; keys
+      // past T get -inf
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kk = 8 * j + 2 * t4 + (e & 1);
+          const float x = kk < keys_left
+                              ? __fadd_rn(__fmul_rn(s[j][e], scale), sBb[kk])
+                              : -INFINITY;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        alpha[r] = softmax_exp(m_run[r] - m_new);  // 0 on the first tile
+        m_run[r] = m_new;
+        l_part[r] *= alpha[r];
+      }
+      // P = exp(s - m), summed over all keys, dropped or not; the kept,
+      // unnormalised P feeds P . V
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = softmax_exp(s[j][e] - m_run[e >> 1]);
+          l_part[e >> 1] += p;
+          s[j][e] = p;
+        }
+        if (kDrop && j * 8 < keys_left) {
+          bool keep[4];
+          dropout_keep_frag(key, threshold, b, h, row0 + g, k0 + 8 * j, lane,
+                            keep);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!keep[e]) s[j][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < kDT; ++d) {
+        o[d][0] *= alpha[0];
+        o[d][1] *= alpha[0];
+        o[d][2] *= alpha[1];
+        o[d][3] *= alpha[1];
+      }
+      // O += P . V in chunks of 16 keys: P from the S registers (the
+      // permuted key order of c_to_a_perm), V rows 2t and 2t + 1 of each
+      // 8-key step
+#pragma unroll
+      for (int kc = 0; kc < kNT / 2; ++kc) {
+        if (kc * 16 >= keys_left) break;
+        Tf32A pa[2];
+        c_to_a_perm(pa[0], s[2 * kc]);
+        c_to_a_perm(pa[1], s[2 * kc + 1]);
+        const float* vrow = sVb + (kc * 16 + 2 * t4) * kS + g;
+#pragma unroll
+        for (int d = 0; d < kDT; ++d) {
+          float part[4];
+          zero4(part);
+          mma_b_perm<kS>(part, pa[0], vrow + 8 * d);
+          mma_b_perm<kS>(part, pa[1], vrow + 8 * kS + 8 * d);
+          add4(o[d], part);
+        }
+      }
+    }
+    __syncthreads();  // this tile's buffer is free for the tile after next
+  }
+  if (!active) return;
+  const float l_row[2] = {quad_sum(l_part[0]), quad_sum(l_part[1])};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= t_len) continue;
+    const float inv = (kDrop ? inv_keep : 1.f) / l_row[r];
+    float* dst = out + head + (size_t)row * HD + 2 * t4;
+#pragma unroll
+    for (int d = 0; d < kDT; ++d)
+      *reinterpret_cast<float2*>(dst + 8 * d) =
+          make_float2(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+  }
+}
+#endif  // the float32 tensor-core instance
+
+#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE <= 1
 // Blocks per (head, batch row) and warps per block: ceil(T / 16) row groups
 // of 16 split evenly over the fewest blocks of at most kTcMaxWarps warps, so
 // that every block reads K and V once and no warp idles but in the last.
@@ -480,22 +704,30 @@ __host__ inline void tc_fwd_grid(int t_len, int* blocks, int* warps) {
   *warps = (groups + *blocks - 1) / *blocks;
 }
 
+// the tensor-core instance of the library's input type
 template <int HD, bool kDrop>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               void* out, const void* seed, int bs, int nh, int t_len,
               float scale, uint32_t threshold, float inv_keep,
               cudaStream_t stream) {
-  auto kern = flash_fwd_tc_kernel<HD, kDrop>;
   int blocks, warps;
   tc_fwd_grid(t_len, &blocks, &warps);
+#if defined(MIMRL_DTYPE) && MIMRL_DTYPE == 0
+  using T = float;
+  auto kern = flash_fwd_tf32x3_kernel<HD, kDrop>;
+  const size_t smem = F32FwdSmem<HD>::bytes(warps);
+#else
+  using T = bf16;
+  auto kern = flash_fwd_tc_kernel<HD, kDrop>;
   const size_t smem = TcFwdSmem<HD>::bytes(warps);
+#endif
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(blocks, nh, bs), warps * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<const long long*>(seed), nh, t_len,
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(bias),
+      static_cast<T*>(out), static_cast<const long long*>(seed), nh, t_len,
       scale, threshold, inv_keep);
   return (int)cudaGetLastError();
 }
@@ -519,7 +751,7 @@ int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
   }
 #undef MIMRL_FWD_TC_CASE
 }
-#endif  // the tensor-core instance
+#endif  // the tensor-core instances
 
 }  // namespace
 
@@ -553,10 +785,11 @@ extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-#if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
-// The tensor-core instance: bf16 q, k, v, out; arguments as above without
-// the dtype. Every 16-byte row chunk is read by cp.async, so q, k and v must
-// be 16-byte aligned (the wrapper checks).
+#if defined(MIMRL_DTYPE) && MIMRL_DTYPE <= 1
+// The tensor-core instance of the library's input type (bf16 or float32
+// q, k, v, out); arguments as above without the dtype. Every 16-byte row
+// chunk is read by cp.async, so q, k and v must be 16-byte aligned (the
+// wrapper checks).
 extern "C" int mimrl_flash_attention_fwd_tc(const void* q, const void* k,
                                             const void* v, const void* bias,
                                             void* out, const void* seed, int bs,

@@ -1,7 +1,8 @@
 // Helpers shared by the attention forward and backward kernels: type
 // conversion, warp reductions and the staging of a [rows, HD] tile of one
 // head into shared memory as float32 (the SIMT instances); cp.async,
-// ldmatrix and the bf16 mma.sync of the tensor-core instances.
+// ldmatrix and the bf16 mma.sync of the bf16 tensor-core instances; the
+// float32 rows and 3xTF32 fragments of the float32 tensor-core instances.
 
 #pragma once
 
@@ -9,6 +10,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace mimrl {
 
@@ -229,6 +232,99 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ---- the float32 tensor-core instances (3xTF32, tf32x3.cuh) ----
+//
+// Rows of hd float32 values in shared memory, padded by 4 floats: a stride
+// of 4 mod 32 words (hd 32, 64, 128), so the eight rows g and four columns
+// t that the lanes of one m16n8k8 fragment read fall into 32 distinct banks
+// (hd 8 and 16, strides 12 and 20, are distinct as well). Every operand is
+// read as scalars and split into hi and lo at its use.
+template <int HD>
+struct F32Row {
+  static constexpr int kStride = HD + 4;  // floats per row
+  static constexpr int kDTiles = HD / 8;  // n8 tiles (and k8 steps) over hd
+};
+
+// rows [r0, r0 + rows) of one head's [T, HD] float32 slice -> shared rows of
+// F32Row<HD>::kStride floats by 16-byte cp.async; rows at or past T are
+// zero-filled.
+template <int HD>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               int r0, int rows, int t_len) {
+  constexpr int kChunks = HD / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool in = r0 + r < t_len;
+    cp_async_16(dst + r * F32Row<HD>::kStride + c,
+                src + (size_t)(in ? r0 + r : 0) * HD + c, in ? 16 : 0);
+  }
+}
+
+// the A operand of one k8 step, split into hi and lo
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+};
+
+__device__ __forceinline__ void split_a(Tf32A& a, float a0, float a1, float a2,
+                                        float a3) {
+  split_tf32(a0, a.hi[0], a.lo[0]);
+  split_tf32(a1, a.hi[1], a.lo[1]);
+  split_tf32(a2, a.hi[2], a.lo[2]);
+  split_tf32(a3, a.hi[3], a.lo[3]);
+}
+
+// A from a 16 x 8 tile of shared rows (stride S) at `p` = the tile's row g,
+// column t: a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+template <int S>
+__device__ __forceinline__ void load_a(Tf32A& a, const float* p) {
+  split_a(a, p[0], p[8 * S], p[4], p[8 * S + 4]);
+}
+
+// A from the C fragment of a product whose columns are the contraction of
+// the next one: c holds columns 2t and 2t + 1 of rows g and g + 8, which the
+// A fragment takes as its columns t and t + 4, so the contraction runs in the
+// key order 0, 2, 4, 6, 1, 3, 5, 7 of the 8-column step, and the B operand
+// is read in the same order (mma_b_perm). No shuffle.
+__device__ __forceinline__ void c_to_a_perm(Tf32A& a, const float (&c)[4]) {
+  split_a(a, c[0], c[2], c[1], c[3]);
+}
+
+// part += a . b in 3xTF32, the small terms first; b0, b1 as float32
+__device__ __forceinline__ void mma_tf32x3(float (&part)[4], const Tf32A& a,
+                                           float b0, float b1) {
+  uint32_t b0h, b0l, b1h, b1l;
+  split_tf32(b0, b0h, b0l);
+  split_tf32(b1, b1h, b1l);
+  mma_tf32(part, a.lo, b0h, b1h);
+  mma_tf32(part, a.hi, b0l, b1l);
+  mma_tf32(part, a.hi, b0h, b1h);
+}
+
+// part += a . B for one k8 step, B from shared memory whose rows are the n
+// index and whose contraction runs along the row: `p` = row g (of the n8
+// tile), column t
+__device__ __forceinline__ void mma_b_rows(float (&part)[4], const Tf32A& a,
+                                           const float* p) {
+  mma_tf32x3(part, a, p[0], p[4]);
+}
+
+// the same with B's rows the contraction, in c_to_a_perm's order: `p` =
+// row 2t (of the step), column g
+template <int S>
+__device__ __forceinline__ void mma_b_perm(float (&part)[4], const Tf32A& a,
+                                           const float* p) {
+  mma_tf32x3(part, a, p[0], p[S]);
+}
+
+__device__ __forceinline__ void zero4(float (&x)[4]) {
+  x[0] = x[1] = x[2] = x[3] = 0.f;
+}
+
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&part)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += part[e];
 }
 
 }  // namespace mimrl

@@ -24,26 +24,30 @@ device, read by the kernels; drawing it does not synchronise the host.
 Each source holds two instances of its kernel, and ``_instance`` picks one
 from the dtype, T and hd alone:
 
-- ``tensor_core`` (bfloat16, the main path): bf16 ``mma.sync`` for every
-  product, one Philox call per four (query, key) pairs. The forward walks
-  64-key tiles with an online softmax, so any T; the backward stages a
-  whole head in shared memory, so T up to ``max_t_tensor_core_bwd(hd)``
-  (352 at hd 64); no scratch, no atomics.
-- ``simt`` (float32, whose 2e-5 tolerances rule out TF32; and the bfloat16
-  backward beyond that T): the FP32-pipe kernels of the first port, the
-  backward with its float32 ``dq_acc``, up to ``MAX_T_BWD``.
+- ``tensor_core`` (the main path, both input types): ``mma.sync`` for every
+  product, bf16 for bfloat16, and for float32 tf32 in 3xTF32 (each operand
+  split into a rounded hi and lo, three products, chunks of 16 terms added
+  in float32: ``csrc/tf32x3.cuh``), so float32 stays float32 within its
+  2e-5 tolerances. One Philox call per four (query, key) pairs. The forward
+  walks 64-key tiles with an online softmax, so any T; the backward stages
+  a whole head in shared memory, so T up to ``max_t_tensor_core_bwd(hd,
+  dtype)`` (352 at hd 64 in bf16, 192 in float32); no scratch, no atomics.
+- ``simt`` (the backward past that T): the FP32-pipe kernel of the first
+  port, with its float32 ``dq_acc`` for bfloat16, up to ``MAX_T_BWD``. The
+  SIMT forward has no shape left; its C entry point stays for timing.
 
-Bounds on the H100 at [128, 12, 100, 64] bf16: the forward moves 78.6 MB
-(23.5 us at 3.35 TB/s) for 3.9 GFLOP (4 us at 989 TFLOP/s); the backward
-moves 137.6 MB (41 us) for 9.8 GFLOP (10 us). Both are bound by bytes;
-the kernels' design notes and their measured gaps are in the sources and
-in PERF.md.
+Bounds on the H100 at [128, 12, 100, 64]: in bf16 the forward moves 78.6
+MB (23.5 us at 3.35 TB/s) for 3.9 GFLOP (4 us at 989 TFLOP/s), the
+backward 137.6 MB (41 us) for 9.8 GFLOP (10 us); in float32 twice the
+bytes (47 and 82 us) for three TF32 products each (24 and 60 us at 495
+TFLOP/s). All are bound by bytes; the kernels' design notes and their
+measured gaps are in the sources and in PERF.md.
 
 ``flash_attention`` and ``flash_attention_bwd`` take the plain versions
 only for tensors on the CPU. A CUDA tensor launches one of the kernels or
 raises: no instance falls back to another. ``flash_attention.launches``
 and ``flash_attention_bwd.launches`` count kernel launches, of either
-instance.
+instance; their ``instance_launches`` count each instance's.
 """
 
 from __future__ import annotations
@@ -120,16 +124,18 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
-def max_t_tensor_core_bwd(hd: int) -> int:
-    """The longest T the tensor-core backward takes at head dim ``hd``:
-    q, k, v and dO as bf16 rows of max(hd, 16) + 8 elements, bias and three
-    softmax statistics as float32, and the dropout mask as one bit per
-    (query, key), all for T rounded up to 16, within ``SMEM_LIMIT``. The
-    same sum as ``TcBwdSmem::max_t`` in ``csrc/flash_attention_bwd.cu``."""
-    stride = max(hd, 16) + 8
+def max_t_tensor_core_bwd(hd: int, dtype: torch.dtype) -> int:
+    """The longest T the tensor-core backward takes at head dim ``hd`` for
+    input type ``dtype``: q, k, v and dO as rows of max(hd, 16) + 8 bf16
+    elements (bfloat16) or hd + 4 floats (float32), bias and three softmax
+    statistics as float32, and the dropout mask as one bit per (query,
+    key), all for T rounded up to 16, within ``SMEM_LIMIT``. The same sum
+    as ``TcBwdSmem::max_t`` and ``F32BwdSmem::max_t`` in
+    ``csrc/flash_attention_bwd.cu``."""
+    row = (max(hd, 16) + 8) * 2 if dtype == torch.bfloat16 else (hd + 4) * 4
 
     def nbytes(t_pad):
-        return 4 * t_pad * stride * 2 + 4 * t_pad * 4 + t_pad * (t_pad // 8)
+        return 4 * t_pad * row + 4 * t_pad * 4 + t_pad * (t_pad // 8)
 
     t = 16
     while nbytes(t + 16) <= SMEM_LIMIT:
@@ -137,12 +143,14 @@ def max_t_tensor_core_bwd(hd: int) -> int:
     return t
 
 
+INSTANCES = ("tensor_core", "simt")
+
+
 def _instance(dtype: torch.dtype, t: int, hd: int, backward: bool) -> str:
-    """Which kernel instance a CUDA call launches: 'tensor_core' for
-    bfloat16 (the backward only up to ``max_t_tensor_core_bwd(hd)``),
-    'simt' otherwise."""
-    if dtype == torch.bfloat16 and (
-            not backward or t <= max_t_tensor_core_bwd(hd)):
+    """Which kernel instance a CUDA call launches: 'tensor_core' (the
+    backward only up to ``max_t_tensor_core_bwd(hd, dtype)``), 'simt'
+    otherwise."""
+    if not backward or t <= max_t_tensor_core_bwd(hd, dtype):
         return "tensor_core"
     return "simt"
 
@@ -233,20 +241,18 @@ def _forward(q, k, v, bias, seed, dropout_p):
     bs, nh, t, hd = q.shape
     out = torch.empty_like(q)
     seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), seed_ptr, bs, nh, t, hd)
-    if _instance(q.dtype, t, hd, backward=False) == "tensor_core":
-        _check_aligned(q, k, v)
-        fn = _entry(SOURCE, "mimrl_flash_attention_fwd_tc", 6, q.dtype)
-    else:
-        fn = _entry(SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)
-        args += (_DTYPE_CODES[q.dtype],)
+    instance = _instance(q.dtype, t, hd, backward=False)
+    _check_aligned(q, k, v)
+    fn = _entry(SOURCE, "mimrl_flash_attention_fwd_tc", 6, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*args, 1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), seed_ptr, bs, nh, t, hd, 1.0 / (hd ** 0.5),
+                drop, threshold, inv_keep, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
+    flash_attention.instance_launches[instance] += 1
     return out
 
 
@@ -268,7 +274,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
               d_out.data_ptr(), seed_ptr)
-    if _instance(q.dtype, t, hd, backward=True) == "tensor_core":
+    instance = _instance(q.dtype, t, hd, backward=True)
+    if instance == "tensor_core":
         _check_aligned(q, k, v, d_out)
         fn = _entry(SOURCE_BWD, "mimrl_flash_attention_bwd_tc", 9, q.dtype)
         args = inputs + (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -286,10 +293,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.instance_launches[instance] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.instance_launches = dict.fromkeys(INSTANCES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -324,3 +333,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.instance_launches = dict.fromkeys(INSTANCES, 0)

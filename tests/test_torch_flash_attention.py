@@ -204,37 +204,44 @@ def test_dropout_statistics_match_jax():
     (torch.bfloat16, 192, 128, True, "tensor_core"),
     (torch.bfloat16, 193, 128, True, "simt"),
     (torch.bfloat16, 752, 8, True, "tensor_core"),
-    (torch.float32, 100, 64, False, "simt"),
-    (torch.float32, 16, 8, True, "simt"),
+    (torch.float32, 100, 64, False, "tensor_core"),
+    (torch.float32, 16, 8, True, "tensor_core"),
 ])
 def test_instance_choice(dtype, t, hd, backward, want):
-    """The wrapper's choice of kernel instance: bf16 runs on the tensor
-    cores, the backward only while the head fits in shared memory (a limit
-    that falls with hd); float32 keeps the SIMT kernels."""
+    """The wrapper's choice of kernel instance: both input types run on the
+    tensor cores (float32 in 3xTF32), the backward only while the head fits
+    in shared memory (a limit that falls with hd, and is lower for float32's
+    wider rows)."""
     assert fa_mod._instance(dtype, t, hd, backward) == want
-    assert fa_mod.max_t_tensor_core_bwd(64) == 352
+    assert fa_mod.max_t_tensor_core_bwd(64, torch.bfloat16) == 352
+    assert fa_mod.max_t_tensor_core_bwd(64, torch.float32) == 192
 
 
 @pytest.mark.parametrize("hd", fa_mod.HEAD_DIMS)
 def test_tensor_core_bwd_limit_fills_shared_memory(hd):
     """The backward's T limit is the last multiple of 16 whose staged head
     fits the H100's 227 KB a block (the same constant as the CUDA source's
-    ``kTcSmemLimit``): q, k, v, dO as bf16 rows of max(hd, 16) + 8
-    elements, bias and three softmax statistics as float32, one mask bit
-    per (query, key). The AVEC length 150 is within it at every head dim."""
+    ``kTcSmemLimit``): q, k, v, dO as rows of max(hd, 16) + 8 bf16 elements
+    (bfloat16) or hd + 4 floats (float32), bias and three softmax
+    statistics as float32, one mask bit per (query, key). The AVEC length
+    150 is within the bf16 limit at every head dim, and within float32's
+    at hd 64 and below; one past a limit takes the SIMT instance."""
     source = (Path(fa_mod.__file__).parent / "csrc" / fa_mod.SOURCE_BWD).read_text()
     assert int(re.search(r"kTcSmemLimit = (\d+);", source).group(1)) == \
         fa_mod.SMEM_LIMIT
 
-    def staged(t_pad):
-        return (4 * t_pad * (max(hd, 16) + 8) * 2 + 4 * t_pad * 4
-                + t_pad * t_pad // 8)
+    for dtype, row in ((torch.bfloat16, (max(hd, 16) + 8) * 2),
+                       (torch.float32, (hd + 4) * 4)):
+        def staged(t_pad):
+            return 4 * t_pad * row + 4 * t_pad * 4 + t_pad * t_pad // 8
 
-    limit = fa_mod.max_t_tensor_core_bwd(hd)
-    assert limit % 16 == 0 and limit >= 150
-    assert staged(limit) <= fa_mod.SMEM_LIMIT < staged(limit + 16)
-    assert fa_mod._instance(torch.bfloat16, limit, hd, True) == "tensor_core"
-    assert fa_mod._instance(torch.bfloat16, limit + 1, hd, True) == "simt"
+        limit = fa_mod.max_t_tensor_core_bwd(hd, dtype)
+        assert limit % 16 == 0 and limit >= (150 if dtype == torch.bfloat16
+                                             or hd <= 64 else 96)
+        assert staged(limit) <= fa_mod.SMEM_LIMIT < staged(limit + 16)
+        assert fa_mod._instance(dtype, limit, hd, True) == "tensor_core"
+        assert fa_mod._instance(dtype, limit + 1, hd, True) == "simt"
+        assert fa_mod._instance(dtype, limit + 1, hd, False) == "tensor_core"
 
 
 def test_tensor_core_alignment_check():

@@ -101,6 +101,12 @@ def test_wrapper_checks_inputs(case):
         fa_mod._check(q, k, v, bias)
 
 
+# the input types of the attention cases and their tolerances; the ids
+# name the type, so that ``-k float32`` selects the float32 cases
+_DTYPE_TOLS = [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)]
+_DTYPE_IDS = ["float32", "bfloat16"]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -111,8 +117,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", _DTYPE_TOLS, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("t,hd", [(16, 8), (100, 64), (150, 64), (37, 16),
                                   (65, 32), (512, 64), (100, 128)])
 def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd):
@@ -122,9 +127,12 @@ def test_flash_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd):
     q, k, v, bias = (x.to(cuda) for x in _inputs(bs=4, nh=3, t=t, hd=hd, seed=t))
     q, k, v = (x.to(dtype) for x in (q, k, v))
     before = flash_attention.launches
+    on_tc = flash_attention.instance_launches["tensor_core"]
     got = flash_attention(q, k, v, bias)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    # every forward, float32 too, runs on the tensor-core instance
+    assert flash_attention.instance_launches["tensor_core"] == on_tc + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, bias)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
@@ -138,8 +146,7 @@ def _rel_err(got, want):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", _DTYPE_TOLS, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("t,hd", [(16, 8), (100, 64), (37, 16), (65, 32),
                                   (512, 64), (100, 128)])
 def test_flash_dropout_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd):
@@ -149,10 +156,12 @@ def test_flash_dropout_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd):
     q, k, v, bias = (x.to(cuda) for x in _inputs(bs=4, nh=3, t=t, hd=hd, seed=t))
     q, k, v = (x.to(dtype) for x in (q, k, v))
     seed = torch.tensor([1234567 + t], device=cuda)
+    on_tc = flash_attention.instance_launches["tensor_core"]
     got = flash_attention(q, k, v, bias, seed, 0.1)
     again = flash_attention(q, k, v, bias, seed, 0.1)
     other = flash_attention(q, k, v, bias, seed + 1, 0.1)
     torch.cuda.synchronize()
+    assert flash_attention.instance_launches["tensor_core"] == on_tc + 3
     want = flash_attention_plain(q, k, v, bias, seed, 0.1)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert torch.equal(got, again)
@@ -161,26 +170,32 @@ def test_flash_dropout_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dropout_p", [0.0, 0.1])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("dtype,tol", _DTYPE_TOLS, ids=_DTYPE_IDS)
 @pytest.mark.parametrize("t,hd", [(16, 8), (100, 64), (150, 64), (37, 16),
                                   (65, 32), (512, 64), (100, 128)])
 def test_flash_backward_kernel_matches_plain_on_card(cuda, dtype, tol, t, hd,
                                                      dropout_p):
     """dq, dk, dv of the backward kernel against the plain backward, error
     relative to the largest magnitude of the plain result. float32 2e-5
-    (summation order, online statistics); bf16 2e-2 (Pd, dS and the outputs
-    are rounded to bf16 on both sides, a bf16 step is 2^-8)."""
+    (summation order, online statistics, 3xTF32's products); bf16 2e-2 (Pd,
+    dS and the outputs are rounded to bf16 on both sides, a bf16 step is
+    2^-8). The tensor-core instance up to the dtype's T limit (float32: T
+    16-150 here), the SIMT one past it ((512, 64), and (100, 128) in
+    float32)."""
     q, k, v, bias = (x.to(cuda) for x in _inputs(bs=4, nh=3, t=t, hd=hd, seed=t))
     q, k, v = (x.to(dtype) for x in (q, k, v))
     d_out = torch.randn(q.shape, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(t)).to(dtype)
     seed = torch.tensor([99 + t], device=cuda)
     before = flash_attention_bwd.launches
+    instance = ("tensor_core" if t <= fa_mod.max_t_tensor_core_bwd(hd, dtype)
+                else "simt")
+    on_instance = flash_attention_bwd.instance_launches[instance]
     got = flash_attention_bwd(q, k, v, bias, seed, d_out, dropout_p)
     again = flash_attention_bwd(q, k, v, bias, seed, d_out, dropout_p)
     torch.cuda.synchronize()
     assert flash_attention_bwd.launches == before + 2
+    assert flash_attention_bwd.instance_launches[instance] == on_instance + 2
     want = flash_attention_bwd_plain(q, k, v, bias, seed, d_out, dropout_p)
     for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
         assert g.dtype == dtype and g.shape == q.shape
@@ -205,7 +220,7 @@ def test_flash_tensor_core_matches_plain_on_card(cuda, t, hd, dropout_p):
     rounded to bf16 on both sides; the kernel rounds the unnormalised P),
     dq, dk, dv within 2e-2 of the plain result's largest magnitude (Pd, dS
     and the outputs rounded to bf16), and two backward runs bit-equal."""
-    limit = fa_mod.max_t_tensor_core_bwd(hd)
+    limit = fa_mod.max_t_tensor_core_bwd(hd, torch.bfloat16)
     t = {"limit": limit, "limit+1": limit + 1}.get(t, t)
     bs, nh = (4, 3) if t <= 150 else (2, 2)
     assert fa_mod._instance(torch.bfloat16, t, hd, False) == "tensor_core"
@@ -257,23 +272,25 @@ def test_flash_tensor_core_dropout_mask_on_card(cuda, t):
 
 @pytest.mark.gpu
 def test_tensor_core_bwd_limit_matches_source_on_card(cuda):
-    """The wrapper's T limit is the one the CUDA source computes, and the
-    source refuses one past it (a launch error, not a fallback)."""
+    """The wrapper's T limits are the ones the CUDA source computes, in
+    both libraries, and each refuses one past its limit (a launch error,
+    not a fallback)."""
     from mimrl_tpu_torch.ops import _build
 
-    lib = _build.load(fa_mod.SOURCE_BWD, "bfloat16")
-    for hd in fa_mod.HEAD_DIMS:
-        assert lib.mimrl_flash_attention_bwd_tc_max_t(hd) == \
-            fa_mod.max_t_tensor_core_bwd(hd)
-    hd, t = 64, fa_mod.max_t_tensor_core_bwd(64) + 1
-    q = torch.zeros(1, 1, t, hd, device=cuda, dtype=torch.bfloat16)
-    fn = fa_mod._entry(fa_mod.SOURCE_BWD, "mimrl_flash_attention_bwd_tc", 9,
-                       torch.bfloat16)
-    bias = torch.zeros(1, 1, 1, t, device=cuda)
-    rc = fn(*([q.data_ptr()] * 3), bias.data_ptr(), q.data_ptr(), None,
-            *([q.data_ptr()] * 3), 1, 1, t, hd, 0.125, 0, 0, 1.0,
-            torch.cuda.current_stream().cuda_stream)
-    assert rc != 0
+    for dtype in (torch.bfloat16, torch.float32):
+        lib = _build.load(fa_mod.SOURCE_BWD, str(dtype).replace("torch.", ""))
+        for hd in fa_mod.HEAD_DIMS:
+            assert lib.mimrl_flash_attention_bwd_tc_max_t(hd) == \
+                fa_mod.max_t_tensor_core_bwd(hd, dtype)
+        hd, t = 64, fa_mod.max_t_tensor_core_bwd(64, dtype) + 1
+        q = torch.zeros(1, 1, t, hd, device=cuda, dtype=dtype)
+        fn = fa_mod._entry(fa_mod.SOURCE_BWD, "mimrl_flash_attention_bwd_tc",
+                           9, dtype)
+        bias = torch.zeros(1, 1, 1, t, device=cuda)
+        rc = fn(*([q.data_ptr()] * 3), bias.data_ptr(), q.data_ptr(), None,
+                *([q.data_ptr()] * 3), 1, 1, t, hd, 0.125, 0, 0, 1.0,
+                torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
 
 
 @pytest.mark.gpu
