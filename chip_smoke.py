@@ -59,7 +59,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            ``Predictor`` must score the checkpoint the run wrote; one
            float32 train step as the README's quick start runs it (no
            ``--compute_dtype``) profiled: busy ms, idle share, attention
-           rows. Every attention launch of every counted path must take the
+           rows; two float32 runs of one seed (a fresh Solver and two eager
+           train steps each, dropout on) bit for bit equal in every
+           parameter, optimizer moment and bank field, with the same two
+           runs through ``nn.Embedding``'s token-type lookup stated beside
+           them. Every attention launch of every counted path must take the
            tensor-core instance.
 5. quant   the same run again with ``--use_pallas --quant int8``: launches
            of all four kernels per epoch (a train step 12 + 12 attention,
@@ -120,7 +124,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            checked); ``recipes/pom_sdk.sh`` (the POM battery); the canonical
            recipe for 1 epoch with ``--encoders lstm`` and ``conv``, each
            encoder on the card against the same weights on the CPU; and
-           ``mosi_local.sh`` with the LSTM and ``avec2019.sh`` on
+           ``mosi_local.sh`` with the LSTM and ``avec2019.sh`` (float32,
+           as its recipe runs: G, E and E2 bit for bit equal) on
            ``--epoch_scan``, graphs against eager by the rungs gate.
            Launches per run exact; host ms per step, a train step by CUDA
            events, samples/s of the epoch and of serving, peak memory. The
@@ -128,6 +133,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            and timed beside their bounds right after the kernel phase
            (float32 attention at bs 32 and 64, the axis MLP at T 50, int8
            at M 3200, bit for bit).
+
+9. fusions the canonical recipe in float32 (README quick start) with
+           ``--fusion transformer``, ``tfn`` (``--bound_type club``) and
+           ``moe`` at the default widths (2 layers, 4 heads,
+           4 experts, top 2; fusion dropout 0.1), each through ``cli.main``
+           for 2 epochs and served by ``Predictor`` from its ``best_valid``
+           slot: launches exact (all attention on the tensor-core
+           instance), finite scores; the card's eval forward of the whole
+           model within FUSION_CPU_TOL of the CPU's on the same weights and
+           rows; one train step's fusion-parameter gradients within
+           FUSION_GRAD_TOL of the CPU's from the same fusion input and
+           output gradient; device busy ms of a train step and of the
+           fusion's forward and backward alone (the fusion's share). Then
+           the transformer with ``--bound_type nwj``, stated: where its
+           critic losses leave float32's range.
+10. hooks  the canonical recipe for 2 epochs with ``--custom_loss``
+           (``feature_decorrelation``), ``--check_gradient`` and
+           ``--profile_dir``: 9 check-gradient blocks of finite sums over
+           every non-BERT parameter, a chrome-trace file of epoch 1 with
+           CUDA kernel events, and each built-in hook's value added to an
+           eval loss within HOOK_TOL (``l2_output``'s, above the loss's
+           last place, within a tenth of itself); then the hook on ``--epoch_scan`` for 3
+           epochs, captured in the CUDA graphs (launches exact through the
+           replays, finite values), with the epoch of the first captures
+           profiled.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -1647,10 +1677,8 @@ def train_f32_profile(argv) -> None:
     from mimrl_tpu_torch.core.config import parse_args
     from mimrl_tpu_torch.train.solver import Solver
 
-    i = argv.index("--compute_dtype")
-    f32_argv = argv[:i] + argv[i + 2:]
-    cfg = parse_args(f32_argv).replace(task_name="f32_profile",
-                                       save_models=False)
+    cfg = parse_args(f32_argv(argv)).replace(task_name="f32_profile",
+                                             save_models=False)
     require(cfg.compute_dtype == "float32", "the README recipe is not float32")
     solver = Solver(cfg)
     mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
@@ -2754,7 +2782,8 @@ def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = {k: [] for k in ("train_step", "critic_step", "eval_step")}
+    step_ms = {k: [] for k in ("train_step", "critic_step", "eval_step",
+                               "grad_debug_step")}
     info = dict(train_s=[])
     originals = {k: getattr(steps, k) for k in step_ms}
     solve, train = vars(Solver)["solve"], vars(Solver)["train"]
@@ -2793,7 +2822,10 @@ def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
     attention_instances(name, launches)
     solver = info.pop("solver")
     n = {k: len(v) for k, v in step_ms.items()}
-    want = add(*(family_launches(k.split("_")[0], raw, use_pallas, quant, n[k])
+    # a --check_gradient step (grad_debug_step) runs a forward, and a
+    # backward that stops short of BERT: its launches are a critic step's
+    want = add(*(family_launches(k.split("_")[0].replace("grad", "critic"),
+                                 raw, use_pallas, quant, n[k])
                  for k in step_ms))
     require(launches == want, f"{name}: launches {launches} for {n} steps, "
             f"want {want} (order {KERNEL_NAMES})")
@@ -2810,7 +2842,9 @@ def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
         f"{name}: non-finite best scores {scores}")
     rows = [json.loads(r) for r in open(f"{task}/scalars.jsonl")]
     require(all(np.isfinite(r["value"]) for r in rows),
-            f"{name}: a non-finite scalar")
+            f"{name}: non-finite scalars " + str([
+                (r["step"], r["tag"], r["value"]) for r in rows
+                if not np.isfinite(r["value"])][:10]))
     mi = [r["value"] for r in rows if r["step"] == 1
           and r["tag"].startswith("Train/MI_")]
     log = open(f"{task}/Running.log").read()
@@ -3201,15 +3235,13 @@ def families_phase(root: str):
              served=metrics, serve_samples_per_s=sps)
 
     # 5. --epoch_scan: mosi_local.sh with the LSTM and avec2019.sh, graphs
-    # (G) against eager (E) with a second eager run (E2) as the control
-    # AVEC in bf16: in float32 two eager runs of this card differ in every
-    # tensor after the first update (the token-type table's gradient, whose
-    # sum changes its order from run to run, feeds the float32 forward;
-    # ROADMAP §3), so the gate would have no fixed point; bf16's cast of
-    # the embeddings hides it as on the canonical rungs
+    # (G) against eager (E) with a second eager run (E2) as the control.
+    # AVEC in float32, as its recipe runs: a float32 run repeats on the card
+    # (the token-type lookup sums its gradient in a fixed order), so G, E
+    # and E2 must be equal bit for bit
     for family, extra, raw in (
             ("mosi_local", ["--encoders", "lstm"], False),
-            ("avec2019", ["--compute_dtype", "bfloat16"], True)):
+            ("avec2019", [], True)):
         argv = family_argv(root, family, "--epoch_scan", "--no_save_models",
                            *extra)
         g = rung_run(runs, f"{family}_scan_graphs", argv)
@@ -3240,9 +3272,363 @@ def families_phase(root: str):
              peak_gb_graphs=g["peak_gb"], peak_gb_eager=e["peak_gb"],
              graphs=g["graphs"])
         require(passed, f"{family} rung: graphs vs eager {gate}")
+        require(family != "avec2019" or (gate["bit_equal"]
+                                         and not gate["unstable"]),
+                f"{family} float32 rung: G, E and E2 not bit-equal {gate}")
         totals.append(g["launches"])
         del g, e, e2
     return add(*totals)
+
+
+# ---------------------------------------------------------------------- #
+# The eleventh slice: a float32 run repeats on the card; the transformer,
+# TFN and MoE fusions; --custom_loss, --check_gradient and --profile_dir.
+
+# the fusions against the CPU on the same weights and batch rows: the
+# whole model's eval forward (relative to the largest output entry), and a
+# train step's fusion-parameter gradients with the fusion's input and the
+# gradient reaching its output held fixed (grad_gap's rule)
+FUSION_CPU_TOL = 1e-4
+FUSION_GRAD_TOL = 1e-3
+FUSION_CPU_ROWS = 16  # batch rows of the CPU forward (rows do not interact)
+# the fifth configuration of BASELINE.json sweeps the bounds with the
+# fusions: TFN with CLUB; the transformer with NWJ diverges in its second
+# critic step (nwj_divergence), in an estimator the fusion does not feed,
+# so the gated transformer run takes the recipe's InfoNCE
+FUSIONS = (("transformer", "infonce"), ("tfn", "club"), ("moe", "infonce"))
+VMI_ORDER = ("f_t", "f_a", "f_v", "t_a", "t_v", "ac_t", "ta_c", "vc_t",
+             "tv_c", "tc_a", "tc_v")
+HOOK_TOL = 1e-5
+HOOK_SPEC = "mimrl_tpu_torch.train.custom:feature_decorrelation"
+
+
+def f32_argv(argv) -> list:
+    """The canonical argv as the README's quick start runs it: float32 (no
+    ``--compute_dtype``)."""
+    i = argv.index("--compute_dtype")
+    return argv[:i] + argv[i + 2:]
+
+
+def two_step_state(cfg, lookup=None) -> dict:
+    """A fresh ``Solver`` for ``cfg`` and two eager ``train_step``s on the
+    first train batch, dropout on (without MI, then with MI on the bank the
+    first wrote); returns ``slot_tensors`` of its state. ``lookup``
+    replaces BERT's token-type lookup (the fault control)."""
+    import torch
+
+    from mimrl_tpu_torch.models import bert
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    patches = [] if lookup is None else [(bert, "_rows_in_fixed_order", lookup)]
+    with patched(patches):
+        solver = Solver(cfg)
+        mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+        for use_mi in (False, True):
+            steps.train_step(solver.model, solver.opt_main, cfg, mb, labels,
+                             solver.bank, solver.new_bank, 0, solver.generator,
+                             use_mi)
+            solver.bank.copy_(solver.new_bank)
+        torch.cuda.synchronize()
+    names = {id(p): n for n, p in solver.model.named_parameters()}
+    opt_names = {k: [names[id(p)] for p in getattr(solver, k).params]
+                 for k in ("opt_main", "opt_vmi")}
+    state = {k: v.cpu() for k, v in
+             slot_tensors(solver._snapshot(0), opt_names).items()}
+    solver.writer.close()
+    del solver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return state
+
+
+def determinism_check(argv) -> None:
+    """Two float32 runs of one seed, each a fresh ``Solver`` and two eager
+    ``train_step``s of the canonical recipe with dropout on, must be bit for
+    bit equal in every parameter, optimizer moment, bank field and
+    generator state. BERT's token-type table is looked up by a chain of
+    ``torch.where``, whose backward sums in a fixed order; the same two
+    runs with ``nn.Embedding``'s lookup in its place are stated beside it
+    (its CUDA backward sums the 12,800 positions of one type in an order
+    that may change from run to run)."""
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.core.config import parse_args
+
+    base = parse_args(f32_argv(argv)).replace(save_models=False)
+    runs = [two_step_state(base.replace(task_name=f"repeat_{i}"))
+            for i in range(2)]
+    gaps = differing(runs[1], runs[0])
+    control = [two_step_state(base.replace(task_name=f"embedding_{i}"),
+                              lambda table, ids: F.embedding(ids, table))
+               for i in range(2)]
+    emit(phase="train", step="float32_determinism", card=card(),
+         tensors_compared=len(runs[0]), differing=gaps,
+         bit_equal=not gaps,
+         embedding_lookup_differing=differing(control[1], control[0]),
+         embedding_lookup_tensors_differing=sum(
+             not control[1][k].equal(v) for k, v in control[0].items()))
+    require(not gaps, f"two float32 runs of one seed differ: {gaps}")
+
+
+def fusion_checks(solver, name: str) -> dict:
+    """The fusion of a trained run on the card against the CPU, the same
+    weights and batch: the whole model's eval forward on FUSION_CPU_ROWS
+    rows of a valid batch; and one ``train_step``'s fusion-parameter
+    gradients (fusion dropout 0), recomputed on the CPU from the fusion's
+    input and the gradient that reached its output in that step. Then
+    device times by the profiler: three ``train_step``s with MI, and the
+    fusion's forward and backward alone at the step's shape."""
+    import copy
+
+    import torch
+
+    from mimrl_tpu_torch.models.model import forward_batch
+    from mimrl_tpu_torch.train import steps
+
+    model, enc = solver.model, solver.model.mlp_encoder
+    batch, _, _ = solver._prep(next(iter(solver.valid_loader)))
+    rows = {k: v[:FUSION_CPU_ROWS] for k, v in batch.items()}
+    cpu = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.no_grad():
+        card = forward_batch(model, rows)
+        host = forward_batch(cpu, {k: v.cpu() for k, v in rows.items()})
+    del cpu
+    forward_gap = max(rel_err(c.cpu(), h) for c, h in zip(card, host))
+
+    # one train step, with the fusion's dropout at 0
+    for m in enc.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+        elif isinstance(getattr(m, "dropout", None), float):
+            m.dropout = 0.0
+    held = {}
+
+    def keep_io(module, inputs, output):
+        held["x"] = inputs[0].detach().cpu()
+        output.register_hook(lambda g: held.__setitem__("g", g.detach().cpu()))
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    weights = {n: p.detach().cpu().clone() for n, p in enc.named_parameters()}
+    grads, step = {}, solver.opt_main.step
+
+    def recording_step(gs):
+        grads.update({names[id(p)]: g.detach().cpu().clone()
+                      for p, g in zip(solver.opt_main.params, gs)})
+        return step(gs)
+
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    hook = enc.register_forward_hook(keep_io)
+    solver.opt_main.step = recording_step
+    try:
+        steps.train_step(model, solver.opt_main, solver.opt, mb, labels,
+                         solver.bank, solver.new_bank, 0, solver.generator,
+                         True)
+    finally:
+        del solver.opt_main.step  # the class's method again
+        hook.remove()
+    host_enc = copy.deepcopy(enc).cpu().train()
+    host_enc.load_state_dict(weights)
+    host_enc(held["x"]).backward(held["g"])
+    want = {f"mlp_encoder.{n}": p.grad for n, p in host_enc.named_parameters()}
+    gap = grad_gap({n: grads[n] for n in want}, want)
+
+    def three_steps():
+        for _ in range(3):
+            steps.train_step(model, solver.opt_main, solver.opt, mb, labels,
+                             solver.bank, solver.new_bank, 0,
+                             solver.generator, True)
+
+    x = held["x"].to(solver.device).requires_grad_()
+    cot = held["g"].to(solver.device)
+
+    def fusion_alone():
+        enc(x).backward(cot)
+
+    step_prof = profiled_steps(three_steps, 3)
+    fusion_prof = profiled_steps(fusion_alone, 1)
+    enc.zero_grad(set_to_none=True)
+    busy, fusion_busy = (step_prof["device_busy_ms"],
+                         fusion_prof["device_busy_ms"])
+    record = dict(
+        forward_rel_err=forward_gap, forward_tol=FUSION_CPU_TOL,
+        cpu_rows=FUSION_CPU_ROWS, grads_vs_cpu=gap, grad_tol=FUSION_GRAD_TOL,
+        fusion_parameters=len(want),
+        fusion_input_shape=list(held["x"].shape),
+        train_step_profile=step_prof, fusion_fwd_bwd_profile=fusion_prof,
+        fusion_share_of_train_step=(fusion_busy / busy
+                                    if busy and fusion_busy else None))
+    require(forward_gap <= FUSION_CPU_TOL,
+            f"{name}: the card's eval forward vs the CPU's {forward_gap}")
+    require(gap["worst"][0]["rel_diff"] <= FUSION_GRAD_TOL,
+            f"{name}: fusion gradients on the card vs the CPU {gap['worst']}")
+    return record
+
+
+def nwj_divergence(root: str) -> None:
+    """The transformer fusion with ``--bound_type nwj`` (BASELINE.json's
+    pairing), stated and not gated: each critic step's eleven weighted
+    losses, the first step with a non-finite one and its estimators, and
+    the run's non-finite scalars. NWJ's marginal term is
+    ``exp(logmeanexp(scores - 1))`` in both packages
+    (``mimrl_tpu/mi/bounds.py:63-74``), which leaves float32's range at
+    scores near 89."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.models.model import MimrlModel
+
+    seen = []
+    stage1 = vars(MimrlModel)["compute_vmi_loss_stage1"]
+
+    def recording(self, *args, **kwargs):
+        mis, losses = stage1(self, *args, **kwargs)
+        seen.append(torch.stack(losses).detach())
+        return mis, losses
+
+    name, runs = "fusion_transformer_nwj", f"{root}/family_runs"
+    argv = f32_argv(CANONICAL_MOSI + CANONICAL_TRAIN) + [
+        "--fusion", "transformer", "--bound_type", "nwj",
+        "--no_save_models", "--save_latest_every", "0",
+        "--data_dir", f"{root}/train_data", "--task_dir", runs,
+        "--task_name", name]
+    with patched([(MimrlModel, "compute_vmi_loss_stage1", recording)]):
+        cli_main(argv)
+    losses = torch.stack(seen).cpu().tolist()
+    bad = [i for i, row in enumerate(losses)
+           if not all(math.isfinite(v) for v in row)]
+    rows = [json.loads(r) for r in open(f"{runs}/{name}/scalars.jsonl")]
+    emit(phase="fusions", step="transformer_nwj", card=card(), gated=False,
+         critic_losses=[dict(zip(VMI_ORDER, row)) for row in losses],
+         first_non_finite_step=bad[0] if bad else None,
+         non_finite_estimators=([VMI_ORDER[j] for j, v in enumerate(
+             losses[bad[0]]) if not math.isfinite(v)] if bad else []),
+         non_finite_scalars=[(r["step"], r["tag"]) for r in rows
+                             if not np.isfinite(r["value"])])
+
+
+def fusions_phase(root: str):
+    """The transformer, TFN and MoE fusions at the canonical recipe's full
+    width in float32 (the README's compute type; default widths: 2 layers,
+    4 heads, 4 experts, top 2; fusion dropout 0.1), each through
+    ``cli.main`` for 2 epochs and served by ``Predictor`` from its
+    ``best_valid`` slot; ``fusion_checks`` on each; then
+    ``nwj_divergence``. Returns the launch counts of the gated runs and
+    their serving together."""
+    totals = []
+    for fusion, bound in FUSIONS:
+        name = f"fusion_{fusion}"
+        argv = f32_argv(CANONICAL_MOSI + CANONICAL_TRAIN) + [
+            "--fusion", fusion, "--bound_type", bound,
+            "--dropout_mlp", "0.1-0.1-0.1", "--save_latest_every", "0",
+            "--data_dir", f"{root}/train_data"]
+        record, launches, solver = family_run(root, name, argv, True)
+        totals.append(launches)
+        require(type(solver.model.mlp_encoder).__name__.lower().startswith(
+            fusion), f"{name}: {type(solver.model.mlp_encoder).__name__}")
+        record.update(fusion_checks(solver, name), phase="fusions",
+                      bound_type=bound)
+        del solver
+        metrics, sps, c = family_serve(name, f"{root}/family_runs/{name}",
+                                       True)
+        totals.append(c)
+        emit(**record, served=metrics, serve_samples_per_s=sps)
+        gc.collect()
+    nwj_divergence(root)
+    gc.collect()
+    return add(*totals)
+
+
+def hooks_phase(root: str):
+    """A 2-epoch run of the canonical recipe with ``--custom_loss``
+    (``feature_decorrelation``), ``--check_gradient`` and ``--profile_dir``:
+    the check-gradient blocks (every non-BERT parameter after each of epoch
+    1's critic and train steps) finite; the trace of epoch 1 chrome-trace
+    JSON with CUDA kernel events; and an eval step's loss with the hook
+    minus the loss without it equal to the hook's value. Returns the
+    run's launch counts."""
+    import json as _json
+    import math
+    import os
+
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.custom import load_custom_loss
+
+    name, prof = "hooks", f"{root}/hooks_profile"
+    argv = CANONICAL_MOSI + CANONICAL_TRAIN + [
+        "--custom_loss", HOOK_SPEC, "--check_gradient", "--profile_dir", prof,
+        "--no_save_models", "--save_latest_every", "0",
+        "--data_dir", f"{root}/train_data"]
+    record, launches, solver = family_run(root, name, argv, True)
+    require(record["steps"]["grad_debug_step"] == 9,
+            f"{name}: {record['steps']} check-gradient steps, want 9")
+    log = open(f"{root}/family_runs/{name}/Running.log").read().splitlines()
+    params = sorted(n for n, _ in solver.model.named_parameters()
+                    if "bert" not in n)
+    lines = [x.split("-->")[1] for x in log if "-->" in x]
+    values = [float(x.split(": ")[1]) for x in lines
+              if x.startswith(("para: ", "grad_value: "))]
+    named = [x[len("name: "):] for x in lines if x.startswith("name: ")]
+    require(named == params * 9 and len(values) == 2 * len(named)
+            and all(math.isfinite(v) for v in values),
+            f"{name}: {len(named)} check-gradient blocks, want 9 x "
+            f"{len(params)} finite ones")
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    require(len(traces) == 1, f"{name}: trace files {os.listdir(prof)}")
+    events = _json.load(open(f"{prof}/{traces[0]}"))["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    require(kernels > 0 and any(f"Profiler trace written to {prof}" in x
+                                for x in log),
+            f"{name}: the trace holds {kernels} CUDA kernel events")
+    # each built-in hook's value is what it adds to a loss; the run's
+    # feature_decorrelation is below the loss's last place on these
+    # features, l2_output's is well above it and must be added once
+    mb, labels, _ = solver._prep(next(iter(solver.valid_loader)))
+    plain = steps.eval_step(solver.model, solver.opt, mb, labels, solver.bank,
+                            solver.generator, False)
+    hooks = {}
+    for spec in (HOOK_SPEC, "mimrl_tpu_torch.train.custom:l2_output"):
+        fn = load_custom_loss(spec, solver.opt)
+        hooked = steps.eval_step(solver.model, solver.opt, mb, labels,
+                                 solver.bank, solver.generator, False,
+                                 custom_loss=fn)
+        value = fn(plain[2], labels, plain[3]).item()
+        hooks[spec.split(":")[1]] = dict(
+            value=value, loss=hooked[0].item(), loss_without=plain[0].item(),
+            gap=abs(hooked[0].item() - plain[0].item() - value))
+    l2 = hooks["l2_output"]
+    require(all(h["value"] > 0 and h["gap"] <= HOOK_TOL
+                for h in hooks.values())
+            and l2["loss"] != l2["loss_without"] and l2["gap"] < l2["value"] / 10,
+            f"{name}: the losses with and without the hooks {hooks}")
+    del solver
+    # the hook inside the captured steps of --epoch_scan (3 epochs), with
+    # epoch 1, whose critic steps are captured, under the profiler
+    scan_prof = f"{root}/hooks_scan_profile"
+    scan = rung_run(f"{root}/rung_runs", "hooks_scan",
+                    CANONICAL_MOSI + CANONICAL_TRAIN + RUNG_ARGS + [
+                        "--epoch_scan", "--custom_loss", HOOK_SPEC,
+                        "--profile_dir", scan_prof,
+                        "--data_dir", f"{root}/train_data"])
+    values = scan["tensors"]["last_epoch_values"]
+    require(scan["launches"] == rung_launches("scan", False, "none")
+            and bool(values.isfinite().all())
+            and any(f.endswith(".pt.trace.json") for f in os.listdir(scan_prof)),
+            f"{name}: the hook on --epoch_scan: launches {scan['launches']}, "
+            f"last epoch {values.tolist()}, trace {os.listdir(scan_prof)}")
+    record.update(phase="hooks")
+    emit(**record, check_gradient_blocks=len(named),
+         parameters_per_block=len(params), trace_file=traces[0],
+         trace_bytes=os.path.getsize(f"{prof}/{traces[0]}"),
+         trace_kernel_events=kernels, hooks=hooks, hook_tol=HOOK_TOL, scan_graphs=scan["graphs"],
+         scan_last_epoch_values=values.tolist(),
+         scan_launches=dict(zip(KERNEL_NAMES, scan["launches"])))
+    gc.collect()
+    return add(launches, scan["launches"])
 
 
 def main() -> int:
@@ -3261,34 +3647,56 @@ def main() -> int:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=sorted(v.name for v in libs.values()))
 
+    # seconds from the start of the kernel phase to the end of each phase,
+    # for the time limit's budget
+    timeline, t_run = {}, time.perf_counter()
+
+    def done(phase):
+        timeline[phase] = time.perf_counter() - t_run
+
     fwd, bwd = kernel_phase()
     axis_mlp = axis_mlp_phase()
     int8 = int8_phase()
     # the families phase's shapes, beside the other kernel timings: later
     # in the run the profiler has returned sessions without kernel records
     family_shapes = family_kernel_shapes()
+    done("kernel")
     with tempfile.TemporaryDirectory() as root:
         task = write_run(root)
         serve, serve_quant = serve_phase(task)
+        done("serve")
         train, argv = train_phase(root)
         train_route_check(argv)
         train_bf16_route_check(argv)
         train_f32_profile(argv)
+        determinism_check(argv)
+        done("train")
         quant, quant_argv = train_phase(root, "quant", True, "int8")
         quant_route_check(quant_argv)
         quant_mode_steps(quant_argv)
+        done("quant")
         resume = resume_phase(root)
+        done("resume")
         rungs, rungs_quant = rungs_phase(root)
+        done("rungs")
         families = families_phase(root)
+        done("families")
+        fusions = fusions_phase(root)
+        done("fusions")
+        hooks = hooks_phase(root)
+        done("hooks")
+    emit(phase="timeline", seconds_after=timeline)
 
     # launches: each path was driven with all four counts set to 0 just
     # before it and read just after: serving and training without flags,
     # serving and training with --use_pallas --quant int8, and the resumed
     # epoch of the resume phase, the three flag-free rung runs with graphs
-    # and the flagged one, and the families phase's runs and serving
+    # and the flagged one, the families phase's runs and serving, the three
+    # fusions' runs and serving, and the hooks run
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
-                 rungs_quant=rungs_quant, families=families)
+                 rungs_quant=rungs_quant, families=families, fusions=fusions,
+                 hooks=hooks)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -3309,8 +3717,8 @@ def main() -> int:
             rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
-    require(serve[2:] == (0, 0) and train[2:] == (0, 0)
-            and resume[2:] == (0, 0) and rungs[2:] == (0, 0),
+    require(all(c[2:] == (0, 0) for c in (serve, train, resume, rungs,
+                                          fusions, hooks)),
             "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -3319,7 +3727,7 @@ def main() -> int:
             "float32", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
-            "shapes", "shapes_families")
+            "launches_fusions", "launches_hooks", "shapes", "shapes_families")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

@@ -24,7 +24,10 @@ state_dict (the slots of earlier versions of this package).
 ``mimrl_tpu``'s msgpack slots (``{slot}_model.msgpack``) are read by
 ``restore_jax`` through ``core/flax_msgpack.py``, with no flax or msgpack
 installed; ``models/convert.py::state_dict_from_jax_slot`` turns one into
-the model's state_dict. Orbax slots are not read.
+the model's state_dict. Orbax slots (``{slot}_model.orbax/``, what
+``mimrl_tpu`` writes under ``--ckpt_backend orbax``) are not read: reading
+them needs orbax and tensorstore, so ``refuse_orbax`` names such a slot
+instead of passing it by as a missing one.
 
 ``config.json`` is the ``MimrlConfig`` as JSON, the same file the JAX
 package writes.
@@ -58,6 +61,21 @@ class CheckpointManager:
     def jax_path(self, slot: str) -> str:
         """Where ``mimrl_tpu`` writes the slot (flax msgpack)."""
         return os.path.join(self.task_path, f"{slot}_model.msgpack")
+
+    def orbax_path(self, slot: str) -> str:
+        """Where ``mimrl_tpu`` writes the slot under ``--ckpt_backend
+        orbax`` (a directory)."""
+        return os.path.join(self.task_path, f"{slot}_model.orbax")
+
+    def refuse_orbax(self, slot: str) -> None:
+        """Raise when ``mimrl_tpu`` wrote the slot as an orbax directory,
+        which this package cannot read (call it when no ``.pt`` slot and
+        no msgpack slot was found)."""
+        if os.path.isdir(self.orbax_path(slot)):
+            raise NotImplementedError(
+                f"{self.orbax_path(slot)} is a mimrl_tpu orbax slot: reading "
+                "orbax slots is not ported to mimrl_tpu_torch (ROADMAP.md, "
+                "section 3); rerun mimrl_tpu with --ckpt_backend msgpack")
 
     def save(self, slot: str, state: Dict[str, Any]) -> None:
         os.makedirs(self.task_path, exist_ok=True)

@@ -12,7 +12,8 @@ The slot is this package's ``{slot}_model.pt`` or, in a run directory of
 ``mimrl_tpu``, its ``{slot}_model.msgpack``, read without flax
 (``core/flax_msgpack.py``) and converted by
 ``models/convert.py::state_dict_from_jax_slot``; ``config.json`` is the
-same file in both packages.
+same file in both packages. An orbax slot of ``mimrl_tpu`` is refused by
+name (``CheckpointManager.refuse_orbax``).
 """
 
 from __future__ import annotations
@@ -59,6 +60,7 @@ class Predictor:
                 jax_slot = mgr.restore_jax(name)
             if state is not None or jax_slot is not None:
                 break
+            mgr.refuse_orbax(name)
         else:
             raise FileNotFoundError(f"no checkpoint in {task_dir}")
 

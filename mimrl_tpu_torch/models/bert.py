@@ -107,8 +107,23 @@ class BertEmbeddings(nn.Module):
         pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
         x = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(pos_ids)[None].to(dt)
-             + self.token_type_embeddings(token_type_ids).to(dt))
+             + _rows_in_fixed_order(self.token_type_embeddings.weight,
+                                    token_type_ids).to(dt))
         return self.dropout(_layer_norm(self.LayerNorm, x, dt))
+
+
+def _rows_in_fixed_order(table: torch.Tensor, ids: torch.Tensor
+                         ) -> torch.Tensor:
+    """``table[ids]`` (the values of an embedding lookup) as a chain of
+    ``torch.where`` over the table's few rows, so that the backward sums
+    each row's gradient by a reduction of fixed order. The CUDA embedding
+    backward sums the positions of one index (all 12,800 of a batch, for
+    the token types) in an order that changes from run to run, and a
+    float32 run then does not repeat on the card."""
+    out = table[0].expand(*ids.shape, table.shape[1])
+    for row in range(1, table.shape[0]):
+        out = torch.where((ids == row)[..., None], table[row], out)
+    return out
 
 
 class BertSelfAttention(nn.Module):

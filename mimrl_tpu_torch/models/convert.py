@@ -16,7 +16,13 @@ and ``mimrl_tpu/models/bert.py::convert_hf_torch_state_dict``):
   (``mimrl_tpu/utils/torch_import.py:160-165``);
 - CubeMLP ``block_{i}/mlp_{x}/w1`` [in, hidden] ->
   ``mlp_encoder.layers_stack.{i}.mlp_{x}.fc1.weight``;
-- LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``.
+- LayerNorm ``scale`` -> ``weight``; Embed ``embedding`` -> ``weight``;
+- the other fusions (``models/fusion.py``, the same names as the flax
+  tree): ``nn.MultiHeadDotProductAttention``'s ``DenseGeneral`` kernels
+  ``query``/``key``/``value`` [d, H, hd] (bias [H, hd]) and ``out``
+  [H, hd, d] -> ``nn.Linear`` weights [d, d] (bias [d]); ``nn.Dense``
+  kernels transposed; the position tables and the experts' ``w1``,
+  ``b1``, ``w2``, ``b2`` as they are.
 
 The classifier keeps the names ``MimrlModel`` creates (model.py:190-195):
 ``classifier``, or ``classifier_hidden`` + ``classifier``. A dense-text
@@ -118,6 +124,28 @@ def _mlp_encoder_rules(p: Dict):
                 yield f + (sub, "w"), f"{t}{sub}.weight", lambda x: x.T
 
 
+def _fusion_rules(node: Dict, path: Tuple[str, ...] = ("mlp_encoder",)):
+    """The transformer, TFN and MoE fusions' trees, leaf by leaf."""
+    for key, sub in node.items():
+        p, name = path + (key,), ".".join(path + (key,))
+        if not isinstance(sub, dict):  # position tables, expert weights
+            yield p, name, None
+        elif "scale" in sub:
+            yield from _layer_norm(name, p)
+        elif "kernel" not in sub:
+            yield from _fusion_rules(sub, p)
+        elif np.ndim(sub["kernel"]) == 2:  # nn.Dense
+            yield from _dense(name, sub, p)
+        elif key == "out":  # DenseGeneral over (H, hd): [H, hd, d]
+            yield (p + ("kernel",), name + ".weight",
+                   lambda x: x.reshape(-1, x.shape[-1]).T)
+            yield p + ("bias",), name + ".bias", None
+        else:  # DenseGeneral to (H, hd): [d, H, hd], bias [H, hd]
+            yield (p + ("kernel",), name + ".weight",
+                   lambda x: x.reshape(x.shape[0], -1).T)
+            yield p + ("bias",), name + ".bias", lambda x: x.reshape(-1)
+
+
 def _estimator_rules(name: str, node: Dict, path: Tuple[str, ...] = ()):
     """Every Dense of an estimator's tree, by its own path."""
     path = path or (name,)
@@ -148,7 +176,11 @@ def _rules(params: Dict):
         if name in params:
             yield from _dense(name, params[name], (name,))
     if "mlp_encoder" in params:
-        yield from _mlp_encoder_rules(params["mlp_encoder"])
+        fusion = params["mlp_encoder"]
+        if "pos_time" in fusion or "factor_0" in fusion:
+            yield from _fusion_rules(fusion)
+        else:  # CubeMLP
+            yield from _mlp_encoder_rules(fusion)
     for name in params:
         if name.startswith(_ESTIMATOR_PREFIXES):
             yield from _estimator_rules(name, params[name])

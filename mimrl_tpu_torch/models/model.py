@@ -1,17 +1,19 @@
 """The MIMRL model (PyTorch port of ``mimrl_tpu.models.model``): the
 text tower (BERT over token ids, or dense text features with no BERT),
 the audio/video encoders (2-layer bi-GRU, 1-layer bi-LSTM or Conv1d),
-CubeMLP fusion and the classifier (``MimrlModel.__call__``,
+the fusion encoder (CubeMLP, or ``models/fusion.py``'s transformer, TFN or
+MoE) and the classifier (``MimrlModel.__call__``,
 model.py:224-331), plus the embedded MI / conditional-MI estimator bank
 and the two stage losses (model.py:197-219, :336-448).
 
 Sub-module names are the reference torch ``Model``'s (``bertmodel``,
-``W_t``, ``rnn_a`` or ``conv_a``, ``ln_a``, ``mlp_encoder``, ``classifier``,
+``W_t``, ``rnn_a`` or ``conv_a``, ``ln_a``, ``mlp_encoder`` (whichever
+fusion it is), ``classifier``,
 ``vmi_estimator_f_t``, ``vcmi_estimator_ac_t``, ...), so the state_dict
 keys are the reference's names and the optimizer's name-based split
 ('bert' / 'vmi' / 'vcmi' / rest) works on them.
 
-Ported: every encoder, ``fusion='cubemlp'``. The estimator bank runs
+Ported: every encoder and every fusion. The estimator bank runs
 its eleven estimators one after the other; ``fused_estimators`` (the JAX
 package's batched execution of the same math, model.py:371-425) is
 accepted and changes nothing here.
@@ -33,6 +35,8 @@ from mimrl_tpu_torch.models.bert import BertConfig, BertModel
 from mimrl_tpu_torch.models.cubemlp import AxisLayerNorm, MLPEncoder
 from mimrl_tpu_torch.models.encoders import (BiRnnEncoder, ConvEncoder,
                                              lengths_from_sequence)
+from mimrl_tpu_torch.models.fusion import (MoEBlock, MoEFusion, TFNFusion,
+                                           TransformerFusion)
 
 
 # Estimator hyperparameters hard-coded by the reference (ref: Model.py:285-286)
@@ -89,12 +93,11 @@ class MimrlModel(nn.Module):
                  bound_type: str = "infonce", k_neighbor: int = 2,
                  radius: float = 1.0, cmi_last_acticate: str = "sigmoid",
                  use_pallas: bool = False, fused_estimators: bool = False,
-                 fusion: str = "cubemlp",
+                 fusion: str = "cubemlp", fusion_layers: int = 2,
+                 fusion_heads: int = 4, moe_experts: int = 4,
+                 moe_topk: int = 2,
                  bert_config: BertConfig = BertConfig(), device=None):
         super().__init__()
-        if fusion != "cubemlp":
-            raise NotImplementedError(
-                f"fusion {fusion!r}: only CubeMLP is ported (ROADMAP.md)")
         self.time_len = time_len
         self.d_common = d_common
         self.k_neighbor = k_neighbor
@@ -125,11 +128,31 @@ class MimrlModel(nn.Module):
         self.dropout_t = nn.Dropout(dropout[0])
         self.dropout_a = nn.Dropout(dropout[1])
         self.dropout_v = nn.Dropout(dropout[2])
-        self.mlp_encoder = MLPEncoder(
-            activate, (time_len, 3, d_common), d_hiddens, d_outs,
-            dropout_mlp, bias, ln_first, res_project, use_pallas, device)
-
-        t_out, k_out, d_out = d_outs[-1]
+        # the fusion encoder (model.py:149-185); every fusion but CubeMLP
+        # keeps the [bs, T, 3, d_common] shape
+        if fusion == "cubemlp":
+            self.mlp_encoder = MLPEncoder(
+                activate, (time_len, 3, d_common), d_hiddens, d_outs,
+                dropout_mlp, bias, ln_first, res_project, use_pallas, device)
+            t_out, k_out, d_out = d_outs[-1]
+        else:
+            if fusion == "transformer":
+                self.mlp_encoder = TransformerFusion(
+                    d_common, time_len, num_layers=fusion_layers,
+                    num_heads=fusion_heads, dropout=dropout_mlp[0],
+                    device=device)
+            elif fusion == "moe":
+                self.mlp_encoder = MoEFusion(
+                    d_common, time_len, num_layers=fusion_layers,
+                    num_heads=fusion_heads, num_experts=moe_experts,
+                    top_k=moe_topk, dropout=dropout_mlp[0], device=device)
+            elif fusion == "tfn":
+                self.mlp_encoder = TFNFusion(d_common, dropout=dropout_mlp[0],
+                                             device=device)
+            else:
+                raise ValueError(f"fusion {fusion!r}: choose cubemlp, "
+                                 "transformer, tfn or moe")
+            t_out, k_out, d_out = time_len, 3, d_common
         self.classify_dim = get_output_dim(
             features_compose_t, features_compose_k, d_out, t_out, k_out)
         if self.classify_dim <= 128:
@@ -306,7 +329,10 @@ def build_model(cfg: MimrlConfig, vocab_size: int, d_a: int, d_v: int,
             bound_type=cfg.bound_type, k_neighbor=cfg.k_neighbor,
             radius=cfg.radius, cmi_last_acticate=cfg.cmi_last_acticate,
             use_pallas=cfg.use_pallas, fused_estimators=cfg.fused_estimators,
-            fusion=cfg.fusion, bert_config=bert_config_from(cfg, vocab_size))
+            fusion=cfg.fusion, fusion_layers=cfg.fusion_layers,
+            fusion_heads=cfg.fusion_heads, moe_experts=cfg.moe_experts,
+            moe_topk=cfg.moe_topk,
+            bert_config=bert_config_from(cfg, vocab_size))
     return model.to_empty(device=device or "cpu")
 
 
@@ -320,7 +346,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     +-1/sqrt(hidden), then every recurrent ``weight_hh`` re-initialised
     orthogonal per gate-stacked matrix, as ``apply_orthogonal_whh`` does
     (model.py:504-519, ref: Customization.py:18-21); Conv1d kernels normal
-    with std 1/sqrt(fan_in) and zero bias."""
+    with std 1/sqrt(fan_in) and zero bias. The fusions follow their flax
+    initialisers (fusion.py): position tables normal with std 0.02, the
+    experts' ``w1`` [E, d, h] and ``w2`` [E, h, d] normal with std
+    1/sqrt(fan_in), where LeCun normal's fan_in counts the expert axis as
+    a receptive field (E * d and E * h), and zero expert biases."""
 
     def fill(p, draw):
         p.copy_(draw(torch.empty(p.shape, dtype=p.dtype)))
@@ -337,6 +367,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (nn.LayerNorm, AxisLayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, (TransformerFusion, MoEFusion)):
+            for p in (m.pos_time, m.pos_modality):
+                fill(p, lambda t: t.normal_(0.0, 0.02, generator=generator))
+        elif isinstance(m, MoEBlock):
+            for w in (m.w1, m.w2):
+                fan_in = w.shape[0] * w.shape[1]
+                fill(w, lambda t: t.normal_(
+                    0.0, 1.0 / math.sqrt(fan_in), generator=generator))
+            m.b1.zero_()
+            m.b2.zero_()
         elif isinstance(m, nn.RNNBase):
             bound = 1.0 / math.sqrt(m.hidden_size)
             for p in m.parameters():

@@ -35,9 +35,23 @@ The schedule rungs (ref: ``mimrl_tpu/train/solver.py:495-697``):
   before epoch e's host work (scores, logs, checkpoints), from a snapshot
   taken at its dispatch.
 
+The single-device tools (ref: ``mimrl_tpu/train/solver.py``):
+
+- ``--custom_loss module:factory``: the hook of ``train/custom.py``,
+  resolved once here, added to stage 2's objective and the eval loss on
+  every path (the rungs' graphs capture it);
+- ``--check_gradient``: after each critic step and each stage-2 step with
+  MI, ``_log_gradients`` logs every non-BERT parameter's name, sum and
+  gradient sum (``steps.grad_debug_step``, :1143-1157). It runs the epochs
+  per batch, as JAX does (``scan_mode``, :1359);
+- ``--profile_dir``: a ``torch.profiler`` trace (CPU and CUDA activities)
+  of epoch ``start_epoch + 1``, written as chrome-trace JSON by
+  ``tensorboard_trace_handler`` (:1371-1373, :1419-1422); the run is not
+  pipelined, so the trace holds exactly that epoch.
+
 Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: ``--epoch_group``, ``--check_gradient``, ``--custom_loss``,
-``--profile_dir``, ``--distributed`` and a mesh over more than one device.
+ROADMAP.md: ``--epoch_group``, ``--distributed``, a mesh over more than one
+device, and ``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
 """
 
 from __future__ import annotations
@@ -68,6 +82,7 @@ from mimrl_tpu_torch.models.bert import load_bert_weights
 from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
                                           init_weights)
 from mimrl_tpu_torch.train import steps
+from mimrl_tpu_torch.train.custom import load_custom_loss
 from mimrl_tpu_torch.train.graphs import StepGraphs
 from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
                                          make_vmi_optimizer, partition_params)
@@ -78,15 +93,14 @@ MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
 def _refuse_unported(opt: MimrlConfig) -> None:
     unported = {
         "--epoch_group > 1": opt.epoch_group > 1,
-        "--check_gradient": opt.check_gradient,
-        "--custom_loss": bool(opt.custom_loss),
-        "--profile_dir": bool(opt.profile_dir),
         "--distributed": opt.distributed,
         "a mesh over more than one device (--mesh_data/--mesh_model/"
         "--mesh_pipe/--mesh_dcn)": (
             opt.mesh_data > 1 or opt.mesh_model > 1 or opt.mesh_pipe > 1
             or opt.mesh_dcn > 1),
-        "--fusion other than cubemlp": opt.fusion != "cubemlp",
+        "--ckpt_backend orbax (this package writes .pt slots; orbax and "
+        "tensorstore are not among its dependencies)":
+            opt.ckpt_backend == "orbax",
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -126,6 +140,14 @@ class Solver:
          self.d_t, self.d_a, self.d_v) = get_data_loader(opt, self.tokenizer)
 
         log_message("Making model and optimizer...")
+        if opt.fusion == "moe" and opt.moe_experts > 1:
+            # (ref: mimrl_tpu/train/solver.py:182-184; a mesh is refused)
+            log_message("WARNING: --fusion moe with --mesh_model 1: experts "
+                        "run unsharded (no expert parallelism).")
+        # --custom_loss, resolved once (ref: mimrl_tpu/train/steps.py:192-195)
+        self.custom_loss = load_custom_loss(opt.custom_loss, opt)
+        # --check_gradient runs the epochs per batch (ref: solver.py:1359)
+        self.scan_mode = opt.epoch_scan and not opt.check_gradient
         torch.manual_seed(opt.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.seed)
@@ -231,6 +253,7 @@ class Solver:
         mgr = CheckpointManager(resume_dir)
         state = mgr.restore("latest", map_location="cpu")
         if state is None:
+            mgr.refuse_orbax("latest")
             if os.path.exists(mgr.jax_path("latest")):
                 raise NotImplementedError(
                     f"{mgr.jax_path('latest')} is a mimrl_tpu slot: resuming "
@@ -296,6 +319,8 @@ class Solver:
                             self.model, self.opt_vmi, opt, model_batch,
                             labels_dev, self.bank, self.generator)
                         mi_losses.append(loss)
+                        if opt.check_gradient:
+                            self._log_gradients(model_batch, labels_dev, 1)
                     passes.append(mi_losses)
             for mi_losses in passes:
                 pass_loss = float(torch.stack(mi_losses).sum())
@@ -319,7 +344,10 @@ class Solver:
             model_batch, labels_dev, labels_np, sample_mask = self._to_device(host)
             loss, mis, out = steps.train_step(
                 self.model, self.opt_main, opt, model_batch, labels_dev,
-                self.bank, self.new_bank, offset, self.generator, use_mi)
+                self.bank, self.new_bank, offset, self.generator, use_mi,
+                custom_loss=self.custom_loss)
+            if opt.check_gradient and use_mi:
+                self._log_gradients(model_batch, labels_dev, 2)
             # device tensors are kept; converting here would synchronise
             # the host on every step
             step_losses.append(loss)
@@ -343,6 +371,20 @@ class Solver:
         return (running_loss / n, running_loss_mi / n,
                 (mis_sum / n).tolist(), train_score)
 
+    def _log_gradients(self, model_batch, labels_dev, stage: int) -> None:
+        """--check_gradient: per-parameter name, parameter-sum and
+        gradient-sum lines in sorted name order, BERT skipped
+        (ref: mimrl_tpu/train/solver.py:1143-1157, Utils.py:11-19)."""
+        sums = steps.grad_debug_step(self.model, self.opt, model_batch,
+                                     labels_dev, self.bank, self.generator,
+                                     stage)
+        for name in sorted(sums):
+            p_sum, g_sum = sums[name]
+            log_message(f"-->name: {name}")
+            log_message(f"-->para: {float(p_sum):.6f}")
+            log_message(f"-->grad_value: {float(g_sum):.6f}")
+            log_message("=" * 25)
+
     def evaluate(self, loader):
         """No-grad eval pass (ref: Solver.py:250-270)."""
         opt = self.opt
@@ -352,7 +394,7 @@ class Solver:
             model_batch, labels_dev, labels_np = self._prep(batch)
             loss, mis, out, feats = steps.eval_step(
                 self.model, opt, model_batch, labels_dev, self.bank,
-                self.generator, use_mi)
+                self.generator, use_mi, custom_loss=self.custom_loss)
             losses.append(loss)
             mis_list.append(mis)
             outs.append(out)
@@ -441,7 +483,8 @@ class Solver:
         self.new_bank.zero_()
         losses, mis, outs = steps.train_epoch(
             self.model, self.opt_main, opt, batches, labels, self.bank,
-            self.new_bank, self.generator, use_mi, run=self.graphs)
+            self.new_bank, self.generator, use_mi, run=self.graphs,
+            custom_loss=self.custom_loss)
         self.bank.copy_(self.new_bank)
         self.have_bank = True
         log_message(f"  train dispatch: {time.time() - t0:.2f}s")
@@ -470,7 +513,7 @@ class Solver:
         batches, labels, labels_np, masks = self._stack_epoch(loader)
         losses, mis, outs, feats = steps.eval_epoch(
             self.model, opt, batches, labels, self.bank, self.generator,
-            self.have_bank, run=self.graphs)
+            self.have_bank, run=self.graphs, custom_loss=self.custom_loss)
 
         def finalize():
             n = len(loader)
@@ -520,13 +563,19 @@ class Solver:
                     "valid_state": None, "test_state": None}
         # pipelined epochs (ref: mimrl_tpu/train/solver.py:1343-1446): epoch
         # e's host work overlaps epoch e + 1's device work; the schedule is
-        # stepped at dispatch, so it must not read the valid metric
-        pipelined = (opt.epoch_scan and opt.pipeline_epochs
-                     and not self.lr_schedule.needs_metric)
+        # stepped at dispatch, so it must not read the valid metric; a
+        # profiled run is not pipelined, so its trace holds one epoch
+        pipelined = (self.scan_mode and opt.pipeline_epochs
+                     and not self.lr_schedule.needs_metric
+                     and not opt.profile_dir)
         pending = None  # (epoch, t0, the three finalize()s, snapshot)
+        profiler = None
         for epoch in range(self.start_epoch, opt.epochs_num):
+            if opt.profile_dir and epoch == self.start_epoch + 1:
+                # the first epoch after the warm-up one (ref: :1371-1373)
+                profiler = self._start_profiler(opt.profile_dir)
             t0 = time.time()
-            if opt.epoch_scan:
+            if self.scan_mode:
                 fins = (self._train_epoch_scan_dispatch(epoch),
                         self._evaluate_epoch_scan_dispatch(self.valid_loader),
                         self._evaluate_epoch_scan_dispatch(self.test_loader))
@@ -548,6 +597,11 @@ class Solver:
                 continue
             self._finalize_epoch(tracking, epoch, time.time() - t0,
                                  *(f() for f in fins))
+            if profiler is not None:
+                self._synchronize()
+                profiler.stop()  # writes the trace
+                profiler = None
+                log_message(f"Profiler trace written to {opt.profile_dir}")
             if self._preempted:
                 self._stop_preempted(epoch, self._snapshot(epoch))
                 break
@@ -565,6 +619,20 @@ class Solver:
                           tracking["features"], tracking["valid_state"],
                           tracking["test_state"])
         return tracking["score"]
+
+    def _start_profiler(self, profile_dir: str):
+        """A started ``torch.profiler`` profile of the host and, on the
+        card, the device, whose ``stop()`` writes a chrome-trace JSON file
+        into ``profile_dir``."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        profiler = torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                profile_dir))
+        profiler.start()
+        return profiler
 
     def _stop_preempted(self, epoch: int, snap: Dict) -> None:
         self.ckpt.save("latest", snap)

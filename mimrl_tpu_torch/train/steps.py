@@ -17,6 +17,12 @@
 - ``features_step`` / ``critic_update`` split the critic step for
   ``--fast_stage1``: one forward per batch, then the critics' updates on
   the cached features.
+- ``custom_loss`` (``--custom_loss``, ``train/custom.py``): the resolved
+  hook ``fn(out, labels, (F, T, A, V))``, added to stage 2's objective and
+  to the eval loss (``mimrl_tpu/train/steps.py:285-287``, ``:336-337``).
+- ``grad_debug_step`` (``--check_gradient``): a separate forward and
+  backward of a stage's loss, giving each parameter's sum and its
+  gradient's sum (``mimrl_tpu/train/steps.py:579-616``).
 - The epoch functions (``critic_epoch_fresh``, ``critic_epoch``,
   ``critic_epoch_cached``, ``train_epoch``, ``eval_epoch``) are the
   ``--epoch_scan`` rung (ref: ``mimrl_tpu/train/steps.py:346-578``): they
@@ -208,11 +214,13 @@ def to_device(batch: Dict, labels: np.ndarray, task: str, device
 def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
                 batch: Dict[str, torch.Tensor], labels: torch.Tensor,
                 knn: Optional[Dict[str, Tuple]],
-                generator: Optional[torch.Generator]):
+                generator: Optional[torch.Generator],
+                custom_loss: Optional[Callable] = None):
     """The model's forward and the stage-2 objective: the task loss, plus
     ``sum(coef2 * mi_loss)`` when ``knn`` holds the bank's samples (None:
-    no MI, zero telemetry). Returns (loss, the 8 MI channels detached,
-    output, [F_F, T_F, A_F, V_F])."""
+    no MI, zero telemetry), plus ``custom_loss(out, labels, feats)`` when
+    it is given. Returns (loss, the 8 MI channels detached, output, [F_F,
+    T_F, A_F, V_F])."""
     out, *feats = forward_batch(model, batch, generator=generator)
     total = compute_task_loss(cfg.loss, cfg.num_class, out, labels,
                               batch.get("sample_mask"))
@@ -223,6 +231,8 @@ def stage2_loss(model: MimrlModel, cfg: MimrlConfig,
         mis = torch.stack(mis).detach()
     else:
         mis = torch.zeros(8, dtype=torch.float32, device=out.device)
+    if custom_loss is not None:
+        total = total + custom_loss(out, labels, tuple(feats))
     return total, mis, out, feats
 
 
@@ -268,7 +278,8 @@ def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
                batch: Dict[str, torch.Tensor], labels: torch.Tensor,
                bank: FeatureBank, new_bank: FeatureBank, offset,
                generator: Optional[torch.Generator], use_mi: bool,
-               anchors: Optional[Dict[str, torch.Tensor]] = None):
+               anchors: Optional[Dict[str, torch.Tensor]] = None,
+               custom_loss: Optional[Callable] = None):
     """Stage 2: one update of the main and BERT parameters, and the
     batch's features written to ``new_bank`` at ``offset`` (an int or a
     device tensor). Returns (loss,
@@ -277,7 +288,7 @@ def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
     knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
                           cfg.radius, anchors) if use_mi else None)
     total, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn,
-                                         generator)
+                                         generator, custom_loss)
     grads = _grads(total, opt_main.params)
     ok = _guarded_step(cfg.skip_nonfinite_updates, opt_main, total.detach(),
                        grads)
@@ -293,14 +304,43 @@ def eval_step(model: MimrlModel, cfg: MimrlConfig,
               batch: Dict[str, torch.Tensor], labels: torch.Tensor,
               bank: FeatureBank, generator: Optional[torch.Generator],
               use_mi: bool,
-              anchors: Optional[Dict[str, torch.Tensor]] = None):
+              anchors: Optional[Dict[str, torch.Tensor]] = None,
+              custom_loss: Optional[Callable] = None):
     """Deterministic forward and the stage-2 objective. Returns (loss, the
     8 MI channels, output, (F_F, T_F, A_F, V_F))."""
     model.eval()
     knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
                           cfg.radius, anchors) if use_mi else None)
-    loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn, None)
+    loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn, None,
+                                        custom_loss)
     return loss, mis, out, tuple(feats)
+
+
+def grad_debug_step(model: MimrlModel, cfg: MimrlConfig,
+                    batch: Dict[str, torch.Tensor], labels: torch.Tensor,
+                    bank: FeatureBank, generator: Optional[torch.Generator],
+                    stage: int,
+                    anchors: Optional[Dict[str, torch.Tensor]] = None
+                    ) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+    """``--check_gradient``: a training-mode forward with its own kNN
+    samples and dropout draw, and the gradient of the stage's loss (stage
+    1: the critics' weighted losses; stage 2: the task loss and the
+    weighted MI losses, without the custom hook, as in JAX) for every
+    parameter whose name holds no "bert". Returns {name: (the parameter's
+    sum, its gradient's sum)} as device tensors; names are the model's
+    ``named_parameters()`` names (ref: Utils.py:11-19). Updates nothing."""
+    model.train()
+    knn = sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
+                         cfg.radius, anchors)
+    if stage == 1:
+        feats = forward_batch(model, batch, generator=generator)[1:]
+        _, losses = model.compute_vmi_loss_stage1(labels, *feats, knn)
+        total = sum(l * c for l, c in zip(losses, cfg.loss_mi_coefficient1))
+    else:
+        total = stage2_loss(model, cfg, batch, labels, knn, generator)[0]
+    named = [(n, p) for n, p in model.named_parameters() if "bert" not in n]
+    grads = _grads(total, [p for _, p in named])
+    return {n: (p.detach().sum(), g.sum()) for (n, p), g in zip(named, grads)}
 
 
 # ---------------------------------------------------------------------- #
@@ -410,7 +450,8 @@ def train_epoch(model: MimrlModel, opt_main: ChainOptimizer,
                 labels: torch.Tensor, bank: FeatureBank,
                 new_bank: FeatureBank, generator: Optional[torch.Generator],
                 use_mi: bool, run: Callable = call,
-                anchors: Optional[Sequence[Dict]] = None):
+                anchors: Optional[Sequence[Dict]] = None,
+                custom_loss: Optional[Callable] = None):
     """Stage 2 over the epoch (steps.py:498-520): batch i's features go to
     rows [i * bs, (i + 1) * bs) of ``new_bank``. Returns (losses [NB], MI
     channels [NB, 8], outputs [NB, bs, C])."""
@@ -419,7 +460,8 @@ def train_epoch(model: MimrlModel, opt_main: ChainOptimizer,
 
     def body(batch, labels, offset, anchors=None):
         return train_step(model, opt_main, cfg, batch, labels, bank,
-                          new_bank, offset, generator, use_mi, anchors)
+                          new_bank, offset, generator, use_mi, anchors,
+                          custom_loss)
 
     steps = [run("train_step_mi" if use_mi else "train_step", body,
                  batch=_batch_at(batches, i), labels=labels[i],
@@ -432,7 +474,8 @@ def eval_epoch(model: MimrlModel, cfg: MimrlConfig,
                batches: Dict[str, torch.Tensor], labels: torch.Tensor,
                bank: FeatureBank, generator: Optional[torch.Generator],
                use_mi: bool, run: Callable = call,
-               anchors: Optional[Sequence[Dict]] = None):
+               anchors: Optional[Sequence[Dict]] = None,
+               custom_loss: Optional[Callable] = None):
     """``eval_step`` over a stacked split (steps.py:522-536). Returns
     (losses [NB], MI channels [NB, 8], outputs [NB, bs, C], the four
     feature stacks [NB, bs, d])."""
@@ -440,7 +483,8 @@ def eval_epoch(model: MimrlModel, cfg: MimrlConfig,
 
     def body(batch, labels, anchors=None):
         loss, mis, out, feats = eval_step(model, cfg, batch, labels, bank,
-                                          generator, use_mi, anchors)
+                                          generator, use_mi, anchors,
+                                          custom_loss)
         return (loss, mis, out, *feats)
 
     steps = [run("eval_step_mi" if use_mi else "eval_step", body,

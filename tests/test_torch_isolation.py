@@ -33,6 +33,8 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch.cli.main, mimrl_tpu_torch.train.solver\n"
             "import mimrl_tpu_torch.core.flax_msgpack\n"
             "import mimrl_tpu_torch.mi.estimators, mimrl_tpu_torch.mi.knn\n"
+            "import mimrl_tpu_torch.models.fusion, mimrl_tpu_torch.train.custom\n"
+            "import mimrl_tpu_torch.train.regularizers\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -40,6 +42,7 @@ def test_import_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mimrl_tpu_torch.eval.predict" in loaded
     assert "mimrl_tpu_torch.train.steps" in loaded
+    assert "mimrl_tpu_torch.train.regularizers" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
 

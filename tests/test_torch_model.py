@@ -127,6 +127,28 @@ def test_bert_matches_jax(pair):
         got = pm.bertmodel(_t(ids), _t(types), _t(mask))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the token-type table, looked up by a chain of torch.where (a fixed
+    # summation order on the card): both rows in use, its gradient as JAX's
+    types = np.random.default_rng(5).integers(0, 2, ids.shape).astype(np.int32)
+    cot = np.random.default_rng(6).normal(size=got.shape).astype(np.float32)
+    p_bert = params["bertmodel"]
+    table = p_bert["embeddings"]["token_type_embeddings"]["embedding"]
+
+    def jloss(tab):
+        emb = dict(p_bert["embeddings"],
+                   token_type_embeddings={"embedding": tab})
+        out = jb.apply({"params": dict(p_bert, embeddings=emb)}, ids, types,
+                       mask)
+        return jnp.sum(out * cot)
+
+    want = jax.jit(jax.grad(jloss))(jnp.asarray(table))
+    emb = pm.bertmodel.embeddings.token_type_embeddings
+    assert isinstance(emb, nn.Embedding) and emb.weight.shape == (2, 32)
+    pm.bertmodel.zero_grad()
+    (pm.bertmodel(_t(ids), _t(types), _t(mask)) * _t(cot)).sum().backward()
+    np.testing.assert_allclose(emb.weight.grad.numpy(), np.asarray(want),
+                               **TOL)
+    pm.bertmodel.zero_grad()
 
 
 def test_lengths_and_mask_match_jax(pair):

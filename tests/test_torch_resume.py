@@ -11,6 +11,8 @@ bank, the schedule, the loader's passes, the generators) and its epoch-2
 telemetry equal A's; the same holds for the ``--epoch_scan`` rung, whose
 epochs are dispatched ahead of their host work. Three faulty resumes, each
 leaving one piece of the state out, must each end with other weights.
+Slots the port cannot read (a ``mimrl_tpu`` msgpack ``latest``, orbax
+directories) are refused by name, as is ``--ckpt_backend orbax``.
 """
 
 import json
@@ -24,6 +26,7 @@ from mimrl_tpu_torch.cli.main import main
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import parse_args
 from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+from mimrl_tpu_torch.eval.predict import Predictor
 from mimrl_tpu_torch.train.optim import LRScheduler
 from mimrl_tpu_torch.train.solver import Solver
 from test_torch_solver import N_TEST, N_TRAIN, N_VALID, _argv
@@ -181,3 +184,21 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Solver(parse_args(_argv(root, "--task_name", "jax", *EXTRA,
                                 "--resume", f"{root}/empty")))
+    # a mimrl_tpu run of --ckpt_backend orbax holds only orbax directories:
+    # --resume and Predictor name the slot instead of starting fresh; the
+    # port writes no orbax slot, so the flag is refused
+    orbax = f"{root}/orbax"
+    os.makedirs(f"{orbax}/latest_model.orbax")
+    os.makedirs(f"{orbax}/best_valid_model.orbax")
+    with open(f"{orbax}/config.json", "w") as f:
+        f.write(open(f"{runs}/A/config.json").read())
+    for refused in (
+            lambda: Solver(parse_args(_argv(root, "--task_name", "orbax",
+                                            *EXTRA, "--resume", orbax))),
+            lambda: Predictor(orbax, device="cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="best_valid_model.orbax|latest_model.orbax"):
+            refused()
+    with pytest.raises(NotImplementedError, match="--ckpt_backend orbax"):
+        Solver(parse_args(_argv(root, "--task_name", "orbax",
+                                "--ckpt_backend", "orbax")))

@@ -5,7 +5,9 @@ cycle-padded). Epoch 0 is stage 2 without MI, epoch 1 is stage 1 (two
 critic passes) and stage 2 with MI. The artifacts exist, the telemetry has
 the reference's channels, and ``Predictor`` loads the ``best_valid`` slot
 the run wrote, and its ``latest`` slot holds the whole training state.
-Flags whose path is not ported raise; the two kernel flags
+``--custom_loss``, ``--check_gradient`` and ``--profile_dir`` train
+together (``test_hooks_train_on_the_cpu``). Flags whose path is not
+ported raise; the two kernel flags
 (``--use_pallas``, ``--quant``) train and serve through the plain versions.
 
 The schedule rungs (``test_rungs``): each stage-1 mode's epoch function,
@@ -45,7 +47,8 @@ from mimrl_tpu_torch.core.config import parse_args
 from mimrl_tpu_torch.data.synthetic import (make_avec_fixture,
                                             make_dec_fixture,
                                             make_local_fixture)
-from mimrl_tpu_torch.data.universal import get_data_loader
+from mimrl_tpu_torch.data.universal import (get_data_loader,
+                                            get_label_from_datas)
 from mimrl_tpu_torch.eval.predict import Predictor
 from mimrl_tpu_torch.models.convert import state_dict_from_jax
 from mimrl_tpu_torch.train import steps
@@ -154,14 +157,123 @@ def test_two_runs_of_one_seed_agree(run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--epoch_group", "2"], ["--check_gradient"],
-    ["--custom_loss", "mod:fn"], ["--mesh_model", "2"], ["--mesh_data", "4"],
-    ["--fusion", "tfn"], ["--profile_dir", "x"],
+    ["--epoch_group", "2"], ["--mesh_model", "2"], ["--mesh_data", "4"],
     ["--distributed"]])
 def test_unported_flags_raise(run, flags):
     root = run[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Solver(parse_args(_argv(root, "--task_name", "refused", *flags)))
+
+
+def _regularizers_match_jax():
+    """Every function of train/regularizers.py and both built-in hooks of
+    train/custom.py against the JAX package's on seeded inputs (1e-6)."""
+    from mimrl_tpu.train import custom as jcustom
+    from mimrl_tpu.train import regularizers as jreg
+    from mimrl_tpu_torch.train import custom, regularizers as reg
+
+    rng = np.random.default_rng(7)
+
+    def arr(*shape, positive=False):
+        x = rng.normal(size=shape).astype(np.float32)
+        return np.abs(x) + 0.5 if positive else x
+
+    x1, x2 = arr(8, 5), arr(8, 5)
+    mu1, mu2, v1, v2 = arr(8, 5), arr(8, 5), arr(8, 5, positive=True), arr(
+        8, 5, positive=True)
+    seq, mask = arr(4, 6, 3), (rng.uniform(size=(4, 6, 3)) > 0.4).astype(
+        np.float32)
+    mask[:, 0] = 1.0
+    cases = [("cmd", (x1, x2), {}), ("diff_loss", (arr(8, 2, 3), x2), {}),
+             ("aug_temporal", (seq,), {}), ("mean_temporal", (seq,), {}),
+             ("masked_mean", (seq, mask), {"dim": 1})]
+    for red in ("mean", "sum"):
+        cases += [("univariate_kld", (mu1, mu2, v1, v2), {"reduction": red}),
+                  ("multivariate_kld", (mu1, mu2, v1, v2),
+                   {"reduction": red})]
+    for name, args, kw in cases:
+        want = getattr(jreg, name)(*map(jnp.asarray, args), **kw)
+        got = getattr(reg, name)(*map(torch.from_numpy, args), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+    # the reversed gradient: identity forward, -p * g backward
+    x, g = torch.from_numpy(x1).requires_grad_(), arr(8, 5)
+    y = reg.reverse_gradient(x, 0.3)
+    y.backward(torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda a: jreg.reverse_gradient(a, 0.3), jnp.asarray(x1))
+    assert torch.equal(y.detach(), x.detach())
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]),
+                               rtol=1e-6, atol=1e-6)
+    out, labels, feats = arr(8, 1), arr(8), [arr(8, 16) for _ in range(4)]
+    for name in ("l2_output", "feature_decorrelation"):
+        want = getattr(jcustom, name)(None)(
+            jnp.asarray(out), jnp.asarray(labels), tuple(map(jnp.asarray, feats)))
+        got = getattr(custom, name)(None)(
+            torch.from_numpy(out), torch.from_numpy(labels),
+            tuple(map(torch.from_numpy, feats)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_hooks_train_on_the_cpu(run):
+    """``--custom_loss``, ``--check_gradient`` and ``--profile_dir`` in one
+    two-epoch run; the hook's functions against JAX's; the spec's errors."""
+    from mimrl_tpu_torch.train.custom import (feature_decorrelation,
+                                              load_custom_loss)
+
+    _regularizers_match_jax()
+    cfg = parse_args(_argv(run[0]))
+    for spec, error in (
+            ("no_colon", "expected 'module.path:factory'"),
+            ("no_such_module_xyz:fn", "cannot import"),
+            ("mimrl_tpu_torch.train.custom:nope", "has no attribute 'nope'"),
+            ("builtins:str", "non-callable str"),
+            ("mimrl_tpu.train.custom:l2_output",
+             "'mimrl_tpu_torch.train.custom:l2_output'")):
+        with pytest.raises(ValueError, match=error):
+            load_custom_loss(spec, cfg)
+    assert load_custom_loss(None, cfg) is None
+
+    root, task, _ = run
+    prof = f"{root}/profile"
+    spec = "mimrl_tpu_torch.train.custom:feature_decorrelation"
+    scores = main(_argv(root, "--task_name", "hooks", "--custom_loss", spec,
+                        "--check_gradient", "--profile_dir", prof,
+                        "--epoch_scan", "--no_save_models"))
+    assert all(np.isfinite(v) for s in scores for v in s.values())
+    log = open(f"{root}/runs/hooks/Running.log").read().splitlines()
+    # --check_gradient runs per batch: after each of epoch 1's 6 critic
+    # steps and 3 train steps, every non-BERT parameter in sorted order
+    names = sorted(n for n in Predictor(task, device="cpu").model.state_dict()
+                   if "bert" not in n and "num_batches" not in n)
+    blocks = [i for i, line in enumerate(log) if "-->name: " in line]
+    assert len(blocks) == 9 * len(names)
+    for j, i in enumerate(blocks):
+        assert log[i].endswith(f"-->name: {names[j % len(names)]}")
+        para = float(log[i + 1].split("-->para: ")[1])
+        grad = float(log[i + 2].split("-->grad_value: ")[1])
+        assert np.isfinite([para, grad]).all() and log[i + 3].endswith("=" * 25)
+    # one epoch traced (epoch 1, after the warm-up epoch): chrome-trace JSON
+    assert any(f"Profiler trace written to {prof}" in line for line in log)
+    traces = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1
+    events = json.load(open(f"{prof}/{traces[0]}"))["traceEvents"]
+    assert any("train_step" in str(e.get("name")) or e.get("cat") == "cpu_op"
+               for e in events)
+    # the hook adds its value to the eval loss
+    predictor = Predictor(task, device="cpu")
+    fn = load_custom_loss(spec, predictor.cfg)
+    batch = next(iter(predictor.valid_loader))
+    mb, labels = steps.to_device(batch, get_label_from_datas(
+        predictor.cfg, batch), "regression", "cpu")
+    bank = steps.FeatureBank(8, 8, 16)
+    plain = steps.eval_step(predictor.model, predictor.cfg, mb, labels, bank,
+                            None, False)
+    hooked = steps.eval_step(predictor.model, predictor.cfg, mb, labels, bank,
+                             None, False, custom_loss=fn)
+    value = feature_decorrelation(None)(plain[2], labels, plain[3])
+    assert value > 0
+    assert abs(hooked[0] - plain[0] - value).item() <= 1e-6
 
 
 @pytest.mark.parametrize("flags,error", [
