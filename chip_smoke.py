@@ -158,6 +158,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            epochs, captured in the CUDA graphs (launches exact through the
            replays, finite values), with the epoch of the first captures
            profiled.
+11. group  ``--epoch_group 2`` against the per-epoch ``--epoch_scan`` path
+           of the same seed at full width: the canonical bf16 recipe for 7
+           epochs on the rungs' split with ``--save_best_features``, the
+           flagged one (all four kernels) for 5 epochs, ``avec2019.sh`` in
+           float32 (CCC) under the plateau schedule (stepped on the
+           device) for 5 epochs, whose rate must decay, and
+           ``mosi_local.sh`` (no BERT) for 13 epochs at MOSI's
+           1284/229/686 split. Each grouped run must equal its
+           per-epoch run bit for bit (the final state, both best slots,
+           every scalar, every better-epoch decision, the best epochs'
+           features, the loaders' passes), launch per group exactly twice
+           the per-epoch run's launches of an epoch with stage 1, and
+           synchronise the host inside no dispatch after its first group
+           (torch's sync debug mode); a grouped canonical run with the
+           selection rule reversed must fail that gate. The canonical and
+           ``mosi_local`` pairs give the readings: epoch seconds dispatch
+           to dispatch (epochs 3-4; ``mosi_local`` 3-10), host
+           synchronisations and one-copy waits, the device's busy ms and
+           idle share over the last two epochs (profiler, from
+           a drained queue), peak memory. Then ``tools/parity.py
+           --synthetic --full_scale --allow_hermetic --epochs_num 5
+           --light_artifacts`` at MOSI's 1284/229/686 split, with
+           ``--epoch_group 2`` and per epoch: finite scores, 8 MI channels
+           of 5 values per split, samples/s, each group's launches twice an
+           epoch's; ``--compare`` of the grouped report with itself passes
+           and with a perturbed copy exits 1.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -1009,6 +1035,11 @@ def int8_gmma_count() -> dict:
     return found
 
 
+def layer_sum(values):
+    """The sum of a layer's readings, or None where one is missing."""
+    return None if None in values else sum(values)
+
+
 def int8_phase():
     """The int8 GEMM kernels against their plain version, bit for bit: the
     four forward shapes of a BERT-base layer at M = 12800 with bf16 output,
@@ -1134,7 +1165,11 @@ def int8_phase():
                 profiler_ms_forward_layer=sum(
                     r["profiler_ms"] for r in per_shape if r["role"] == "forward"),
                 profiler_ms_dw_layer=sum(
-                    r["profiler_ms"] for r in per_shape if r["role"] == "dw"))
+                    r["profiler_ms"] for r in per_shape if r["role"] == "dw"),
+                **{f"library{kind}_ms_{role}_layer": layer_sum(
+                    [r[f"library{kind}_ms"] for r in per_shape
+                     if r["role"] == role])
+                   for kind in ("", "_profiler") for role in ("forward", "dw")})
     return main
 
 
@@ -3631,6 +3666,433 @@ def hooks_phase(root: str):
     return add(launches, scan["launches"])
 
 
+# ---------------------------------------------------------------------- #
+# The group phase: --epoch_group against the per-epoch --epoch_scan path.
+
+# 5 epochs: epoch 0 on the per-epoch path, then the groups 1-2 and 3-4; the
+# milestone at epoch 2 cuts the rate inside the first group
+GROUP = 2
+GROUP_ARGS = ["--epochs_num", "5", "--epoch_scan", "--lr_decrease_iter",
+              "2-60", "--save_latest_every", "0"]
+# patience 0: the rate halves after any epoch whose valid loss does not
+# improve. On an H100 80GB HBM3 at 700 W avec2019.sh's valid loss rose in
+# epoch 2 (0.355, then 0.447), so its pair decays inside and across groups
+# (the canonical recipe's fell in each of 5 epochs: no decay there)
+GROUP_PLATEAU = ["--lr_decrease", "plateau", "--lr_decrease_iter", "0",
+                 "--lr_decrease_rate", "0.5"]
+# the measurement pair: 7 epochs, epochs 3-4 timed dispatch to dispatch
+# (no capture in them), epochs 5-6 profiled from a drained queue
+GROUP_TIMED = ["--epochs_num", "7"]
+GROUP_PROFILED = 5
+MOSI_SPLIT = (1284, 229, 686)  # CMU-MOSI's train / valid / test split
+# mosi_local.sh's pair: epochs 3-10 timed (four groups), 11-12 profiled
+LOCAL_EPOCHS = 13
+
+
+def nested_tensors(state, prefix="") -> tuple:
+    """({path: tensor on the CPU}, {path: other value}) of a nested dict."""
+    tensors, values = {}, {}
+    for k, v in state.items():
+        path = f"{prefix}{k}"
+        if hasattr(v, "is_floating_point"):
+            tensors[path] = v.detach().cpu()
+        elif isinstance(v, dict):
+            t, o = nested_tensors(v, path + ".")
+            tensors.update(t)
+            values.update(o)
+        else:
+            values[path] = v
+    return tensors, values
+
+
+def run_decisions(task: str) -> list:
+    """Per epoch, whether the run logged a better valid and a better test
+    score before the epoch's line."""
+    out, now = [], [False, False]
+    for line in open(f"{task}/Running.log"):
+        if "Better valid score found" in line:
+            now[0] = True
+        elif "Better test score found" in line:
+            now[1] = True
+        elif "Epoch:[" in line:
+            out.append(now)
+            now = [False, False]
+    return out
+
+
+def instrumented(fn, profile_from=None, patches=()):
+    """Run ``fn()`` (a training entry point) with the counts set to 0 just
+    before and read just after, torch's sync debug mode on, and the
+    Solver's dispatches and host halves wrapped: per dispatch (an epoch of
+    the per-epoch path, or a group) its launches and the host
+    synchronisations inside it (sync-debug warnings); the one-copy waits
+    of the run (``_Fetch.wait``), the seconds the run logged per epoch,
+    peak memory, the final state and the slots it saved (kept in memory:
+    ``CheckpointManager.save`` is intercepted), the scalars, the
+    better-epoch decisions and the best epochs' feature pickles. With ``profile_from`` = e: the device's busy
+    ms and idle share over epochs e and e + 1, from a drained queue at
+    e's dispatch to the last operation of e + 1's (the profiler)."""
+    import os
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimrl_tpu_torch.core.checkpoint import CheckpointManager
+    from mimrl_tpu_torch.train import solver as solver_mod
+    from mimrl_tpu_torch.train.solver import Solver
+
+    Fetch = solver_mod._Fetch
+    orig = {k: vars(Solver)[k] for k in (
+        "solve", "_epoch_scan_dispatch", "_dispatch_epoch_group", "_log_epoch")}
+    orig_wait = vars(Fetch)["wait"]
+    info = dict(dispatch=[], epoch_s={}, waits=0, slots={})
+    window = {}
+
+    def solve(self):
+        info["solver"] = self
+        return orig["solve"](self)
+
+    def with_syncs(call):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = call()
+        return out, sum("synchroniz" in str(w.message) for w in seen)
+
+    def wrap_dispatch(key, grouped):
+        def dispatch(self, *args):
+            epoch, g = args[0], (args[1] if grouped else 1)
+            if epoch == profile_from:
+                torch.cuda.synchronize()
+                window["profile"] = profile(activities=[ProfilerActivity.CUDA])
+                window["profile"].start()
+                window["start"] = torch.cuda.Event(enable_timing=True)
+                window["start"].record()
+            c0 = counts()
+            out, n = with_syncs(lambda: orig[key](self, *args))
+            info["dispatch"].append(dict(epoch=epoch, g=g, syncs=n,
+                                         launches=sub(counts(), c0)))
+            if profile_from is not None and epoch + g - 1 == profile_from + 1:
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                torch.cuda.synchronize()
+                window["profile"].stop()
+                span = window["start"].elapsed_time(end)
+                busy = sum(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0.0))
+                           for e in window["profile"].key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+                info["profile"] = dict(
+                    epochs=[profile_from, profile_from + 1], span_ms=span,
+                    busy_ms=busy / 1e3 if busy else None,
+                    idle_share=1 - busy / 1e3 / span if busy else None)
+            return out
+        return dispatch
+
+    def log_epoch(self, epoch, dt, *args, **kwargs):
+        info["epoch_s"][epoch] = dt
+        return orig["_log_epoch"](self, epoch, dt, *args, **kwargs)
+
+    def wait(self):
+        info["waits"] += 1
+        return orig_wait(self)
+
+    def save(self, name, state):
+        info["slots"][name] = nested_tensors(state)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with patched([(Solver, "solve", solve),
+                      (Solver, "_epoch_scan_dispatch",
+                       wrap_dispatch("_epoch_scan_dispatch", False)),
+                      (Solver, "_dispatch_epoch_group",
+                       wrap_dispatch("_dispatch_epoch_group", True)),
+                      (Solver, "_log_epoch", log_epoch),
+                      (Fetch, "wait", wait),
+                      (CheckpointManager, "save", save), *patches]):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    info.update(wall_s=time.perf_counter() - t0, launches=counts(),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    attention_instances("group", info["launches"])
+    solver = info.pop("solver")
+    task = solver.task_path
+    info["final"] = nested_tensors(solver._snapshot(solver.opt.epochs_num - 1))
+    info["scalars"] = open(f"{task}/scalars.jsonl").read()
+    info["decisions"] = run_decisions(task)
+    # the best epochs' eval features (--save_best_features), as written
+    info["features"] = {}
+    for name in ("features_val", "features_test", "features_test_for_valid"):
+        if os.path.exists(f"{task}/{name}.pkl"):
+            with open(f"{task}/{name}.pkl", "rb") as f:
+                info["features"][name] = f.read()
+    info["lr"] = [json.loads(r)["value"] for r in info["scalars"].splitlines()
+                  if json.loads(r)["tag"] == "Lr"]
+    info["passes"] = [getattr(solver, k).passes for k in (
+        "train_loader", "valid_loader", "test_loader")]
+    info["task"] = task
+    del solver
+    return info
+
+
+def group_gate(got: dict, want: dict) -> tuple:
+    """Bit-equality of two runs: the final state, every slot saved, the
+    scalars, the better-epoch decisions, the best epochs' features (the
+    pickles' bytes) and the loaders' passes. Returns (passed, the first
+    differences)."""
+    import torch
+
+    diffs = []
+    for part in ("final", *sorted(set(got["slots"]) | set(want["slots"]))):
+        a, b = got["slots"].get(part), want["slots"].get(part)
+        if part == "final":
+            a, b = got["final"], want["final"]
+        if a is None or b is None:
+            diffs.append(f"{part}: missing")
+            continue
+        if a[0].keys() != b[0].keys() or a[1] != b[1]:
+            diffs.append(f"{part}: other entries or values")
+            continue
+        diffs += [f"{part}.{k}" for k, v in b[0].items()
+                  if v.dtype != a[0][k].dtype or not torch.equal(a[0][k], v)]
+    for key in ("scalars", "decisions", "features", "passes"):
+        if got[key] != want[key]:
+            diffs.append(key)
+    return not diffs, diffs[:8]
+
+
+def group_pair(name: str, argv, records: list, patches_g=(), bert=True,
+               **kwargs):
+    """The per-epoch run (P) and the grouped run (G) of ``argv``: G must
+    equal P bit for bit (``group_gate``), launch per group exactly
+    ``GROUP`` times P's launches of an epoch with stage 1 (with BERT, at
+    least one attention launch an epoch), and synchronise the host inside
+    no dispatch after its first group. Returns (P, G)."""
+    from mimrl_tpu_torch.cli.main import main as cli_main
+
+    p = instrumented(lambda: cli_main(argv + ["--task_name", f"{name}_p"]),
+                     **kwargs)
+    g = instrumented(lambda: cli_main(argv + [
+        "--epoch_group", str(GROUP), "--task_name", f"{name}_g"]),
+        patches=patches_g, **kwargs)
+    passed, diffs = group_gate(g, p)
+    per_epoch = [d["launches"] for d in p["dispatch"]]
+    epoch_launches = per_epoch[1]
+    groups = [d for d in g["dispatch"] if d["g"] > 1]
+    later = [d["syncs"] for d in groups[1:]]
+    record = dict(
+        phase="group", step=name, gate_passed=passed, differing=diffs,
+        tensors_compared=len(p["final"][0]) + sum(
+            len(s[0]) for s in p["slots"].values()),
+        slots=sorted(p["slots"]), features=sorted(p["features"]),
+        decisions=g["decisions"], lr=g["lr"],
+        launches_per_epoch=dict(zip(KERNEL_NAMES, epoch_launches)),
+        launches_per_group=[d["launches"] for d in groups],
+        launches_total=dict(zip(KERNEL_NAMES, g["launches"])),
+        syncs_per_dispatch_p=[d["syncs"] for d in p["dispatch"]],
+        syncs_per_dispatch_g=[d["syncs"] for d in g["dispatch"]],
+        waits_p=p["waits"], waits_g=g["waits"],
+        dispatches_g=[d["g"] for d in g["dispatch"]],
+        epoch_s_p=p["epoch_s"], epoch_s_g=g["epoch_s"],
+        wall_s_p=p["wall_s"], wall_s_g=g["wall_s"],
+        peak_gb_p=p["peak_gb"], peak_gb_g=g["peak_gb"],
+        profile_p=p.get("profile"), profile_g=g.get("profile"), card=card())
+    records.append(record)
+    emit(**record)
+    require(passed, f"group {name}: grouped vs per-epoch differ in {diffs}")
+    require(len(p["features"]) == (3 if "--save_best_features" in argv
+                                   else 0),
+            f"group {name}: feature pickles {sorted(p['features'])}")
+    require(all(c == epoch_launches for c in per_epoch[1:])
+            and all(d["launches"] == tuple(GROUP * x for x in epoch_launches)
+                    for d in groups)
+            and g["dispatch"][0]["launches"] == per_epoch[0]
+            and (sum(epoch_launches[:2]) > 0) == bert,
+            f"group {name}: launches per group {record['launches_per_group']}"
+            f", per epoch {per_epoch}")
+    require(groups and not any(later),
+            f"group {name}: host synchronisations inside a dispatch {later}")
+    return p, g
+
+
+def group_readings(name: str, p: dict, g: dict, timed) -> None:
+    """The readings of a pair: epoch seconds dispatch to dispatch over the
+    ``timed`` epochs (no capture in them) and their medians, host
+    synchronisations inside the dispatches, the one-copy waits of each
+    run (per epoch 3: train, valid, test; per group 1; with
+    ``--save_best_features`` 2 more at the end), the device's busy ms and
+    idle share over the two profiled epochs (from a drained queue), peak
+    memory."""
+    p_s = [p["epoch_s"][e] for e in timed]
+    g_s = [g["epoch_s"][e] for e in timed]
+    emit(phase="group", step="readings", workload=name, card=card(),
+         epochs_timed=list(timed), epoch_s_per_epoch=p_s, epoch_s_grouped=g_s,
+         median_epoch_s_per_epoch=statistics.median(p_s),
+         median_epoch_s_grouped=statistics.median(g_s),
+         host_syncs_per_epoch=[d["syncs"] for d in p["dispatch"]][1:],
+         host_syncs_per_group=[d["syncs"] for d in g["dispatch"]
+                               if d["g"] > 1][1:],
+         waits_per_epoch_run=p["waits"], waits_grouped_run=g["waits"],
+         dispatches_grouped=len(g["dispatch"]),
+         profiled_epochs=p["profile"]["epochs"],
+         idle_share_per_epoch=p["profile"]["idle_share"],
+         idle_share_grouped=g["profile"]["idle_share"],
+         busy_ms_per_epoch=p["profile"]["busy_ms"],
+         busy_ms_grouped=g["profile"]["busy_ms"],
+         span_ms_per_epoch=p["profile"]["span_ms"],
+         span_ms_grouped=g["profile"]["span_ms"],
+         peak_gb_per_epoch=p["peak_gb"], peak_gb_grouped=g["peak_gb"])
+
+
+def group_phase(root: str):
+    """``--epoch_group 2`` against the per-epoch ``--epoch_scan`` path at
+    full width (``group_pair``): the canonical bf16 recipe on the rungs'
+    384/128/128 split for 7 epochs with ``--save_best_features`` and its
+    readings (``group_readings``), and a reversed selection rule that the
+    gate must catch; the flagged recipe (``--use_pallas --quant int8``,
+    all four kernels) for 5 epochs; AVEC2019 (``avec2019.sh``, float32,
+    CCC) under the plateau schedule (on the device) for 5 epochs, whose
+    rate must decay; ``mosi_local.sh`` (no BERT: the epoch boundary weighs
+    most) at MOSI's 1284/229/686 split for 13 epochs with its readings. Then ``tools/parity.py`` at MOSI's
+    canonical shapes for 5 epochs in groups of 2 and per epoch, and
+    ``--compare`` of the grouped report. Returns the launch counts of the
+    grouped runs."""
+    import math
+    import os
+
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.data import synthetic
+    from mimrl_tpu_torch.tools import parity
+    from mimrl_tpu_torch.train import steps
+
+    data, runs = f"{root}/train_data", f"{root}/group_runs"
+    if not os.path.isdir(data):
+        synthetic.make_dec_fixture(
+            data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH), d_audio=5,
+            d_video=20, max_len=TIME_LEN + 1, seed=1)
+    base = CANONICAL_MOSI + CANONICAL_TRAIN + GROUP_ARGS + ["--data_dir", data]
+
+    def argv(name, *flags):
+        return base + list(flags) + ["--task_dir", runs, "--task_name", name]
+
+    records, grouped = [], []
+    canonical = (*GROUP_TIMED, "--save_best_features")
+    p, g = group_pair("canonical", argv("canonical", *canonical), records,
+                      profile_from=GROUP_PROFILED)
+    grouped.append(g["launches"])
+    group_readings("canonical", p, g, range(3, 5))
+    better = steps.selection_better
+
+    def reversed_rule(sel, new, best):
+        return better("acc" if sel == "mae" else "mae", new, best)
+
+    fault = instrumented(lambda: cli_main(argv(
+        "canonical_fault", *canonical, "--epoch_group", str(GROUP))),
+        patches=[(steps, "selection_better", reversed_rule)])
+    fault_passed, fault_diffs = group_gate(fault, g)
+    emit(phase="group", step="fault_reversed_selection",
+         gate_passed=fault_passed, differing=fault_diffs,
+         decisions=fault["decisions"])
+    require(not fault_passed, "group gate: a reversed selection rule passed it")
+    del fault, p, g
+    _, g = group_pair("quant", argv("quant", *QUANT_FLAGS), records)
+    grouped.append(g["launches"])
+    int8_instances("group quant", g["launches"])
+    axis_mlp_instances("group quant", g["launches"])
+    del g
+    avec = family_argv(root, "avec2019", "--epochs_num", "5", "--epoch_scan",
+                       *GROUP_PLATEAU, "--task_dir", runs)
+    _, g = group_pair("avec2019_f32_plateau", avec, records)
+    grouped.append(g["launches"])
+    require(min(g["lr"]) < max(g["lr"]),
+            f"group avec2019_f32_plateau: no plateau decay, rates {g['lr']}")
+    del g
+    # mosi_local.sh (dense text, no BERT: none of the four kernels; a 7.8
+    # ms replayed train step) at MOSI's split: 11 train batches of 128
+    local = f"{root}/group_local"
+    synthetic.make_local_fixture(local, "mosi_50", MOSI_SPLIT,
+                                 dims=(300, 5, 20), time_len=50, seed=3)
+    local_argv = (FAMILY_COMMON + FAMILIES["mosi_local"][0]
+                  + ["--data_dir", local, "--task_dir", runs, "--epoch_scan",
+                     "--epochs_num", str(LOCAL_EPOCHS)])
+    p, g = group_pair("mosi_local", local_argv, records, bert=False,
+                      profile_from=LOCAL_EPOCHS - 2)
+    grouped.append(g["launches"])
+    group_readings("mosi_local", p, g, range(3, LOCAL_EPOCHS - 2))
+    del p, g
+
+    # tools/parity.py at MOSI's split sizes, 5 epochs in groups of 2 and per
+    # epoch: samples/s (the median epoch after the first), and --compare
+    reports = {}
+    for key, group in (("g2_e5", GROUP), ("g1_e5", 1)):
+        out = f"{root}/parity_{key}.json"
+        args = ["--synthetic", "--full_scale", "--allow_hermetic",
+                "--epochs_num", "5", "--epoch_group", str(group),
+                "--light_artifacts", "--task_dir", f"{root}/parity",
+                "--task_name", key, "--out", out]
+        info = instrumented(lambda: parity.main(args))
+        with open(out) as f:
+            doc = json.load(f)
+        scores = [v for name in ("best_valid_score", "best_test_score",
+                                 "test_score_at_best_valid")
+                  for v in doc[name].values()]
+        channels = doc["mi_channels"]
+        require(all(map(math.isfinite, scores)) and len(channels) == 24
+                and all(len(v) == 5 and all(map(math.isfinite, v))
+                        for v in channels.values())
+                and math.isfinite(doc["samples_per_sec"]),
+                f"parity {key}: scores, MI channels or samples/s")
+        reports[key] = dict(out=out, doc=doc, info=info)
+        if group == GROUP:
+            grouped.append(info["launches"])
+    g, p = reports["g2_e5"]["info"], reports["g1_e5"]["info"]
+    per_epoch = p["dispatch"][1]["launches"]
+    require([d["launches"] for d in g["dispatch"] if d["g"] > 1]
+            == [tuple(GROUP * x for x in per_epoch)] * 2,
+            "parity: launches of the groups against the per-epoch run's")
+    main_out = reports["g2_e5"]["out"]
+    same = parity.main(["--compare", main_out, main_out])
+    bad = json.loads(json.dumps(reports["g2_e5"]["doc"]))
+    bad["test_score_at_best_valid"]["mae"] *= 1.05
+    bad_path = f"{root}/parity_bad.json"
+    with open(bad_path, "w") as f:
+        json.dump(bad, f)
+    try:
+        parity.main(["--compare", main_out, bad_path])
+        code = 0
+    except SystemExit as stop:
+        code = stop.code
+    require(same["pass"] and code == 1,
+            f"parity --compare: with itself {same['pass']}, perturbed exit "
+            f"{code}")
+    emit(phase="group", step="parity", card=card(),
+         samples_per_sec={k: v["doc"]["samples_per_sec"]
+                          for k, v in reports.items()},
+         wall_time_sec={k: v["doc"]["wall_time_sec"]
+                        for k, v in reports.items()},
+         epoch_s={k: v["info"]["epoch_s"] for k, v in reports.items()},
+         host_syncs={k: [d["syncs"] for d in v["info"]["dispatch"]]
+                     for k, v in reports.items()},
+         test_score_at_best_valid=reports["g2_e5"]["doc"][
+             "test_score_at_best_valid"],
+         mi_channels=len(reports["g2_e5"]["doc"]["mi_channels"]),
+         scores_equal_g2_g1=reports["g2_e5"]["doc"][
+             "test_score_at_best_valid"]
+         == reports["g1_e5"]["doc"]["test_score_at_best_valid"],
+         compare_self_pass=same["pass"], compare_perturbed_exit=code,
+         peak_gb={k: v["info"]["peak_gb"] for k, v in reports.items()})
+    torch.cuda.empty_cache()
+    return add(*grouped)
+
+
 def main() -> int:
     import torch
 
@@ -3685,6 +4147,8 @@ def main() -> int:
         done("fusions")
         hooks = hooks_phase(root)
         done("hooks")
+        group = group_phase(root)
+        done("group")
     emit(phase="timeline", seconds_after=timeline)
 
     # launches: each path was driven with all four counts set to 0 just
@@ -3692,11 +4156,12 @@ def main() -> int:
     # serving and training with --use_pallas --quant int8, and the resumed
     # epoch of the resume phase, the three flag-free rung runs with graphs
     # and the flagged one, the families phase's runs and serving, the three
-    # fusions' runs and serving, and the hooks run
+    # fusions' runs and serving, the hooks run, and the group phase's
+    # grouped runs
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
                  rungs_quant=rungs_quant, families=families, fusions=fusions,
-                 hooks=hooks)
+                 hooks=hooks, group=group)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -3713,7 +4178,8 @@ def main() -> int:
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
         for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
                     "ms_one_launch", "library_events_ms", "bound_rate",
-                    "bound_ms_fp32_pipes", "float32"):
+                    "bound_ms_fp32_pipes", "float32", "library_ms_dw_layer",
+                    "library_profiler_ms_dw_layer"):
             rec.setdefault(key, None)
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
@@ -3727,7 +4193,9 @@ def main() -> int:
             "float32", "launches_serve", "launches_train",
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
-            "launches_fusions", "launches_hooks", "shapes", "shapes_families")
+            "launches_fusions", "launches_hooks", "launches_group",
+            "library_ms_dw_layer", "library_profiler_ms_dw_layer", "shapes",
+            "shapes_families")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

@@ -221,17 +221,16 @@ class MimrlConfig:
     # only host sync ordering changes. Auto-disabled when the LR schedule
     # needs the epoch's valid loss (plateau) or when profiling.
     pipeline_epochs: bool = True
-    # --epoch_group G: scan G WHOLE epochs (stage1 + stage2 + valid +
-    # test eval + in-graph best-model tracking) as ONE dispatched XLA
-    # program — the strongest dispatch-fusion rung above --epoch_scan.
-    # Same math/RNG stream as the per-epoch scan path (equality test:
-    # tests/test_epoch_group.py). Requires a metric-independent LR
-    # schedule, a device-shuffle-capable train loader, single device,
-    # and no save_best_features/check_gradient/profiling; the solver
-    # falls back to per-epoch dispatch otherwise. Selection decisions
-    # are made on-device (f32 masked MAE / accuracy) and replayed by the
-    # host, so a sub-1e-7 near-tie can in principle resolve differently
-    # than the host's f64 comparison — same rule, same inputs.
+    # --epoch_group G (with --epoch_scan): G whole epochs (stage 1, stage
+    # 2, valid and test eval, the best models kept on the device) enqueued
+    # at once, with no wait for the device between them
+    # (train/solver.py). The same steps, generator draws and rates as the
+    # per-epoch scan path, bit for bit (tests/test_torch_solver.py). Runs
+    # with --check_gradient or --profile_dir fall back to per-epoch
+    # dispatch with a warning. The selection is decided on the device
+    # (float32 masked MAE / accuracy / CCC) and replayed by the host, so a
+    # near-tie below 1e-7 can in principle resolve otherwise than the
+    # host's comparison: same rule, same inputs.
     epoch_group: int = 1
     # fusion encoder family (README.md:13: the fusion encoder is
     # replaceable): cubemlp (reference) | transformer | tfn

@@ -23,6 +23,9 @@ port of ``mimrl_tpu.train.optim``; ref: Solver.py:119-170).
   setter writes, so a step captured in a CUDA graph reads the rate of the
   epoch it is replayed in; the four schedule families (step / multi_step /
   exp / plateau) are host-side functions of the epoch (``LRScheduler``).
+  Under ``--epoch_group`` the plateau schedule runs on the device
+  (``PlateauState``: JAX's ``plateau_state``), so a group of epochs waits
+  for no valid loss on the host.
 - ``--optm SAM`` raises as in the reference (Solver.py:150-151).
 - ``fused_optim`` is an execution-order flag of the JAX package; there is
   one code path here.
@@ -134,6 +137,13 @@ class ChainOptimizer:
         write in stream order: nothing waits for the device)."""
         self._learning_rate = float(value)
         self._neg_lr.fill_(-self._learning_rate)
+
+    def learning_rate_from(self, lr: torch.Tensor) -> None:
+        """Set the rate from a float64 device scalar, rounded to float32
+        as the setter rounds a host float; nothing waits for the device,
+        and ``learning_rate`` reads the last host value until the next
+        host set."""
+        self._neg_lr.copy_(lr.neg())
 
     def state(self) -> List[torch.Tensor]:
         """Every state tensor (what the non-finite guard snapshots)."""
@@ -289,3 +299,63 @@ class LRScheduler:
                     self.factor *= self.rate
                     self.bad_epochs = 0
         return self.factor
+
+
+class PlateauState:
+    """The plateau schedule's state on the device, for ``--epoch_group``
+    (JAX: ``plateau_state`` / ``plateau_cfg``,
+    ``mimrl_tpu/train/steps.py:802-821``): the factor and the best valid
+    loss in float64, whether a best exists, and the bad epochs.
+
+    ``step(loss_sum, n)`` follows ``LRScheduler.step`` exactly, with the
+    valid loss ``loss_sum / n`` in float64 as the host's
+    ``float(loss_sum) / n`` and the factor's products in float64 as the
+    host's, so the rates it writes are the host's bit for bit. Every
+    operation is a device operation (``torch.where``, in place): nothing
+    waits for the device. ``state_dict(values)`` turns fetched values
+    back into ``LRScheduler``'s state."""
+
+    def __init__(self, schedule: LRScheduler, device):
+        if schedule.kind != "plateau":
+            raise ValueError(f"a {schedule.kind!r} schedule has no plateau "
+                             "state")
+        self.rate, self.patience = schedule.rate, schedule.patience
+        self.mode = schedule.mode
+
+        def full(value, dtype):
+            return torch.full((), value, dtype=dtype, device=device)
+
+        self.factor = full(schedule.factor, torch.float64)
+        have = schedule.best is not None
+        self.best = full(schedule.best if have else 0.0, torch.float64)
+        self.have_best = full(have, torch.bool)
+        self.bad = full(schedule.bad_epochs, torch.int64)
+
+    @torch.no_grad()
+    def step(self, loss_sum: torch.Tensor, n: int) -> torch.Tensor:
+        """Advance one epoch on the valid loss ``loss_sum / n`` (a float32
+        device sum over ``n`` batches); returns the factor (float64)."""
+        val = loss_sum.double() / n
+        improved = val < self.best if self.mode == "min" else val > self.best
+        better = improved | ~self.have_best
+        bad = torch.where(better, torch.zeros_like(self.bad), self.bad + 1)
+        decay = ~better & (bad > self.patience)
+        self.best.copy_(torch.where(better, val, self.best))
+        self.have_best.fill_(True)
+        self.factor.copy_(torch.where(decay, self.factor * self.rate,
+                                      self.factor))
+        self.bad.copy_(torch.where(decay, torch.zeros_like(bad), bad))
+        return self.factor
+
+    def values(self) -> Dict[str, torch.Tensor]:
+        """Copies of the state tensors, to fetch to the host."""
+        return {"factor": self.factor.clone(), "best": self.best.clone(),
+                "have_best": self.have_best.clone(), "bad": self.bad.clone()}
+
+    def state_dict(self, values: Dict, epoch: int) -> Dict:
+        """``LRScheduler.state_dict()`` from fetched ``values()`` after
+        ``epoch`` schedule steps."""
+        return {"kind": "plateau", "factor": float(values["factor"]),
+                "epoch": epoch,
+                "best": float(values["best"]) if values["have_best"] else None,
+                "bad_epochs": int(values["bad"])}

@@ -35,6 +35,22 @@ The schedule rungs (ref: ``mimrl_tpu/train/solver.py:495-697``):
   before epoch e's host work (scores, logs, checkpoints), from a snapshot
   taken at its dispatch.
 
+``--epoch_group G`` (ref: ``mimrl_tpu/train/solver.py:699-1140``), on
+``--epoch_scan``: epoch 0 runs on the per-epoch path (its bank is empty),
+then every G epochs are enqueued at once with no wait for the device
+between them. The G train plans (and AVEC's token plans of each split) are
+drawn as G per-epoch passes would draw them and uploaded once; each epoch
+replays the rung's step graphs, then the selection of ``train/steps.py``
+(``selection_metric``) keeps the best-valid and best-test models on the
+device, replaced under a device flag (a captured graph on the card); under
+``--lr_decrease plateau`` the schedule steps on the device
+(``train/optim.py::PlateauState``). One copy per group brings the
+per-epoch results to the host, while the next group runs; the host then
+replays the device's decisions into the same log lines, ``scalars.jsonl``
+records and best-model bookkeeping as per-epoch runs write. A run that
+cannot be grouped (no ``--epoch_scan``, ``--check_gradient``,
+``--profile_dir``) logs JAX's warning and runs per epoch.
+
 The single-device tools (ref: ``mimrl_tpu/train/solver.py``):
 
 - ``--custom_loss module:factory``: the hook of ``train/custom.py``,
@@ -50,18 +66,19 @@ The single-device tools (ref: ``mimrl_tpu/train/solver.py``):
   pipelined, so the trace holds exactly that epoch.
 
 Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: ``--epoch_group``, ``--distributed``, a mesh over more than one
-device, and ``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
+ROADMAP.md: ``--distributed``, a mesh over more than one device, and
+``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import pickle
 import signal
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -84,7 +101,8 @@ from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
 from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.custom import load_custom_loss
 from mimrl_tpu_torch.train.graphs import StepGraphs
-from mimrl_tpu_torch.train.optim import (LRScheduler, make_main_optimizer,
+from mimrl_tpu_torch.train.optim import (LRScheduler, PlateauState,
+                                         make_main_optimizer,
                                          make_vmi_optimizer, partition_params)
 
 MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
@@ -92,7 +110,6 @@ MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
 
 def _refuse_unported(opt: MimrlConfig) -> None:
     unported = {
-        "--epoch_group > 1": opt.epoch_group > 1,
         "--distributed": opt.distributed,
         "a mesh over more than one device (--mesh_data/--mesh_model/"
         "--mesh_pipe/--mesh_dcn)": (
@@ -107,6 +124,105 @@ def _refuse_unported(opt: MimrlConfig) -> None:
         raise NotImplementedError(
             "not ported to mimrl_tpu_torch yet (ROADMAP.md, Open items): "
             + "; ".join(asked))
+
+
+_GROUP_WARNING = (  # ref: mimrl_tpu/train/solver.py:1352-1357
+    "WARNING: --epoch_group requires --epoch_scan + a "
+    "device-shuffle-capable (or AVEC raw-text) loader, a "
+    "data-parallel-only mesh (pipe=model=1), and no "
+    "check_gradient/profiling; falling back to per-epoch "
+    "dispatch.")
+
+
+def _host_kind(dtype: torch.dtype):
+    if dtype in (torch.float32, torch.bfloat16, torch.float16):
+        return np.float32
+    if dtype == torch.bool:
+        return np.bool_
+    return np.float64 if dtype.is_floating_point else np.int64
+
+
+class _Fetch:
+    """Device tensors brought to the host in one copy, started when made:
+    on the card into page-locked memory behind an event, so the host can
+    enqueue more work before ``wait()``. The values travel as float64,
+    which holds every float32, bfloat16, integer and boolean value
+    exactly; ``wait()`` gives each back as numpy in its own kind (float32
+    for float32 and bfloat16), and None stays None."""
+
+    def __init__(self, tensors: Dict[str, Optional[torch.Tensor]]):
+        self.specs, parts = [], []
+        for name, t in tensors.items():
+            if t is None:
+                self.specs.append((name, None, None))
+                continue
+            self.specs.append((name, tuple(t.shape), _host_kind(t.dtype)))
+            parts.append(t.detach().reshape(-1).to(torch.float64))
+        flat = (torch.cat(parts) if parts
+                else torch.zeros(0, dtype=torch.float64))
+        self.event = None
+        self.host = flat
+        if flat.is_cuda:
+            self.host = torch.empty(flat.shape, dtype=torch.float64,
+                                    pin_memory=True)
+            self.host.copy_(flat, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def wait(self) -> Dict[str, Optional[np.ndarray]]:
+        if self.event is not None:
+            self.event.synchronize()
+        flat, out, at = self.host.numpy(), {}, 0
+        for name, shape, kind in self.specs:
+            if shape is None:
+                out[name] = None
+                continue
+            size = int(np.prod(shape))
+            out[name] = flat[at:at + size].reshape(shape).astype(kind)
+            at += size
+        return out
+
+
+def _part(values: Dict, prefix: str) -> Dict:
+    """The entries of ``values`` under ``prefix/``, without the prefix."""
+    head = prefix + "/"
+    return {k[len(head):]: v for k, v in values.items() if k.startswith(head)}
+
+
+class _DeviceBest:
+    """A best model that ``--epoch_group`` keeps on the device (JAX: the
+    ``best_v`` / ``best_t`` carry, ``mimrl_tpu/train/solver.py:1042-1061``):
+    the training state's tensors by slot path (with ``--save_models``), the
+    eval features of the splits it keeps (with ``--save_best_features``),
+    its epoch and its selection metric, float32, seeded from the host's
+    best score (or the worst value). ``update`` replaces them where a
+    device flag is set. ``epoch_host`` is the epoch that the host's replay
+    of the flags found."""
+
+    def __init__(self, live: Dict[str, torch.Tensor], metric: float,
+                 device):
+        self.tensors = {k: torch.empty_like(v) for k, v in live.items()}
+        self.feats: Dict[str, torch.Tensor] = {}
+        self.metric = torch.full((), metric, dtype=torch.float32,
+                                 device=device)
+        self.epoch = torch.full((), -1, dtype=torch.int64, device=device)
+        self.epoch_host: Optional[int] = None
+
+    def reserve(self, feats: Dict[str, torch.Tensor]) -> None:
+        """Room for the features (outside any graph capture)."""
+        for k, v in feats.items():
+            if k not in self.feats:
+                self.feats[k] = torch.empty_like(v)
+
+    @torch.no_grad()
+    def update(self, better: torch.Tensor, metric: torch.Tensor,
+               epoch: torch.Tensor, live: Dict[str, torch.Tensor],
+               feats: Dict[str, torch.Tensor]) -> None:
+        pairs = [(self.metric, metric), (self.epoch, epoch)]
+        pairs += [(self.tensors[k], v) for k, v in live.items()]
+        pairs += [(self.feats[k], v) for k, v in feats.items()]
+        for dst, src in pairs:  # in place: no temporary the size of dst
+            torch.where(better, src, dst, out=dst)
 
 
 class Solver:
@@ -194,6 +310,13 @@ class Solver:
         # stacks on the device, by loader
         self._flats: Dict = {}
         self._stacks: Dict = {}
+        # --epoch_group: the device's best models, the plateau schedule on
+        # the device, and per grouped epoch what its slot takes from the
+        # host (schedule, loader passes, generators)
+        self._best: Dict[str, _DeviceBest] = {}
+        self._plateau: Optional[PlateauState] = None
+        self._group_meta: Dict[int, Dict] = {}
+        self._eval_masks: Dict[str, List] = {}  # the eval splits' host masks
 
         self.start_epoch = 0
         self._preempted = False
@@ -234,10 +357,6 @@ class Solver:
     def _snapshot(self, epoch: int) -> Dict:
         """The whole training state after ``epoch``, as a slot holds it
         (``core/checkpoint.py``): copies, so the steps cannot change it."""
-        rng = {"solver": self.generator.get_state(),
-               "cpu": torch.get_rng_state()}
-        if self.device.type == "cuda":
-            rng["cuda"] = torch.cuda.get_rng_state(self.device)
         return {"format": SLOT_FORMAT, "epoch": epoch,
                 "model": {k: v.detach().clone()
                           for k, v in self.model.state_dict().items()},
@@ -245,7 +364,16 @@ class Solver:
                 "opt_vmi": self.opt_vmi.state_dict(),
                 "bank": self.bank.state_dict(), "have_bank": self.have_bank,
                 "lr_schedule": self.lr_schedule.state_dict(),
-                "loader_passes": self.train_loader.passes, "rng": rng}
+                "loader_passes": self.train_loader.passes,
+                "rng": self._rng_state()}
+
+    def _rng_state(self) -> Dict[str, torch.Tensor]:
+        """The three generators' states (host reads: nothing waits)."""
+        rng = {"solver": self.generator.get_state(),
+               "cpu": torch.get_rng_state()}
+        if self.device.type == "cuda":
+            rng["cuda"] = torch.cuda.get_rng_state(self.device)
+        return rng
 
     def _resume(self, resume_dir: str) -> None:
         """Continue from the ``latest`` slot of ``resume_dir``: the next
@@ -419,6 +547,46 @@ class Solver:
 
     # ------------------------------------------------------------------ #
     # --epoch_scan (ref: mimrl_tpu/train/solver.py:300-494, :595-697)
+    def _flat_tensors(self, loader) -> Dict[str, torch.Tensor]:
+        """The loader's dataset-order tensors on the device, uploaded once
+        (AVEC's random-word tokens, drawn each pass, are not among them)."""
+        if loader not in self._flats:
+            fields = [("audio", loader._audio), ("video", loader._video)]
+            if loader._text_feat is not None:
+                fields.append(("text", loader._text_feat))
+            if loader._tokens is not None:
+                fields += zip(MODEL_INPUTS[:3], loader._tokens)
+            self._flats[loader] = {k: torch.from_numpy(v).to(self.device)
+                                   for k, v in fields}
+        return self._flats[loader]
+
+    def _epoch_plan(self, loader):
+        """Begin a pass of ``loader`` (the seed ``seed + passes``; ``passes``
+        advances by one) and return its plan on the host: ([NB, bs] row ids,
+        [NB, bs] sample mask, the pass's tokens, [NB, bs] labels in the
+        task's dtype, labels per batch, masks per batch)."""
+        idx_plan, mask_plan, tokens = loader.next_epoch()
+        ds_labels = [np.asarray(lab) for lab in loader.ds.labels]
+        labels_np = [np.asarray(get_label_from_datas(
+            self.opt, {"labels": [lab[i] for lab in ds_labels]}))
+            for i in idx_plan]
+        labels = np.stack(labels_np).astype(
+            np.int64 if self.opt.task == "classification" else np.float32)
+        return (idx_plan, mask_plan, tokens, labels, labels_np,
+                [m > 0.5 for m in mask_plan])
+
+    def _gather(self, loader, idx, mask, tokens=None) -> Dict:
+        """The epoch's [NB, bs, ...] model inputs and sample mask on the
+        device, gathered by the row ids ``idx`` ([NB, bs], on the device)
+        from the dataset-order tensors and, for AVEC's random words, the
+        pass's ``tokens``."""
+        flats = self._flat_tensors(loader)
+        if tokens is not None:
+            flats = dict(flats, **dict(zip(MODEL_INPUTS[:3], tokens)))
+        batches = {k: v[idx] for k, v in flats.items()}
+        batches["sample_mask"] = mask
+        return batches
+
     def _stack_epoch(self, loader):
         """The epoch's batches stacked on the device: ([NB, bs, ...] model
         inputs and sample mask, [NB, bs] labels, host labels per batch,
@@ -432,41 +600,60 @@ class Solver:
         tensors (the valid and test splits) are stacked once."""
         if loader in self._stacks:
             return self._stacks[loader]
-        if loader not in self._flats:
-            fields = [("audio", loader._audio), ("video", loader._video)]
-            if loader._text_feat is not None:
-                fields.append(("text", loader._text_feat))
-            if loader._tokens is not None:
-                fields += zip(MODEL_INPUTS[:3], loader._tokens)
-            self._flats[loader] = {k: torch.from_numpy(v).to(self.device)
-                                   for k, v in fields}
-        idx_plan, mask_plan, tokens = loader.next_epoch()
-        flats = self._flats[loader]
-        if not loader.static_tensors:
-            flats = dict(flats, **{k: torch.from_numpy(v).to(self.device)
-                                   for k, v in zip(MODEL_INPUTS[:3], tokens)})
-        idx = torch.from_numpy(idx_plan).to(self.device)
-        batches = {k: v[idx] for k, v in flats.items()}
-        batches["sample_mask"] = torch.from_numpy(mask_plan).to(self.device)
-        ds_labels = [np.asarray(lab) for lab in loader.ds.labels]
-        labels_np = [np.asarray(get_label_from_datas(
-            self.opt, {"labels": [lab[i] for lab in ds_labels]}))
-            for i in idx_plan]
-        labels = torch.from_numpy(np.stack(labels_np).astype(
-            np.int64 if self.opt.task == "classification" else np.float32))
-        result = (batches, labels.to(self.device), labels_np,
-                  [m > 0.5 for m in mask_plan])
+        idx_plan, mask_plan, tokens, labels, labels_np, masks = (
+            self._epoch_plan(loader))
+
+        def up(a):
+            return torch.from_numpy(a).to(self.device)
+
+        batches = self._gather(
+            loader, up(idx_plan), up(mask_plan),
+            None if loader.static_tensors else [up(t) for t in tokens])
+        result = (batches, up(labels), labels_np, masks)
         if not loader.shuffle and loader.static_tensors:
             self._stacks[loader] = result
         return result
 
-    def _train_epoch_scan_dispatch(self, epoch: int):
-        """Enqueue the epoch's stages; returns ``finalize()``, which waits
-        for them and returns what ``train`` returns."""
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device; on the card from page-locked memory
+        without waiting for the device."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _stack_group(self, loader, g: int) -> List[Callable]:
+        """``g`` epochs of ``loader`` for ``--epoch_group``: one function per
+        epoch that returns what ``_stack_epoch`` returns. The plans are
+        drawn as ``g`` calls of ``_stack_epoch`` would draw them (``passes``
+        advances by ``g``), each after the one before, and uploaded in one
+        copy each; an epoch's batches are gathered when its function is
+        called. Unshuffled loaders of fixed tensors give their one stack."""
+        if loader in self._stacks or (not loader.shuffle
+                                      and loader.static_tensors):
+            stacked = self._stack_epoch(loader)
+            return [lambda: stacked] * g
+        plans = [self._epoch_plan(loader) for _ in range(g)]
+        idx, mask, labels = (self._upload(np.stack([p[j] for p in plans]))
+                             for j in (0, 1, 3))
+        tokens = None
+        if not loader.static_tensors:
+            tokens = [self._upload(np.stack([p[2][j] for p in plans]))
+                      for j in range(3)]
+
+        def epoch(i):
+            batches = self._gather(loader, idx[i], mask[i], None if tokens
+                                   is None else [t[i] for t in tokens])
+            return batches, labels[i], plans[i][4], plans[i][5]
+
+        return [functools.partial(epoch, i) for i in range(g)]
+
+    def _enqueue_train(self, epoch: int, batches, labels) -> Dict:
+        """Enqueue the epoch's stage 1 and stage 2 on its stacked batches
+        and swap the banks; returns the device values that ``_train_result``
+        reads."""
         opt = self.opt
-        batches, labels, labels_np, masks = self._stack_epoch(self.train_loader)
-        nb = len(self.train_loader)
-        t0 = time.time()
+        nb = labels.shape[0]
         pass_sums = None
         if epoch > 0 and self.have_bank:
             if opt.stage1_cached:
@@ -487,50 +674,82 @@ class Solver:
             custom_loss=self.custom_loss)
         self.bank.copy_(self.new_bank)
         self.have_bank = True
+        return {"pass_sums": pass_sums, "loss_sum": losses.sum(),
+                "mis_sum": mis.sum(dim=0), "outs": outs}
+
+    def _train_result(self, vals: Dict, labels_np, masks, nb: int):
+        """What ``train`` returns, from ``_enqueue_train``'s values on the
+        host (and the stage-1 log line)."""
+        opt = self.opt
+        sums = [] if vals["pass_sums"] is None else vals["pass_sums"].tolist()
+        self.stage1_pass_losses = [x / nb for x in sums]
+        log_message("  stage1:" + "".join(
+            f" pass{i + 1}:[{l:.4f}]"
+            for i, l in enumerate(self.stage1_pass_losses)))
+        predictions = np.concatenate(
+            [o[m] for o, m in zip(vals["outs"], masks)])
+        targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
+        score = get_score_from_result(predictions, targets, opt.dataset,
+                                      opt.task, opt.num_class)
+        return (float(vals["loss_sum"]) / nb, sum(sums) / nb,
+                (vals["mis_sum"] / nb).tolist(), score)
+
+    def _enqueue_eval(self, batches, labels):
+        """Enqueue one split's eval; returns (the device values that
+        ``_eval_result`` reads, the four feature stacks)."""
+        losses, mis, outs, feats = steps.eval_epoch(
+            self.model, self.opt, batches, labels, self.bank, self.generator,
+            self.have_bank, run=self.graphs, custom_loss=self.custom_loss)
+        return ({"loss_sum": losses.sum(), "mis_sum": mis.sum(dim=0),
+                 "outs": outs}, feats)
+
+    @staticmethod
+    def _features_host(feats, masks) -> List:
+        """[[F, T, A, V] rows of the real samples] per batch."""
+        return [[f[i][m] for f in feats] for i, m in enumerate(masks)]
+
+    def _eval_result(self, vals: Dict, labels_np, masks, n: int):
+        """What ``evaluate`` returns, from ``_enqueue_eval``'s values on the
+        host; the features when ``vals`` holds them (feat0..feat3)."""
+        opt = self.opt
+        predictions = np.concatenate(
+            [o[m] for o, m in zip(vals["outs"], masks)])
+        targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
+        score = get_score_from_result(predictions, targets, opt.dataset,
+                                      opt.task, opt.num_class)
+        features = None
+        if "feat0" in vals:
+            features = self._features_host(
+                [vals[f"feat{j}"] for j in range(4)], masks)
+        return (float(vals["loss_sum"]) / n,
+                (vals["mis_sum"] / n).tolist(), score, predictions, targets,
+                features)
+
+    def _train_epoch_scan_dispatch(self, epoch: int):
+        """Enqueue the epoch's stages; returns ``finalize()``, which waits
+        for them and returns what ``train`` returns."""
+        batches, labels, labels_np, masks = self._stack_epoch(self.train_loader)
+        t0 = time.time()
+        vals = self._enqueue_train(epoch, batches, labels)
         log_message(f"  train dispatch: {time.time() - t0:.2f}s")
 
         def finalize():
-            sums = [] if pass_sums is None else pass_sums.cpu().tolist()
-            self.stage1_pass_losses = [x / nb for x in sums]
-            log_message("  stage1:" + "".join(
-                f" pass{i + 1}:[{l:.4f}]"
-                for i, l in enumerate(self.stage1_pass_losses)))
-            outs_np = outs.float().cpu().numpy()
-            predictions = np.concatenate(
-                [o[m] for o, m in zip(outs_np, masks)])
-            targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
-            score = get_score_from_result(predictions, targets, opt.dataset,
-                                          opt.task, opt.num_class)
-            return (float(losses.sum()) / nb, sum(sums) / nb,
-                    (mis.sum(dim=0).cpu().numpy() / nb).tolist(), score)
+            return self._train_result(_Fetch(vals).wait(), labels_np, masks,
+                                      labels.shape[0])
 
         return finalize
 
     def _evaluate_epoch_scan_dispatch(self, loader):
         """Enqueue one split's eval; returns ``finalize()``, which returns
         what ``evaluate`` returns."""
-        opt = self.opt
         batches, labels, labels_np, masks = self._stack_epoch(loader)
-        losses, mis, outs, feats = steps.eval_epoch(
-            self.model, opt, batches, labels, self.bank, self.generator,
-            self.have_bank, run=self.graphs, custom_loss=self.custom_loss)
+        vals, feats = self._enqueue_eval(batches, labels)
+        if self.opt.save_best_features:
+            vals.update((f"feat{j}", f) for j, f in enumerate(feats))
 
         def finalize():
-            n = len(loader)
-            outs_np = outs.float().cpu().numpy()
-            predictions = np.concatenate(
-                [o[m] for o, m in zip(outs_np, masks)])
-            targets = np.concatenate([t[m] for t, m in zip(labels_np, masks)])
-            score = get_score_from_result(predictions, targets, opt.dataset,
-                                          opt.task, opt.num_class)
-            features = None
-            if opt.save_best_features:
-                feats_np = [f.float().cpu().numpy() for f in feats]
-                features = [[f[i][m] for f in feats_np]
-                            for i, m in enumerate(masks)]
-            return (float(losses.sum()) / n,
-                    (mis.sum(dim=0).cpu().numpy() / n).tolist(), score,
-                    predictions, targets, features)
+            return self._eval_result(_Fetch(vals).wait(), labels_np, masks,
+                                     len(loader))
 
         return finalize
 
@@ -561,6 +780,10 @@ class Solver:
                     "features": [None, None, None],
                     "targets": [None, None],
                     "valid_state": None, "test_state": None}
+        if self._group_supported():
+            return self._solve_loop_grouped(tracking)
+        if opt.epoch_group > 1:
+            log_message(_GROUP_WARNING)
         # pipelined epochs (ref: mimrl_tpu/train/solver.py:1343-1446): epoch
         # e's host work overlaps epoch e + 1's device work; the schedule is
         # stepped at dispatch, so it must not read the valid metric; a
@@ -576,9 +799,7 @@ class Solver:
                 profiler = self._start_profiler(opt.profile_dir)
             t0 = time.time()
             if self.scan_mode:
-                fins = (self._train_epoch_scan_dispatch(epoch),
-                        self._evaluate_epoch_scan_dispatch(self.valid_loader),
-                        self._evaluate_epoch_scan_dispatch(self.test_loader))
+                fins = self._epoch_scan_dispatch(epoch)
             else:
                 results = (self.train(epoch), self.evaluate(self.valid_loader),
                            self.evaluate(self.test_loader))
@@ -611,6 +832,16 @@ class Solver:
                                  *(f() for f in p_fins), snap=p_snap)
             if self._preempted:
                 self._stop_preempted(p_epoch, p_snap)
+        return self._finish(tracking)
+
+    def _epoch_scan_dispatch(self, epoch: int):
+        """Enqueue one ``--epoch_scan`` epoch: the finalize()s of its train
+        stages and of the valid and test evals."""
+        return (self._train_epoch_scan_dispatch(epoch),
+                self._evaluate_epoch_scan_dispatch(self.valid_loader),
+                self._evaluate_epoch_scan_dispatch(self.test_loader))
+
+    def _finish(self, tracking):
         log_message("Training complete.")
         self.writer.close()
         if tracking["score"][0] is not None:
@@ -619,6 +850,265 @@ class Solver:
                           tracking["features"], tracking["valid_state"],
                           tracking["test_state"])
         return tracking["score"]
+
+    # ------------------------------------------------------------------ #
+    # --epoch_group (ref: mimrl_tpu/train/solver.py:699-1140)
+    def _selection_rule(self):
+        """(the device's rule, the score's key): the rule of
+        ``eval/metrics.current_result_better`` (JAX: ``_group_sel`` and
+        ``_group_sel_key``, solver.py:700-712)."""
+        if self.opt.task == "classification":
+            return "acc", f"{self.opt.num_class}-class_acc"
+        rule = "ccc" if self.opt.dataset == "avec2019" else "mae"
+        return rule, rule
+
+    def _group_supported(self) -> bool:
+        """JAX's ``_group_supported`` (solver.py:733-744). Every loader of
+        this package qualifies (fixed tensors, or AVEC's raw-text words,
+        whose plans ``_stack_group`` draws up front) and every task has a
+        rule; a mesh is refused before."""
+        opt = self.opt
+        return (opt.epoch_scan and opt.epoch_group > 1
+                and not opt.check_gradient and not opt.profile_dir)
+
+    def _live_state(self) -> Dict[str, torch.Tensor]:
+        """The training state's tensors by slot path (``model/<name>``,
+        ``opt_main/mu``, ``bank/F``, ...): the tensors themselves, which
+        the steps update in place."""
+        live = {f"model/{k}": v for k, v in self.model.state_dict().items()}
+        for name in ("opt_main", "opt_vmi"):
+            live.update((f"{name}/{part}", t) for part, t in zip(
+                ("count", "mu", "nu"), getattr(self, name).state()))
+        live.update((f"bank/{f}", getattr(self.bank, f))
+                    for f in steps.FeatureBank.FIELDS + ("valid",))
+        return live
+
+    def _select(self, epoch: int, valid, test):
+        """Enqueue epoch ``epoch``'s model selection on the device: each
+        eval split's selection metric, whether it beats that split's best,
+        and the best models replaced where it does (JAX: the scan body's
+        ``_select_tree``, steps.py:784-800). ``valid``, ``test``: (outputs,
+        labels, sample mask, feature stacks). Returns the two device
+        flags; on the card the body is one captured graph."""
+        sel = self._selection_rule()[0]
+        live = self._live_state() if self.opt.save_models else {}
+        best_v, best_t = self._best["valid"], self._best["test"]
+        feats = {}
+        if self.opt.save_best_features:
+            feats = {f"{split}{j}": f for split, (_, _, _, fs) in
+                     (("valid", valid), ("test", test))
+                     for j, f in enumerate(fs)}
+            best_v.reserve(feats)
+            best_t.reserve({k: v for k, v in feats.items()
+                            if k.startswith("test")})
+
+        def body(epoch, v_outs, v_labels, v_mask, t_outs, t_labels, t_mask,
+                 feats):
+            flags = []
+            for best, outs, labels, mask, keep in (
+                    (best_v, v_outs, v_labels, v_mask, feats),
+                    (best_t, t_outs, t_labels, t_mask,
+                     {k: v for k, v in feats.items()
+                      if k.startswith("test")})):
+                metric = steps.selection_metric(sel, outs, labels, mask)
+                better = steps.selection_better(sel, metric, best.metric)
+                best.update(better, metric, epoch, live, keep)
+                flags.append(better)
+            return torch.stack(flags)
+
+        return self.graphs(
+            "select", body,
+            epoch=torch.full((), epoch, dtype=torch.int64,
+                             device=self.device),
+            v_outs=valid[0], v_labels=valid[1], v_mask=valid[2],
+            t_outs=test[0], t_labels=test[1], t_mask=test[2], feats=feats)
+
+    def _dispatch_epoch_group(self, e0: int, g: int) -> Dict:
+        """Enqueue epochs ``e0`` .. ``e0 + g - 1`` with no wait for the
+        device (JAX: ``_dispatch_epoch_group``, solver.py:746-894). The
+        plans of the ``g`` epochs are drawn and uploaded first; each epoch
+        then runs stage 1 on its rung, stage 2, the bank swap, both evals
+        and the selection, and steps the schedule: on the device under
+        plateau, else on the host between epochs, as the pipelined
+        per-epoch loop does. The kernels, generator draws and rates are
+        those of ``g`` per-epoch epochs. Returns the group's record, whose
+        fetch of the per-epoch results is started last."""
+        t0 = time.time()
+        loader = self.train_loader
+        passes0 = loader.passes
+        trains = self._stack_group(loader, g)
+        drawn = loader.passes - passes0
+        valids = self._stack_group(self.valid_loader, g)
+        tests = self._stack_group(self.test_loader, g)
+        values, meta = {}, []
+        for i in range(g):
+            epoch = e0 + i
+            batches, labels, labels_np, masks = trains[i]()
+            train = self._enqueue_train(epoch, batches, labels)
+            evals = {}
+            for split, stacked in (("valid", valids[i]()),
+                                   ("test", tests[i]())):
+                v_batches, v_labels, v_labels_np, v_masks = stacked
+                vals, feats = self._enqueue_eval(v_batches, v_labels)
+                evals[split] = (vals, (vals["outs"], v_labels,
+                                       v_batches["sample_mask"], feats),
+                                (v_labels_np, v_masks))
+            better = self._select(epoch, evals["valid"][1],
+                                  evals["test"][1])
+            record = {"train": train, "valid": evals["valid"][0],
+                      "test": evals["test"][0]}
+            lr_state = None
+            if self._plateau is not None:
+                factor = self._plateau.step(evals["valid"][0]["loss_sum"],
+                                            len(self.valid_loader))
+                self.opt_main.learning_rate_from(factor * self.base_lr_main)
+                self.opt_vmi.learning_rate_from(factor * self.base_lr_vmi)
+                self.lr_schedule.epoch += 1  # the rest is synced at the end
+                record["plateau"] = self._plateau.values()
+            else:
+                self._step_schedule(None)
+                lr_state = self.lr_schedule.state_dict()
+            values.update((f"{i}/{split}/{k}", v)
+                          for split, vals in record.items()
+                          for k, v in vals.items())
+            values[f"{i}/better"] = better
+            meta.append(dict(
+                epoch=epoch, labels_np=labels_np, masks=masks,
+                hosts={s: evals[s][2] for s in ("valid", "test")},
+                slot=dict(lr_schedule=lr_state,
+                          loader_passes=passes0 + min(i + 1, drawn),
+                          rng=self._rng_state()),
+                schedule_epoch=self.lr_schedule.epoch))
+        log_message(f"  group dispatch, epochs {e0 + 1}-{e0 + g}: "
+                    f"{time.time() - t0:.2f}s")
+        return dict(e0=e0, g=g, meta=meta, fetch=_Fetch(values))
+
+    def _finalize_group(self, tracking, group: Dict, dt: float) -> None:
+        """The host half of a group (JAX: ``_finalize_group``,
+        solver.py:896-995): wait for its one copy of results, then per
+        epoch the scores, the replay of the device's selection flags into
+        the best-model bookkeeping, and the log line and scalars that
+        ``_finalize_epoch`` writes; then ``latest`` when the group's end
+        is due one."""
+        got = group["fetch"].wait()
+        g = group["g"]
+        nb = len(self.train_loader)
+        nv, nt = len(self.valid_loader), len(self.test_loader)
+        for i, m in enumerate(group["meta"]):
+            epoch = m["epoch"]
+            if self._plateau is not None:
+                m["slot"]["lr_schedule"] = self._plateau.state_dict(
+                    _part(got, f"{i}/plateau"), m["schedule_epoch"])
+            self._group_meta[epoch] = m["slot"]
+            self._eval_masks = {s: m["hosts"][s][1] for s in m["hosts"]}
+            train = self._train_result(_part(got, f"{i}/train"),
+                                       m["labels_np"], m["masks"], nb)
+            valid = self._eval_result(_part(got, f"{i}/valid"),
+                                      *m["hosts"]["valid"], nv)
+            test = self._eval_result(_part(got, f"{i}/test"),
+                                     *m["hosts"]["test"], nt)
+            better_valid, better_test = (bool(b) for b in got[f"{i}/better"])
+            if better_valid:
+                self._best["valid"].epoch_host = epoch
+            if better_test:
+                self._best["test"].epoch_host = epoch
+            self._track(tracking, better_valid, better_test, valid, test,
+                        None)
+            self._log_epoch(epoch, dt / g, train, valid, test,
+                            m["slot"]["lr_schedule"]["factor"], group=g)
+        latest = group.get("latest")
+        if latest is not None:
+            latest["lr_schedule"] = group["meta"][-1]["slot"]["lr_schedule"]
+            self.ckpt.save("latest", latest)
+
+    def _best_slot(self, best: _DeviceBest) -> Dict:
+        """A device best as the slot that ``_snapshot`` of its epoch gives:
+        its tensors, and the schedule, loader passes and generators that
+        the host recorded at that epoch."""
+        slot = {"format": SLOT_FORMAT, "epoch": best.epoch_host,
+                "model": _part(best.tensors, "model")}
+        for name in ("opt_main", "opt_vmi"):
+            o = getattr(self, name)
+            slot[name] = {"kind": o.kind, "sizes": list(o.sizes),
+                          **_part(best.tensors, name)}
+        slot.update(bank=_part(best.tensors, "bank"), have_bank=True,
+                    **self._group_meta[best.epoch_host])
+        return slot
+
+    def _solve_loop_grouped(self, tracking):
+        """The ``--epoch_group`` loop (JAX: ``_solve_loop_grouped``,
+        solver.py:1014-1141): an epoch with an empty bank on the per-epoch
+        path, then groups of G epochs, group k's host half after group
+        k + 1 is enqueued; ``latest`` at the group ends that reach
+        ``--save_latest_every`` (the cadence rounds to groups) and at a
+        preemption, which stops the run at a group's end."""
+        opt = self.opt
+        e = self.start_epoch
+        if not self.have_bank and e < opt.epochs_num:
+            t0 = time.time()
+            fins = self._epoch_scan_dispatch(e)
+            self._finalize_epoch(tracking, e, time.time() - t0,
+                                 *(f() for f in fins))
+            e += 1
+        rule, key = self._selection_rule()
+        worst = np.inf if rule == "mae" else -np.inf
+        live = self._live_state() if opt.save_models else {}
+        self._best = {split: _DeviceBest(
+            live, worst if score is None else score[key], self.device)
+            for split, score in (("valid", tracking["score"][0]),
+                                 ("test", tracking["score"][1]))}
+        self._plateau = (PlateauState(self.lr_schedule, self.device)
+                         if self.lr_schedule.needs_metric else None)
+        self._group_meta = {}
+        pending = None
+        while e < opt.epochs_num and not self._preempted:
+            g = min(opt.epoch_group, opt.epochs_num - e)
+            t0 = time.time()
+            group = self._dispatch_epoch_group(e, g)
+            e += g
+            if opt.save_latest_every > 0 and (
+                    e % opt.save_latest_every == 0 or e >= opt.epochs_num):
+                group["latest"] = self._snapshot(e - 1)
+            if pending is not None:
+                self._finalize_group(tracking, pending, t0 - pending["t0"])
+            group["t0"] = t0
+            pending = group
+        if pending is not None:
+            self._finalize_group(tracking, pending, time.time() - pending["t0"])
+            if self._plateau is not None:
+                # the host schedule takes the device's state
+                self.lr_schedule.load_state_dict(
+                    pending["meta"][-1]["slot"]["lr_schedule"])
+                self._step_rates()
+        if self._preempted:
+            self._stop_preempted(e - 1, self._snapshot(e - 1))
+        self._best_to_tracking(tracking)
+        return self._finish(tracking)
+
+    def _best_to_tracking(self, tracking) -> None:
+        """The device's best models into the bookkeeping that
+        ``save_results`` writes: the slots and, with
+        ``--save_best_features``, the features of their epochs."""
+        opt = self.opt
+        for split, best in self._best.items():
+            if best.epoch_host is None:
+                continue  # the host's best (epoch 0) stands
+            if int(best.epoch) != best.epoch_host:
+                raise RuntimeError(
+                    f"best {split} epoch {int(best.epoch)} on the device, "
+                    f"{best.epoch_host} in the host's replay")
+            if opt.save_models:
+                tracking[f"{split}_state"] = self._best_slot(best)
+            if opt.save_best_features:
+                got = _Fetch(best.feats).wait()
+                feats = {s: self._features_host(
+                    [got[f"{s}{j}"] for j in range(4)], self._eval_masks[s])
+                    for s in ("valid", "test") if f"{s}0" in got}
+                if split == "valid":
+                    tracking["features"][0] = feats["valid"]
+                    tracking["features"][2] = feats["test"]
+                else:
+                    tracking["features"][1] = feats["test"]
 
     def _start_profiler(self, profile_dir: str):
         """A started ``torch.profiler`` profile of the host and, on the
@@ -642,7 +1132,12 @@ class Solver:
     def _step_schedule(self, val_loss: Optional[float]) -> None:
         """Advance the learning-rate schedule one epoch and apply it to
         both optimizers (ref: Solver.py:52-57)."""
-        factor = self.lr_schedule.step(val_loss)
+        self.lr_schedule.step(val_loss)
+        self._step_rates()
+
+    def _step_rates(self) -> None:
+        """Both optimizers' rates from the schedule's factor."""
+        factor = self.lr_schedule.factor
         self.opt_main.learning_rate = self.base_lr_main * factor
         self.opt_vmi.learning_rate = self.base_lr_vmi * factor
 
@@ -654,14 +1149,9 @@ class Solver:
         epoch's log line and scalar channels, and keep the checkpoint
         cadence."""
         opt = self.opt
-        train_loss, train_loss_mi, train_mis, train_score = train
-        (val_loss, val_mis, val_score, val_predictions, val_targets,
-         val_features) = valid
-        (test_loss, test_mis, test_score, test_predictions, test_targets,
-         test_features) = test
-
+        val_score, test_score = valid[2], test[2]
         if snap is None:
-            self._step_schedule(val_loss)
+            self._step_schedule(valid[0])
 
         # best-model tracking (ref: Solver.py:59-93); one snapshot of the
         # epoch serves both best slots and latest
@@ -679,9 +1169,23 @@ class Solver:
             snap = self._snapshot(epoch)
         factor = (self.lr_schedule.factor if snap is None
                   else snap["lr_schedule"]["factor"])
+        self._track(tracking, better_valid, better_test, valid, test, snap)
+        self._log_epoch(epoch, dt, train, valid, test, factor)
+        if save_latest:
+            self.ckpt.save("latest", snap)
+
+    def _track(self, tracking, better_valid: bool, better_test: bool, valid,
+               test, snap: Optional[Dict]) -> None:
+        """The best-model bookkeeping of one epoch (ref: Solver.py:59-93):
+        ``snap`` becomes the slot of each split it improved (with
+        ``--save_models``)."""
+        (_, _, val_score, val_predictions, val_targets, val_features) = valid
+        (_, _, test_score, test_predictions, test_targets,
+         test_features) = test
+        save = self.opt.save_models
         if better_valid:
             log_message("Better valid score found...")
-            if opt.save_models:
+            if save:
                 tracking["valid_state"] = snap
             tracking["score"][0] = val_score
             tracking["predictions"][0] = val_predictions
@@ -692,24 +1196,30 @@ class Solver:
             tracking["targets"][0] = val_targets
         if better_test:
             log_message("Better test score found...")
-            if opt.save_models:
+            if save:
                 tracking["test_state"] = snap
             tracking["score"][1] = test_score
             tracking["predictions"][1] = test_predictions
             tracking["features"][1] = test_features
             tracking["targets"][1] = test_targets
 
+    def _log_epoch(self, epoch, dt, train, valid, test, factor,
+                   group: Optional[int] = None) -> None:
+        """The epoch's log line and scalar channels; ``dt`` is the epoch's
+        seconds (a group's share under ``--epoch_group``)."""
+        train_loss, _, train_mis, train_score = train
+        val_loss, val_mis, val_score = valid[:3]
+        test_loss, test_mis, test_score = test[:3]
         sps = len(self.train_loader.ds) / max(dt, 1e-9)
         msg = self.build_message(epoch, train_loss, train_mis, train_score,
                                  val_loss, val_mis, val_score, test_loss,
                                  test_mis, test_score)
-        log_message(msg + f" || {dt:.1f}s {sps:.1f} samples/s"
-                    + self._memory_suffix())
+        timing = (f" || {dt:.1f}s {sps:.1f} samples/s" if group is None
+                  else f" || {dt:.2f}s {sps:.1f} samples/s (group of {group})")
+        log_message(msg + timing + self._memory_suffix())
         self.log_scalars(epoch, train_loss, train_mis, train_score, val_loss,
                          val_mis, val_score, test_loss, test_mis, test_score,
                          self.base_lr_main * factor)
-        if save_latest:
-            self.ckpt.save("latest", snap)
 
     def request_preemption(self, *_args) -> None:
         """Stop after the current epoch, with ``latest`` written (the

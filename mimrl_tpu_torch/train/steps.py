@@ -23,6 +23,10 @@
 - ``grad_debug_step`` (``--check_gradient``): a separate forward and
   backward of a stage's loss, giving each parameter's sum and its
   gradient's sum (``mimrl_tpu/train/steps.py:579-616``).
+- ``selection_metric`` / ``selection_better``: the model-selection rule
+  of ``eval/metrics.current_result_better`` as device functions, for the
+  best models that ``--epoch_group`` keeps on the device
+  (``mimrl_tpu/train/steps.py:632-669``).
 - The epoch functions (``critic_epoch_fresh``, ``critic_epoch``,
   ``critic_epoch_cached``, ``train_epoch``, ``eval_epoch``) are the
   ``--epoch_scan`` rung (ref: ``mimrl_tpu/train/steps.py:346-578``): they
@@ -492,3 +496,45 @@ def eval_epoch(model: MimrlModel, cfg: MimrlConfig,
                  **_anchor_kw(anchors, i)) for i in range(nb)]
     losses, mis, outs, *feats = (torch.stack(x) for x in zip(*steps))
     return losses, mis, outs, tuple(feats)
+
+
+# ---------------------------------------------------------------------- #
+# --epoch_group's selection on the device (ref: steps.py:632-669).
+
+
+def selection_metric(sel: str, outs: torch.Tensor, labels: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """The selection scalar of one eval split, float32 over the sample
+    mask: ``outs`` [NB, bs, C], ``labels`` and ``mask`` [NB, bs]. ``mae``
+    (down), ``acc`` (up; the sign for one output, else the argmax) or
+    ``ccc`` (up; ``eval/metrics.ccc_score`` as masked sums), the rules of
+    ``eval/metrics.current_result_better``. Sums in float32 may resolve a
+    near-tie below 1e-7 otherwise than the host's metrics (as in JAX,
+    ``mimrl_tpu/core/config.py:222-226``)."""
+    m = mask.reshape(-1).float()
+    n = m.sum().clamp_min(1.0)
+    if sel == "acc":
+        if outs.shape[-1] == 1:
+            pred = (outs.reshape(-1) > 0).long()
+        else:
+            pred = outs.reshape(-1, outs.shape[-1]).argmax(dim=-1)
+        hit = (pred == labels.reshape(-1).long()).float()
+        return (hit * m).sum() / n
+    p = outs.reshape(-1).float()
+    t = labels.reshape(-1).float()
+    if sel == "mae":
+        return ((p - t).abs() * m).sum() / n
+    if sel == "ccc":
+        mx, my = (p * m).sum() / n, (t * m).sum() / n
+        cov = ((p - mx) * (t - my) * m).sum() / n
+        vx = ((p - mx).square() * m).sum() / n
+        vy = ((t - my).square() * m).sum() / n
+        return 2 * cov / (vx + vy + (mx - my).square())
+    raise NotImplementedError(sel)
+
+
+def selection_better(sel: str, new: torch.Tensor,
+                     best: torch.Tensor) -> torch.Tensor:
+    """The device flag "``new`` beats ``best``": lower MAE, higher
+    accuracy or CCC."""
+    return new < best if sel == "mae" else new > best

@@ -93,6 +93,85 @@ def test_dec_fixture_is_byte_identical(tmp_path):
         name = f"mosei_{split}.pkl"
         assert ((tmp_path / "port" / name).read_bytes()
                 == (tmp_path / "jax" / name).read_bytes())
+    _preflight_matches_jax(tmp_path)
+
+
+def _preflight_matches_jax(tmp_path):
+    """``data/preflight.py`` against the JAX package's, finding for
+    finding (level, code and message), on a good fixture, on the one above
+    (the wrong feature widths for MOSEI) and on broken copies: a missing pickle, a wrong Dec schema, the wrong label
+    width, a missing or a wrong vocab, BERT weights of the wrong width,
+    an SDK feature name, an AVEC directory; and its CLI's exit codes."""
+    import pickle
+
+    from mimrl_tpu.data import preflight as jpre
+    from mimrl_tpu_torch.data import preflight
+
+    good = str(tmp_path / "good")  # Dec-MOSEI's feature widths
+    synthetic.make_dec_fixture(good, "mosei", n_per_split=(3, 2, 2),
+                               d_audio=74, d_video=35, max_len=9, seed=11)
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]"]
+                               + [f"w{i}" for i in range(1200)]))
+    bad_vocab = tmp_path / "bad_vocab.txt"
+    bad_vocab.write_text("a\nb\n")
+    weights = str(tmp_path / "bert.bin")
+    torch.save({"bert.embeddings.word_embeddings.weight": torch.zeros(8, 32)},
+               weights)
+    broken, missing = tmp_path / "broken", tmp_path / "missing"
+    for d, splits in ((broken, ("train", "valid", "test")),
+                      (missing, ("train", "valid"))):
+        d.mkdir()
+        for split in splits:
+            (d / f"mosei_{split}.pkl").write_bytes(
+                (tmp_path / "good" / f"mosei_{split}.pkl").read_bytes())
+    with open(broken / "mosei_valid.pkl", "rb") as f:
+        entries = pickle.load(f)
+    (features, label, sid) = entries[0]
+    with open(broken / "mosei_valid.pkl", "wb") as f:  # 1 label, not 7
+        pickle.dump([(features, np.asarray(label).reshape(-1)[:1], sid)]
+                    + entries[1:], f)
+    schema = tmp_path / "schema"
+    schema.mkdir()
+    for split, data in (("train", [("a", "b", "c")]), ("valid", {"x": 1}),
+                        ("test", [])):
+        with open(schema / f"mosei_{split}.pkl", "wb") as f:
+            pickle.dump(data, f)
+    cases = [
+        ("mosei_Dec", good, dict(bert_vocab=str(vocab), bert_weights=weights,
+                                 bert_hidden=32)),
+        ("mosei_Dec", good, {}),
+        ("mosei_Dec", str(tmp_path / "port"), {}),
+        ("mosei_Dec", good, dict(bert_vocab=str(bad_vocab),
+                                 bert_weights=weights)),
+        ("mosei_Dec", good, dict(bert_vocab=str(tmp_path / "none.txt"),
+                                 bert_weights=str(tmp_path / "none.bin"))),
+        ("mosei_Dec", str(broken), {}),
+        ("mosei_Dec", str(missing), {}),
+        ("mosei_Dec", str(schema), {}),
+        ("mosei_Dec", str(tmp_path / "nowhere"), {}),
+        ("mosi_SDK", good, dict(audio="opensmile", text="glove")),
+        ("avec2019", good, {}),
+    ]
+    seen = set()
+    for dataset, root, kw in cases:
+        got = preflight.run_preflight(dataset, root, **kw)
+        seen |= {f.code for f in got}
+        want = jpre.run_preflight(dataset, root, **kw)
+        assert [(f.level, f.code, f.message) for f in got] == [
+            (f.level, f.code, f.message) for f in want], (dataset, root, kw)
+        assert [str(f) for f in got] == [str(f) for f in want]
+    assert seen == {
+        "pickle_missing", "vocab_missing", "weights_missing", "dec_schema",
+        "dec_label_cols", "dec_audio_dim", "dec_video_dim", "vocab_specials",
+        "vocab_small", "weights_hidden_mismatch", "vocab_not_found",
+        "weights_not_found", "data_dir_not_found"}, seen
+    assert preflight.main(["--dataset", "mosei_Dec", "--data_dir", good,
+                           "--bert_vocab", str(vocab), "--bert_weights",
+                           weights, "--bert_hidden", "32"]) == []
+    with pytest.raises(SystemExit) as stop:
+        preflight.main(["--dataset", "mosei_Dec", "--data_dir", str(schema)])
+    assert stop.value.code == 1
 
 
 @pytest.mark.parametrize("shuffle", [False, True])

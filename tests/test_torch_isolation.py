@@ -35,6 +35,7 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch.mi.estimators, mimrl_tpu_torch.mi.knn\n"
             "import mimrl_tpu_torch.models.fusion, mimrl_tpu_torch.train.custom\n"
             "import mimrl_tpu_torch.train.regularizers\n"
+            "import mimrl_tpu_torch.tools.parity, mimrl_tpu_torch.data.preflight\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -43,6 +44,7 @@ def test_import_loads_no_jax():
     assert "mimrl_tpu_torch.eval.predict" in loaded
     assert "mimrl_tpu_torch.train.steps" in loaded
     assert "mimrl_tpu_torch.train.regularizers" in loaded
+    assert "mimrl_tpu_torch.tools.parity" in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
 
@@ -52,7 +54,7 @@ def test_no_source_file_imports_jax():
     offenders = []
     files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("mi", "train", "cli", "ops"):
+    for sub in ("mi", "train", "cli", "ops", "tools"):
         assert any(path.parent.name == sub for path in files), sub
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

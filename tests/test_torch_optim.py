@@ -174,3 +174,38 @@ def test_lr_scheduler_matches_jax(kind, iters):
         assert ps.step(loss) == js.step(loss)
     assert ps.needs_metric == js.needs_metric == (kind == "plateau")
     assert ps.factor < 1.0
+    if kind == "plateau":
+        _plateau_on_the_device_matches_jax(iters)
+
+
+def _plateau_on_the_device_matches_jax(iters):
+    """``PlateauState`` (``--epoch_group``'s schedule on the device) over a
+    seeded sequence of float32 valid-loss sums of 3 batches, with ties,
+    against the JAX package's schedule stepped on ``float(sum) / 3``: the
+    same factor after every epoch, exactly, and rates written on the
+    device equal to the host setter's; its state equals the port's host
+    schedule's after the same steps. Both modes (regression: min,
+    classification: max), a factor of 0.1 (inexact products)."""
+    rng = np.random.default_rng(5)
+    sums = rng.normal(3.0, 0.2, size=12).astype(np.float32)
+    sums[[4, 9]] = sums[[3, 8]]  # ties do not count as better
+    for task in ("regression", "classification"):
+        kw = dict(task=task, lr_decrease="plateau", lr_decrease_iter=iters,
+                  lr_decrease_rate=0.1)
+        js = joptim.LRScheduler(JaxConfig(**kw))
+        ps = optim.LRScheduler(MimrlConfig(**kw))
+        dev = optim.PlateauState(ps, "cpu")
+        params = [nn.Parameter(torch.zeros(2))]
+        on_dev, on_host = (optim.ChainOptimizer(MimrlConfig(), params)
+                           for _ in range(2))
+        for epoch, loss_sum in enumerate(sums, 1):
+            want = js.step(float(loss_sum) / 3)
+            ps.step(float(loss_sum) / 3)
+            got = dev.step(torch.tensor(loss_sum), 3)
+            assert got.dtype == torch.float64 and got.item() == want
+            on_dev.learning_rate_from(got * 4e-3)
+            on_host.learning_rate = 4e-3 * want
+            assert torch.equal(on_dev._neg_lr, on_host._neg_lr)
+            values = {k: v.numpy() for k, v in dev.values().items()}
+            assert dev.state_dict(values, epoch) == ps.state_dict()
+        assert js.factor < 0.05  # decayed at least twice

@@ -6,8 +6,10 @@ critic passes) and stage 2 with MI. The artifacts exist, the telemetry has
 the reference's channels, and ``Predictor`` loads the ``best_valid`` slot
 the run wrote, and its ``latest`` slot holds the whole training state.
 ``--custom_loss``, ``--check_gradient`` and ``--profile_dir`` train
-together (``test_hooks_train_on_the_cpu``). Flags whose path is not
-ported raise; the two kernel flags
+together (``test_hooks_train_on_the_cpu``). ``--epoch_group 2`` equals
+the per-epoch ``--epoch_scan`` run bit for bit, and the parity harness
+gives JAX's report (``test_epoch_group_equals_per_epoch``). Flags whose
+path is not ported raise; the two kernel flags
 (``--use_pallas``, ``--quant``) train and serve through the plain versions.
 
 The schedule rungs (``test_rungs``): each stage-1 mode's epoch function,
@@ -157,12 +159,300 @@ def test_two_runs_of_one_seed_agree(run):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--epoch_group", "2"], ["--mesh_model", "2"], ["--mesh_data", "4"],
-    ["--distributed"]])
+    ["--mesh_model", "2"], ["--mesh_data", "4"], ["--distributed"]])
 def test_unported_flags_raise(run, flags):
     root = run[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Solver(parse_args(_argv(root, "--task_name", "refused", *flags)))
+
+
+GROUP_RUNS = {  # name -> (dataset flags or None, other flags)
+    # a 5-epoch DeclareLab run (MAE): epoch 0, then groups (1, 2), (3, 4)
+    "mae": (None, ["--save_best_features"]),
+    # the plateau schedule stepped on the device, with --stage1_cached
+    "plateau": (None, ["--lr_decrease", "plateau", "--lr_decrease_iter", "1",
+                       "--lr_decrease_rate", "0.5", "--stage1_cached"]),
+    # without best slots the device's best still starts from epoch 0's score
+    "acc": ("mosi_50", ["--task", "classification", "--num_class", "2",
+                        "--loss", "CE", "--save_best_features",
+                        "--no_save_models"]),
+    # random words drawn for every split and epoch up front
+    "ccc": ("avec2019", []),
+}
+
+
+def _selection_matches_jax():
+    """``steps.selection_metric`` against the JAX package's metric
+    functions on seeded predictions, and a sequence of decisions by
+    ``selection_better`` against its ``current_result_better``."""
+    from mimrl_tpu.eval import metrics as jmetrics
+
+    rng = np.random.default_rng(3)
+    for sel, (task, num_class, dataset, key) in {
+            "mae": ("regression", 1, "mosi_Dec", "mae"),
+            "ccc": ("regression", 1, "avec2019", "ccc"),
+            "acc": ("classification", 2, "mosi_50", "2-class_acc"),
+            "acc1": ("classification", 1, "mosi_50", "1-class_acc")}.items():
+        best, best_score = None, None
+        for _ in range(6):
+            mask = (rng.uniform(size=(3, 8)) > 0.2).astype(np.float32)
+            width = num_class if num_class > 1 else 1
+            outs = rng.normal(size=(3, 8, width)).astype(np.float32)
+            labels = (rng.integers(0, 2, size=(3, 8)) if task ==
+                      "classification" else rng.normal(size=(3, 8)))
+            labels = labels.astype(np.float32)
+            keep = mask.reshape(-1) > 0.5
+            preds = outs.reshape(-1, width)[keep]
+            score = jmetrics.get_score_from_result(
+                preds, labels.reshape(-1)[keep], dataset, task, num_class)
+            metric = steps.selection_metric(
+                sel[:3], torch.from_numpy(outs), torch.from_numpy(labels),
+                torch.from_numpy(mask))
+            assert metric.dtype == torch.float32
+            assert metric.item() == pytest.approx(score[key], rel=1e-5,
+                                                  abs=1e-6), sel
+            want = jmetrics.current_result_better(best_score, score, task,
+                                                  num_class, dataset)
+            got = best is None or bool(steps.selection_better(
+                sel[:3], metric, best))
+            assert got == want, sel
+            if want:
+                best, best_score = metric, score
+
+
+def _group_argv(root, name, dataset, flags, *extra):
+    data = []
+    if dataset == "mosi_50":
+        make_local_fixture(f"{root}/g_{dataset}", dataset,
+                           n_per_split=(N_TRAIN, N_VALID, N_TEST),
+                           dims=(300, 5, 20), time_len=14, seed=5)
+    elif dataset == "avec2019":
+        make_avec_fixture(f"{root}/g_{dataset}",
+                          n_per_split=(N_TRAIN, N_VALID, N_TEST), seed=5)
+    if dataset:
+        data = FAMILY_FLAGS[dataset] + ["--data_dir", f"{root}/g_{dataset}"]
+    return _argv(root, "--task_name", name, "--epochs_num", "5",
+                 "--epoch_scan", *data, *flags, *extra)
+
+
+def _same(a, b, what):
+    """Bit-equality of two slots (nested dicts of tensors and values)."""
+    if torch.is_tensor(a):
+        assert a.dtype == b.dtype and torch.equal(a, b), what
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            _same(a[k], b[k], f"{what}.{k}")
+    else:
+        assert a == b, what
+
+
+def _decisions(task):
+    """Per epoch, the (valid, test) "Better ... score found" lines that
+    the run logged before its epoch line."""
+    out, now = [], [False, False]
+    for line in open(f"{task}/Running.log"):
+        if "Better valid score found" in line:
+            now[0] = True
+        elif "Better test score found" in line:
+            now[1] = True
+        elif "Epoch:[" in line:
+            out.append(tuple(now))
+            now = [False, False]
+    return out
+
+
+def _jax_decisions(scored, cfg):
+    """The decisions of the JAX package's ``current_result_better`` on
+    its own metric functions over the predictions each epoch scored
+    (train, valid, test in turn)."""
+    from mimrl_tpu.eval import metrics as jmetrics
+
+    best, out = [None, None], []
+    for e in range(len(scored) // 3):
+        flags = []
+        for j, (preds, targets) in enumerate(scored[3 * e + 1:3 * e + 3]):
+            score = jmetrics.get_score_from_result(
+                preds, targets, cfg.dataset, cfg.task, cfg.num_class)
+            flags.append(jmetrics.current_result_better(
+                best[j], score, cfg.task, cfg.num_class, cfg.dataset))
+            if flags[-1]:
+                best[j] = score
+        out.append(tuple(flags))
+    return out
+
+
+def test_epoch_group_equals_per_epoch(run, monkeypatch, tmp_path):
+    """``--epoch_scan --epoch_group 2`` against the per-epoch
+    ``--epoch_scan`` run of the same seed, 5 epochs each, for the MAE,
+    accuracy and CCC rules (AVEC's random words) and the plateau schedule
+    on the device (with ``--stage1_cached``): bit for bit in the final
+    state, both best slots, every ``scalars.jsonl`` value, the saved
+    predictions and features, and every better-epoch decision, which
+    also equals the JAX package's ``current_result_better`` on its own
+    metric functions over the same predictions. Each split's loader
+    passes end where the per-epoch run's do. A grouped run preempted in its
+    first group and resumed ends where the uninterrupted one does. The
+    selection functions against JAX's metrics; a run that cannot be grouped logs JAX's
+    warning and runs per epoch; the parity harness
+    (``tools/parity.py``) with ``--epoch_group 2`` gives JAX's keys, and
+    its ``compare_reports`` equals JAX's."""
+    from mimrl_tpu_torch.cli.main import set_random_seed
+    from mimrl_tpu_torch.train import solver as solver_mod
+
+    _selection_matches_jax()
+    root = run[0]
+    scored = []
+
+    def recording(predictions, targets, *args):
+        scored.append((np.array(predictions), np.array(targets)))
+        return score_fn(predictions, targets, *args)
+
+    score_fn = solver_mod.get_score_from_result
+    monkeypatch.setattr(solver_mod, "get_score_from_result", recording)
+    for name, (dataset, flags) in GROUP_RUNS.items():
+        solvers = {}
+        for mode, extra in (("p", []), ("g", ["--epoch_group", "2"])):
+            scored.clear()
+            opt = parse_args(_group_argv(root, f"group_{name}_{mode}",
+                                         dataset, flags, *extra))
+            set_random_seed(opt)
+            solvers[mode] = solver = Solver(opt, device="cpu")
+            assert solver._group_supported() == (mode == "g")
+            solver.solve()
+            decisions = _decisions(solver.task_path)
+            assert len(decisions) == 5
+            assert decisions == _jax_decisions(scored, opt), (name, mode)
+        p, g = (solvers[m].task_path for m in "pg")
+        log = open(f"{g}/Running.log").read()
+        assert log.count("(group of 2)") == 4 and "group dispatch" in log
+        assert (open(f"{p}/scalars.jsonl").read()
+                == open(f"{g}/scalars.jsonl").read()), name
+        assert _decisions(p) == _decisions(g), name
+        for slot in ("latest", "best_valid", "best_test"):
+            _same(CheckpointManager(p).restore(slot),
+                  CheckpointManager(g).restore(slot), f"{name} {slot}")
+        for f in sorted(os.listdir(p)):
+            if f.endswith((".npy", ".pkl")):
+                a, b = (open(f"{d}/{f}", "rb").read() for d in (p, g))
+                assert a == b, f"{name} {f}"
+        for loader in ("train_loader", "valid_loader", "test_loader"):
+            assert (getattr(solvers["p"], loader).passes
+                    == getattr(solvers["g"], loader).passes), loader
+        if name == "plateau":
+            lr = [json.loads(r)["value"] for r in open(f"{g}/scalars.jsonl")
+                  if json.loads(r)["tag"] == "Lr"]
+            assert min(lr) < max(lr)  # the schedule decayed inside a group
+            assert (solvers["g"].lr_schedule.state_dict()
+                    == solvers["p"].lr_schedule.state_dict())
+        if name == "mae":  # a best taken inside a group, on both sides
+            assert 0 < CheckpointManager(g).restore("best_valid")["epoch"]
+            _preempted_group_resumes(root, flags, g, monkeypatch)
+        if name == "ccc":
+            assert solvers["g"].valid_loader.passes == 5
+    monkeypatch.undo()
+
+    # unsupported: JAX's warning, then the per-epoch path
+    for flags in (["--epoch_group", "2"],
+                  ["--epoch_group", "2", "--epoch_scan", "--profile_dir",
+                   str(tmp_path / "prof")]):
+        solver = Solver(parse_args(_argv(root, "--task_name", "ungrouped",
+                                         *flags)), device="cpu")
+        assert not solver._group_supported()
+        solver.writer.close()
+    main(_argv(root, "--task_name", "ungrouped", "--epoch_group", "2",
+               "--epochs_num", "1", "--no_save_models"))
+    assert solver_mod._GROUP_WARNING in open(
+        f"{root}/runs/ungrouped/Running.log").read()
+
+    _parity_matches_jax(tmp_path)
+
+
+def _preempted_group_resumes(root, flags, want, monkeypatch):
+    """A grouped run asked to stop during its first group stops at the
+    group's end with ``latest`` at epoch 2; resumed with ``--resume``, it
+    runs the last group and ends in the uninterrupted run's ``latest``,
+    bit for bit."""
+    dispatch = Solver._dispatch_epoch_group
+
+    def preempting(self, e0, g):
+        out = dispatch(self, e0, g)
+        self.request_preemption()
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(Solver, "_dispatch_epoch_group", preempting)
+        main(_group_argv(root, "group_stop", None, flags, "--epoch_group",
+                         "2"))
+    stopped = f"{root}/runs/group_stop"
+    assert CheckpointManager(stopped).restore("latest")["epoch"] == 2
+    assert "Preemption requested" in open(f"{stopped}/Running.log").read()
+    main(_group_argv(root, "group_resumed", None, flags, "--epoch_group",
+                     "2", "--resume", stopped))
+    _same(CheckpointManager(f"{root}/runs/group_resumed").restore("latest"),
+          CheckpointManager(want).restore("latest"), "resumed latest")
+
+
+def _jax_report_keys():
+    """The keys of the report dict that the JAX harness's ``run_parity``
+    builds, read from its source."""
+    import ast
+    import inspect
+
+    from mimrl_tpu.tools import parity as jparity
+
+    tree = ast.parse(inspect.getsource(jparity.run_parity))
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and node.targets[0].id == "report"):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("no report dict in the JAX harness")
+
+
+def _parity_matches_jax(tmp_path):
+    """A hermetic ``tools/parity.py`` run on the CPU with two epochs in
+    groups of 2, and its comparison against itself, a perturbed copy and
+    a flat metric dict, by the port's ``compare_reports`` and JAX's."""
+    from mimrl_tpu.tools import parity as jparity
+    from mimrl_tpu_torch.tools import parity
+
+    out = str(tmp_path / "parity.json")
+    report = parity.main(["--synthetic", "--allow_hermetic", "--epochs_num",
+                          "2", "--epoch_group", "2", "--device", "cpu",
+                          "--task_dir", str(tmp_path / "runs"), "--out", out])
+    assert set(report) == _jax_report_keys()
+    assert report["config"]["epoch_group"] == 2 and report["hermetic"]
+    channels = report["mi_channels"]
+    assert len(channels) == 24 and all(len(v) == 2 for v in channels.values())
+    assert set(channels) == {f"{s}/{c}" for s in ("Train", "Val", "Test")
+                             for c in parity.MI_CHANNELS}
+    assert np.isfinite(report["samples_per_sec"])
+    scores = report["test_score_at_best_valid"]
+    assert np.isfinite(list(scores.values())).all()
+    with open(out) as f:
+        doc = json.load(f)
+    bad = json.loads(json.dumps(doc))
+    bad["test_score_at_best_valid"]["mae"] *= 1.05
+    flat = dict(scores, mae=scores["mae"] * 1.001, name="paper")
+    for ours, ref, tol in ((doc, doc, 0.01), (doc, bad, 0.01),
+                           (doc, flat, 0.01), (doc, flat, 1e-4)):
+        got = parity.compare_reports(ours, ref, tol)
+        assert got == jparity.compare_reports(ours, ref, tol)
+    assert parity.compare_reports(doc, doc, 0.0)["pass"]
+    assert not parity.compare_reports(doc, bad, 0.01)["pass"]
+    bad_path = str(tmp_path / "bad.json")
+    with open(bad_path, "w") as f:
+        json.dump(bad, f)
+    assert parity.main(["--compare", out, out])["pass"]
+    with pytest.raises(SystemExit) as stop:
+        parity.main(["--compare", out, bad_path])
+    assert stop.value.code == 1
+    with pytest.raises(SystemExit, match="REFUSING"):
+        parity.main(["--synthetic", "--epochs_num", "1", "--device", "cpu",
+                     "--task_dir", str(tmp_path / "runs")])
+    with pytest.raises(SystemExit) as stop:  # one optimizer code path
+        parity.main(["--synthetic", "--allow_hermetic", "--fused_optim"])
+    assert stop.value.code == 2
 
 
 def _regularizers_match_jax():
