@@ -184,6 +184,31 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            of 5 values per split, samples/s, each group's launches twice an
            epoch's; ``--compare`` of the grouped report with itself passes
            and with a perturbed copy exits 1.
+12. mi_bank the estimator bank batched (``--fused_estimators``, the
+           default) against sequential at the canonical widths (bs 128,
+           d_common 128, hidden 256, embed 128, k_neighbor 2), InfoNCE with
+           a separate critic and TUBA with an unnormalized baseline: both
+           stages' values within rtol 2e-5 / atol 1e-6 and every stage-1
+           gradient within rtol 5e-5 / atol 1e-6 (JAX's limits), and with
+           two estimators' stacked first-layer weights swapped the gate
+           must fail; the bank's device busy ms and kernel launches per
+           call, batched against sequential (profiler). The canonical bf16
+           recipe's eager ``train_step`` and ``critic_step`` (CUDA events;
+           12 + 12 and 12 attention launches, counted) and its replayed
+           rung steps (busy ms, idle share), with the default flags
+           against ``--unfused_estimators --unfused_av_scan``, in turns.
+           The audio/video pair (``--fused_av_scan``): the two bi-GRUs on
+           two streams equal the two calls in turn bit for bit, outputs and
+           gradients, and each tower fed the other's lengths must differ;
+           the encoders' forward and backward ms with and without streams,
+           eagerly and replayed from a CUDA graph.
+13. standalone ``mi/standalone.py``'s sweep on the card at rho 0.7 and
+           ``tests/test_bounds.py``'s recovery settings: each of its seven
+           (bound, critic, baseline) cases within (0.35, 2.5) x the true
+           MI, ``js_fgan`` in (-1, 0.05], CLUB (``mean``) above 0.6 x the
+           truth, an independent y (CLUB, 30 epochs, as
+           ``tests/test_fusion_club.py``) below 0.4 and 0.35 x the truth,
+           InfoNCE on the independent y stated; wall s each.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -518,6 +543,31 @@ def profiler_ms(fn, kernel_name=None, reps: int = 10):
         return None
     return 1e-3 * (statistics.median(times) if isinstance(kernel_name, str)
                    else sum(times) / reps)
+
+
+def device_busy_ms(prof) -> tuple:
+    """(union, sum) of a profile's device records in ms: the time the
+    device was busy at all (kernels on concurrent streams, as the A/V
+    pair's, counted once) and the sum of the records' own times."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    union, start, end = 0.0, None, None
+    for s, e in spans:
+        if end is None or s > end:
+            union += 0.0 if end is None else end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    union += 0.0 if end is None else end - start
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return union / 1e3, total / 1e3
 
 
 def profiler_names(fn) -> list:
@@ -1685,7 +1735,7 @@ def train_profile(solver, mb, labels, name: str,
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows) / 3e3
+    busy_ms = device_busy_ms(prof)[0] / 3
     attention_ms = sum(r[1] for r in rows if "flash_" in r[0]) / 3e3
     emit(phase=name, step=step_name, steps=3, card=card(),
          wall_ms_per_step_profiled=wall_ms, device_busy_ms_per_step=busy_ms,
@@ -2446,12 +2496,10 @@ def profiled_steps(fn, n: int) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
     span_ms = start.elapsed_time(end) / n
-    busy = sum(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-    busy_ms = busy / 1e3 / n
+    busy, total = device_busy_ms(prof)
+    busy_ms = busy / n
     return dict(device_busy_ms=busy_ms if busy else None,
+                device_kernel_sum_ms=total / n if busy else None,
                 device_span_ms=span_ms,
                 idle_share=(1.0 - busy_ms / span_ms) if busy else None,
                 wall_ms=wall_ms)
@@ -3778,14 +3826,11 @@ def instrumented(fn, profile_from=None, patches=()):
                 torch.cuda.synchronize()
                 window["profile"].stop()
                 span = window["start"].elapsed_time(end)
-                busy = sum(getattr(e, "self_device_time_total",
-                                   getattr(e, "self_cuda_time_total", 0.0))
-                           for e in window["profile"].key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA)
+                busy = device_busy_ms(window["profile"])[0]
                 info["profile"] = dict(
                     epochs=[profile_from, profile_from + 1], span_ms=span,
-                    busy_ms=busy / 1e3 if busy else None,
-                    idle_share=1 - busy / 1e3 / span if busy else None)
+                    busy_ms=busy if busy else None,
+                    idle_share=1 - busy / span if busy else None)
             return out
         return dispatch
 
@@ -4093,6 +4138,480 @@ def group_phase(root: str):
     return add(*grouped)
 
 
+# ---------------------------------------------------------------------- #
+# The mi_bank phase: the batched estimator bank (--fused_estimators) and
+# the audio/video pair (--fused_av_scan), both on by default; and the
+# standalone phase: mi/standalone.py's calibration sweep.
+
+BANK_TOL = dict(rtol=2e-5, atol=1e-6)  # JAX's limits for the fused bank
+BANK_GRAD_TOL = dict(rtol=5e-5, atol=1e-6)
+BANK_CASES = (("infonce", "separate", "constant"),
+              ("tuba", "separate", "unnormalized"))
+UNFUSED = ["--unfused_estimators", "--unfused_av_scan"]
+BANK_PROFILE_CALLS = 10
+AV_REPS = 10
+
+
+def bank_model(bound, critic, baseline):
+    """The canonical model's estimator bank (d_common 128, fused features
+    128 wide, hidden 256, embed 128) on the card, seeded; the rest of the
+    model is cut to dense text of width 8, which the bank never reads."""
+    import torch
+
+    from mimrl_tpu_torch.models.model import MimrlModel, init_weights
+
+    with torch.device("meta"):
+        m = MimrlModel(d_a=5, d_v=20, d_common=128, d_t=8, raw_text=False,
+                       time_len=TIME_LEN, d_hiddens=((50, 3, 128), (10, 3, 128)),
+                       d_outs=((50, 3, 128), (10, 3, 128)), bound_type=bound,
+                       critic_type=critic, baseline_type=baseline,
+                       fused_estimators=True)
+    m = m.to_empty(device="cpu")
+    init_weights(m, torch.Generator().manual_seed(3))
+    return m.cuda()
+
+
+def bank_inputs(seed: int):
+    """Labels, (F, T, A, V) and the six kNN triples at bs 128: features
+    drawn on the card, the triples by the port's sampler from a bank of 384
+    random rows (k_neighbor 2, radius 1)."""
+    import torch
+
+    from mimrl_tpu_torch.train import steps
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    feats = [torch.randn(BATCH, 128, device="cuda", generator=g)
+             for _ in range(4)]
+    labels = torch.randn(BATCH, device="cuda", generator=g)
+    bank = steps.FeatureBank(N_TRAIN, N_TRAIN, 128, device="cuda")
+    for t in bank.tensors()[:5]:
+        t.copy_(torch.randn(t.shape, device="cuda", generator=g))
+    knn = steps.sample_all_knn(g, bank, BATCH, 2, 1.0)
+    return labels, feats, knn
+
+
+def bank_values(model, fused: bool, labels, feats, knn):
+    """Both stages' values and the stage-1 gradients by parameter name."""
+    import torch
+
+    model.fused_estimators = fused
+    names = [n for n, _ in model.named_parameters()
+             if n.startswith(("vmi_", "vcmi_"))]
+    params = dict(model.named_parameters())
+    mis1, losses1 = model.compute_vmi_loss_stage1(labels, *feats, knn)
+    grads = torch.autograd.grad(sum(losses1), [params[n] for n in names])
+    mis2, losses2 = model.compute_vmi_loss_stage2(labels, *feats, knn)
+    values = dict(mis1=torch.stack(mis1), losses1=torch.stack(losses1),
+                  mis2=torch.stack(mis2), losses2=torch.stack(losses2))
+    return ({k: v.detach() for k, v in values.items()},
+            dict(zip(names, grads)))
+
+
+def close_record(got, want, tol) -> dict:
+    """Whether every element of ``got`` is within ``tol`` of ``want``
+    (numpy's allclose rule), the largest absolute error, and the largest
+    error over the tolerance."""
+    import torch
+
+    err = (got.double() - want.double()).abs()
+    room = tol["atol"] + tol["rtol"] * want.double().abs()
+    return dict(ok=bool((err <= room).all()), max_abs_err=err.max().item(),
+                worst_over_tol=(err / room).max().item())
+
+
+def bank_gate(model, labels, feats, knn, patches=()) -> dict:
+    """The batched bank (under ``patches``) against the sequential one on
+    the same weights and inputs: values at JAX's limits (BANK_TOL),
+    gradients at its gradient limits (BANK_GRAD_TOL), element by element."""
+    with patched(patches):
+        got, got_g = bank_values(model, True, labels, feats, knn)
+    want, want_g = bank_values(model, False, labels, feats, knn)
+    values = {k: close_record(got[k], want[k], BANK_TOL) for k in want}
+    grads = {k: close_record(got_g[k], want_g[k], BANK_GRAD_TOL)
+             for k in want_g}
+    worst = max(grads.items(), key=lambda kv: kv[1]["worst_over_tol"])
+    return dict(
+        ok=all(r["ok"] for r in values.values())
+        and all(r["ok"] for r in grads.values()),
+        values=values, gradients_compared=len(grads),
+        gradients_failed=[k for k, r in grads.items() if not r["ok"]][:8],
+        gradient_max_abs_err=max(r["max_abs_err"] for r in grads.values()),
+        gradient_worst=dict(name=worst[0], **worst[1]))
+
+
+def swapped_stack():
+    """The fault control: ``stack_linears`` with the first two estimators'
+    first-layer weights swapped in the stack."""
+    from mimrl_tpu_torch.mi import critics, estimators
+
+    real = critics.stack_linears
+
+    def swapped(modules):
+        layers = real(modules)
+        w, b = layers[0]
+        order = [1, 0] + list(range(2, w.shape[0]))
+        layers[0] = (w[order], b)
+        return layers
+
+    return [(critics, "stack_linears", swapped),
+            (estimators, "stack_linears", swapped)]
+
+
+def bank_profile(model, labels, feats, knn) -> dict:
+    """Device busy ms and kernel launches of the bank's stage-1 forward,
+    and of the forward with the backward of its summed losses, per call,
+    batched against sequential (profiler, BANK_PROFILE_CALLS calls each);
+    and the same by CUDA events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params = [p for n, p in model.named_parameters()
+              if n.startswith(("vmi_", "vcmi_"))]
+
+    def forward():
+        return model.compute_vmi_loss_stage1(labels, *feats, knn)[1]
+
+    def both():
+        torch.autograd.grad(sum(forward()), params)
+
+    out = {}
+    for fused in (True, False):
+        model.fused_estimators = fused
+        for name, fn in (("forward", forward), ("forward_backward", both)):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(BANK_PROFILE_CALLS):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [e for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = device_busy_ms(prof)[0]
+            kernels = sum(e.count for e in rows
+                          if "memcpy" not in e.key.lower()
+                          and "memset" not in e.key.lower())
+            key = f"{'batched' if fused else 'sequential'}_{name}"
+            out[key] = dict(
+                busy_ms=busy / BANK_PROFILE_CALLS if busy else None,
+                launches=kernels / BANK_PROFILE_CALLS if rows else None,
+                events_ms=cuda_ms(fn, 2, 10))
+    model.fused_estimators = True
+    return out
+
+
+def eager_steps(solver) -> dict:
+    """Eager ``train_step`` (with MI) and ``critic_step`` of a Solver by
+    CUDA events (median of 10 after 2 warm-up runs)."""
+    from mimrl_tpu_torch.train import steps
+
+    o, gen = solver.opt, solver.generator
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+    solver.model.train()
+    return dict(
+        train_step_ms=cuda_ms(lambda: steps.train_step(
+            solver.model, solver.opt_main, o, mb, labels, solver.bank,
+            solver.new_bank, 0, gen, True), 2, 10),
+        critic_step_ms=cuda_ms(lambda: steps.critic_step(
+            solver.model, solver.opt_vmi, o, mb, labels, solver.bank, gen),
+            2, 10))
+
+
+def profiled_eager_steps(solver) -> dict:
+    """Three eager train steps under the profiler (busy, span, idle
+    share)."""
+    from mimrl_tpu_torch.train import steps
+
+    o = solver.opt
+    mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+
+    def three():
+        for _ in range(3):
+            steps.train_step(solver.model, solver.opt_main, o, mb, labels,
+                             solver.bank, solver.new_bank, 0,
+                             solver.generator, True)
+
+    return profiled_steps(three, 3)
+
+
+def step_comparison(root: str) -> tuple:
+    """The canonical bf16 recipe's steps with the default flags and with
+    ``--unfused_estimators --unfused_av_scan``: two Solvers (``--epoch_scan``,
+    so each has its step graphs) on one seeded random bank; one eager train
+    and critic step of each counted first; then the eager steps by CUDA
+    events in turns (default, unfused, unfused, default, default,
+    unfused), three eager train steps of each under the profiler, and the
+    replayed rung steps (``rung_profile``). Returns (the record, launches
+    of the counted steps)."""
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    data = f"{root}/train_data"
+    if not os.path.isdir(data):
+        make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
+                         d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
+    argv = CANONICAL_MOSI + CANONICAL_TRAIN + [
+        "--data_dir", data, "--task_dir", f"{root}/bank_runs",
+        "--epoch_scan", "--no_save_models"]
+    solvers = {}
+    for name, flags in (("default", []), ("unfused", UNFUSED)):
+        cfg = parse_args(argv + flags + ["--task_name", f"bank_{name}"])
+        s = Solver(cfg)
+        g = torch.Generator("cuda").manual_seed(5)
+        for t in s.bank.tensors()[:5]:
+            t.copy_(torch.randn(t.shape, device="cuda", generator=g))
+        s.have_bank = True
+        solvers[name] = s
+    require(solvers["default"].model.fused_estimators
+            and solvers["default"].model.fused_av_scan
+            and not solvers["unfused"].model.fused_estimators
+            and not solvers["unfused"].model.fused_av_scan,
+            "the flags did not reach the model")
+    launches = {}
+    for name, s in solvers.items():
+        o = s.opt
+        mb, labels, _ = s._prep(next(iter(s.train_loader)))
+        zero_counts()
+        steps.train_step(s.model, s.opt_main, o, mb, labels, s.bank,
+                         s.new_bank, 0, s.generator, True)
+        steps.critic_step(s.model, s.opt_vmi, o, mb, labels, s.bank,
+                          s.generator)
+        torch.cuda.synchronize()
+        launches[name] = counts()
+        want = add(step_launches("train", False, "none"),
+                   step_launches("critic", False, "none"))
+        require(launches[name] == want,
+                f"mi_bank {name}: launches {launches[name]}, want {want}")
+        attention_instances(f"mi_bank {name}", launches[name])
+    record = {f"eager_{name}": [] for name in solvers}
+    for name in ("default", "unfused", "unfused", "default", "default",
+                 "unfused"):
+        record[f"eager_{name}"].append(eager_steps(solvers[name]))
+    with profile(activities=[ProfilerActivity.CUDA]):  # the profiler's
+        torch.ones(1, device="cuda").add_(1)  # first session starts slowly
+        torch.cuda.synchronize()
+    for name, s in solvers.items():
+        record[f"profile_eager_{name}"] = profiled_eager_steps(s)
+        record[f"replayed_{name}"] = rung_profile(s, "scan")
+    for s in solvers.values():
+        s.writer.close()
+    del solvers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, add(*launches.values())
+
+
+def av_inputs(seed: int):
+    """Audio [128, 100, 5] and video [128, 100, 20] with ragged lengths
+    (zero rows after each sample's own length, drawn per tower)."""
+    import torch
+
+    g = torch.Generator("cuda").manual_seed(seed)
+    out = []
+    for d in (5, 20):
+        x = torch.randn(BATCH, TIME_LEN, d, device="cuda", generator=g)
+        n = torch.randint(1, TIME_LEN + 1, (BATCH,), device="cuda",
+                          generator=g)
+        x = x * (torch.arange(TIME_LEN, device="cuda")[None, :]
+                 < n[:, None])[..., None]
+        out.append(x)
+    return out
+
+
+def av_pair_check() -> dict:
+    """The canonical towers (2-layer bi-GRU, d_common 128, bs 128, T 100):
+    ``run_pair`` on two streams against the two calls in turn, outputs and
+    every parameter's gradient bit for bit; a pair fed each other's lengths
+    (the fault control) must differ. Then the encoders' forward and
+    backward by CUDA events with and without the streams (median of
+    AV_REPS), and by the profiler: busy ms against span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimrl_tpu_torch.models.encoders import (BiRnnEncoder,
+                                                 lengths_from_sequence,
+                                                 run_pair)
+    from mimrl_tpu_torch.models.model import init_weights
+
+    encs = []
+    for d in (5, 20):
+        enc = BiRnnEncoder("gru", d, 128, 2)
+        init_weights(enc, torch.Generator().manual_seed(d))
+        encs.append(enc.cuda().train())
+    a, v = av_inputs(11)
+    la, lv = lengths_from_sequence(a), lengths_from_sequence(v)
+    g = torch.Generator("cuda").manual_seed(12)
+    d_a, d_v = (torch.randn(BATCH, TIME_LEN, 128, device="cuda", generator=g)
+                for _ in range(2))
+    params = [p for enc in encs for p in enc.parameters()]
+
+    def step(pair, fault=False):
+        if pair:
+            oa, ov = run_pair(encs[0], a, lv if fault else la,
+                              encs[1], v, la if fault else lv)
+        else:
+            oa, ov = encs[0](a, la), encs[1](v, lv)
+        grads = torch.autograd.grad(
+            (oa * d_a).sum() + (ov * d_v).sum(), params)
+        return [oa.detach(), ov.detach(), *grads]
+
+    want = step(False)
+    got = step(True)
+    fault = step(True, fault=True)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(got, want))
+    fault_equal = all(torch.equal(x, y) for x, y in zip(fault, want))
+    record = dict(tensors=len(want), bit_equal=equal,
+                  fault_swapped_lengths_equal=fault_equal)
+    for name, pair in (("streams", True), ("one_stream", False),
+                       ("one_stream_2", False), ("streams_2", True)):
+        record[f"fwd_bwd_ms_{name}"] = cuda_ms(lambda: step(pair), 2, AV_REPS)
+        step(pair)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                step(pair)
+            end.record()
+            torch.cuda.synchronize()
+        busy, total = device_busy_ms(prof)
+        record[f"profile_{name}"] = dict(
+            busy_ms=busy / 3 if busy else None, kernel_sum_ms=total / 3,
+            span_ms=start.elapsed_time(end) / 3)
+    # the same on the device alone: each form captured in a CUDA graph
+    # (the rungs' case: no host between the launches) and replayed
+    for name, pair in (("streams", True), ("one_stream", False)):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(pair)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step(pair)
+        record[f"graph_fwd_bwd_ms_{name}"] = cuda_ms(graph.replay, 3,
+                                                     AV_REPS)
+        del graph
+    require(equal, "mi_bank: the A/V pair on two streams differs from the "
+            "two calls in turn")
+    require(not fault_equal, "mi_bank: the A/V pair's fault control (each "
+            "tower given the other's lengths) passed the bit-equality gate")
+    return record
+
+
+def mi_bank_phase(root: str):
+    """The batched bank against the sequential one at the canonical widths
+    (InfoNCE with a separate critic, TUBA with an unnormalized baseline),
+    with a stacking fault that the gate must catch; the bank's busy ms and
+    launches batched against sequential; the canonical steps with the
+    default flags against ``--unfused_estimators --unfused_av_scan``; the
+    A/V pair. Returns the launches of its counted steps."""
+    import torch
+
+    for bound, critic, baseline in BANK_CASES:
+        model = bank_model(bound, critic, baseline)
+        require(model.vmi_groups == [["f_t", "f_a", "f_v", "t_a", "t_v"]]
+                and len(model.cmi_groups) == 1, "mi_bank: the groups")
+        labels, feats, knn = bank_inputs(7)
+        gate = bank_gate(model, labels, feats, knn)
+        fault = bank_gate(model, labels, feats, knn, swapped_stack())
+        emit(phase="mi_bank", step=f"bank_{bound}", critic=critic,
+             baseline=baseline, card=card(), gate=gate,
+             fault_swapped_stack=dict(ok=fault["ok"],
+                                      values=fault["values"]),
+             profile=bank_profile(model, labels, feats, knn))
+        require(gate["ok"], f"mi_bank {bound}: batched vs sequential "
+                f"{gate['gradients_failed']} {gate['gradient_worst']}")
+        require(not fault["ok"], f"mi_bank {bound}: the swapped stack "
+                "passed the gate")
+        del model
+    record, launches = step_comparison(root)
+    emit(phase="mi_bank", step="steps", card=card(), **record)
+    emit(phase="mi_bank", step="av_pair", card=card(), **av_pair_check())
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+STANDALONE = dict(dim=5, n=2048, epochs=60, batch_size=256, lr=2e-3,
+                  weight_decay=0.9, rhos=(0.7,))
+# tests/test_bounds.py::test_gaussian_mi_recovery's seven cases:
+# (bound, critic, baseline)
+RECOVERY_CASES = (("infonce", "separate", "constant"),
+                  ("nwj", "separate", "constant"),
+                  ("js", "separate", "constant"),
+                  ("smile", "concat", "constant"),
+                  ("tuba", "separate", "unnormalized"),
+                  ("mine", "separate", "constant"),
+                  ("dv", "separate", "constant"))
+
+
+def standalone_phase() -> None:
+    """``mi/standalone.py`` on the card: ``run_sweep`` at rho 0.7 at the
+    recovery settings of ``tests/test_bounds.py`` (dim 5, 2048 samples, 60
+    epochs, bs 256, lr 2e-3, EMA 0.9, ``max``): each of its seven cases
+    within (0.35, 2.5) x the true MI; ``js_fgan`` in (-1, 0.05]; CLUB
+    with ``mean`` above 0.6 x the truth (``tests/test_fusion_club.py``);
+    the fault control, an independent y, as that test checks it (CLUB,
+    ``mean``, 30 epochs): below 0.4 and below 0.35 x the truth; InfoNCE's
+    ``max`` on the independent y, stated. Wall seconds per bound."""
+    import torch
+
+    from mimrl_tpu_torch.mi import standalone
+
+    true = standalone.rho_to_mi(5, 0.7)
+    kw = {k: v for k, v in STANDALONE.items() if k != "rhos"}
+    rows, failed = [], []
+    for bound, critic, baseline in RECOVERY_CASES + (
+            ("js_fgan", "separate", "constant"),):
+        res = standalone.run_sweep([bound], STANDALONE["rhos"],
+                                   critic_type=critic, baseline_type=baseline,
+                                   estimation="max", seed=0, **kw)
+        _, t, est, wall = res[bound][0]
+        ok = bool(-1.0 < est <= 0.05 if bound == "js_fgan"
+                  else 0.35 * t < est < 2.5 * t)
+        rows.append(dict(bound=bound, critic=critic, baseline=baseline,
+                         true_mi=t, estimate=est, wall_s=wall, ok=ok))
+        failed += [] if ok else [bound]
+    # CLUB, an upper bound, with the mean of the last epochs; then the
+    # fault control, y independent of x, as tests/test_fusion_club.py
+    # checks it (CLUB, mean, 30 epochs: below 0.4 and below 0.35 x the
+    # truth); and InfoNCE's max on the independent y at the sweep's
+    # settings, stated: with the same batches every epoch, each bound's
+    # estimate on independent data climbs as the critic learns the pairs
+    g = torch.Generator("cuda").manual_seed(1)
+    x, y = standalone.sample_correlated_gaussian(g, 0.7, 5, 2048)
+    y_ind = torch.randn(2048, 5, device="cuda", generator=g)
+    train = dict(batch_size=256, lr=2e-3, weight_decay=0.9)
+    for name, yy, estimation, bound, epochs in (
+            ("club", y, "mean", "club", 60),
+            ("independent_y", y_ind, "mean", "club", 30),
+            ("independent_y_infonce", y_ind, "max", "infonce", 60)):
+        t0 = time.perf_counter()
+        est, _ = standalone.compute_mi(torch.Generator().manual_seed(2),
+                                       "separate", "constant", bound, x, yy,
+                                       estimation=estimation, epochs=epochs,
+                                       **train)
+        wall = time.perf_counter() - t0
+        ok = {"club": est > 0.6 * true,
+              "independent_y": abs(est) < 0.4 and est < 0.35 * true,
+              "independent_y_infonce": None}[name]
+        rows.append(dict(bound=name, estimation=estimation, epochs=epochs,
+                         true_mi=true, estimate=est, wall_s=wall,
+                         ok=None if ok is None else bool(ok)))
+        failed += [] if ok in (None, True) else [name]
+    emit(phase="standalone", card=card(), settings=STANDALONE, rows=rows)
+    require(not failed, f"standalone: recovery gates failed for {failed}")
+
+
 def main() -> int:
     import torch
 
@@ -4149,6 +4668,10 @@ def main() -> int:
         done("hooks")
         group = group_phase(root)
         done("group")
+        mi_bank = mi_bank_phase(root)
+        done("mi_bank")
+        standalone_phase()
+        done("standalone")
     emit(phase="timeline", seconds_after=timeline)
 
     # launches: each path was driven with all four counts set to 0 just
@@ -4156,12 +4679,12 @@ def main() -> int:
     # serving and training with --use_pallas --quant int8, and the resumed
     # epoch of the resume phase, the three flag-free rung runs with graphs
     # and the flagged one, the families phase's runs and serving, the three
-    # fusions' runs and serving, the hooks run, and the group phase's
-    # grouped runs
+    # fusions' runs and serving, the hooks run, the group phase's
+    # grouped runs, and the mi_bank phase's counted steps
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
                  rungs_quant=rungs_quant, families=families, fusions=fusions,
-                 hooks=hooks, group=group)
+                 hooks=hooks, group=group, mi_bank=mi_bank)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -4184,7 +4707,7 @@ def main() -> int:
     require(all(r["launches"] > 0 for r in records),
             f"a kernel was never launched: {[r['launches'] for r in records]}")
     require(all(c[2:] == (0, 0) for c in (serve, train, resume, rungs,
-                                          fusions, hooks)),
+                                          fusions, hooks, mi_bank)),
             "the flag-free paths launched a kernel of the flags")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -4194,6 +4717,7 @@ def main() -> int:
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
             "launches_fusions", "launches_hooks", "launches_group",
+            "launches_mi_bank",
             "library_ms_dw_layer", "library_profiler_ms_dw_layer", "shapes",
             "shapes_families")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

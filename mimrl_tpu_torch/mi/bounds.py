@@ -5,6 +5,11 @@ Plain functions mapping a critic score matrix ``scores[i, j] = f(x_j, y_i)``
 (``[bs, bs]``, diagonal = joint samples, off-diagonal = product of
 marginals) to a scalar MI lower bound (ref: VMI.py:113-250), plus CLUB's
 upper bound. Where the reference detaches a term, so does the port.
+
+Every score bound also takes a stack of matrices ``[E, bs, bs]`` (and a
+log-baseline ``[E, bs, 1]``) and returns one value per matrix, ``[E]``:
+the batched estimator bank (``models/model.py``) runs the same math for
+several estimators in one pass.
 """
 
 from __future__ import annotations
@@ -18,22 +23,30 @@ import torch.nn.functional as F
 Tensor = torch.Tensor
 
 
+_LAST2 = (-2, -1)
+
+
 def _eye(scores: Tensor) -> Tensor:
-    return torch.eye(scores.shape[0], dtype=torch.bool, device=scores.device)
+    return torch.eye(scores.shape[-1], dtype=torch.bool, device=scores.device)
+
+
+def _diag(scores: Tensor) -> Tensor:
+    """The diagonal of each matrix, [..., bs]."""
+    return torch.diagonal(scores, dim1=-2, dim2=-1)
 
 
 def logmeanexp_diag(scores: Tensor) -> Tensor:
     """logmeanexp over the diagonal (ref: VMI.py:113-118)."""
-    n = scores.shape[0]
-    return torch.logsumexp(torch.diagonal(scores), dim=0) - math.log(n)
+    n = scores.shape[-1]
+    return torch.logsumexp(_diag(scores), dim=-1) - math.log(n)
 
 
 def logmeanexp_nodiag(scores: Tensor) -> Tensor:
     """logmeanexp over off-diagonal elements (ref: VMI.py:121-126); the
     diagonal is excluded with a where-mask."""
-    n = scores.shape[0]
+    n = scores.shape[-1]
     masked = scores.masked_fill(_eye(scores), -math.inf)
-    lse = torch.logsumexp(masked.reshape(-1), dim=0)
+    lse = torch.logsumexp(masked.flatten(-2), dim=-1)
     return lse - math.log(n * (n - 1.0))
 
 
@@ -44,14 +57,14 @@ def exp_nodiag(scores: Tensor) -> Tensor:
 
 def dv_lower_bound(scores: Tensor) -> Tensor:
     """Donsker-Varadhan (ref: VMI.py:136-139)."""
-    return torch.diagonal(scores).mean() - logmeanexp_nodiag(scores)
+    return _diag(scores).mean(dim=-1) - logmeanexp_nodiag(scores)
 
 
 def mine_lower_bound_parts(scores: Tensor):
     """MINE: (mi, t, et) with t the diagonal scores and et the exp of the
     off-diagonal scores, for the caller's EMA bias correction
     (ref: VMI.py:142-145)."""
-    return dv_lower_bound(scores), torch.diagonal(scores), exp_nodiag(scores)
+    return dv_lower_bound(scores), _diag(scores), exp_nodiag(scores)
 
 
 def tuba_lower_bound(scores: Tensor,
@@ -60,7 +73,7 @@ def tuba_lower_bound(scores: Tensor,
     (ref: VMI.py:148-154)."""
     if log_baseline is not None:
         scores = scores - log_baseline
-    joint_term = torch.diagonal(scores).mean()
+    joint_term = _diag(scores).mean(dim=-1)
     marg_term = torch.exp(logmeanexp_nodiag(scores))
     return 1.0 + joint_term - marg_term
 
@@ -72,18 +85,18 @@ def nwj_lower_bound(scores: Tensor) -> Tensor:
 
 def infonce_lower_bound(scores: Tensor) -> Tensor:
     """InfoNCE (ref: VMI.py:162-166)."""
-    n = scores.shape[0]
-    nll = (torch.diagonal(scores) - torch.logsumexp(scores, dim=1)).mean()
+    n = scores.shape[-1]
+    nll = (_diag(scores) - torch.logsumexp(scores, dim=-1)).mean(dim=-1)
     return math.log(n) + nll
 
 
 def js_fgan_lower_bound(scores: Tensor) -> Tensor:
     """Jensen-Shannon f-GAN (ref: VMI.py:169-174)."""
-    n = scores.shape[0]
-    f_diag = torch.diagonal(scores)
-    first_term = (-F.softplus(-f_diag)).mean()
-    second_term = (F.softplus(scores).sum() - F.softplus(f_diag).sum()) / (
-        n * (n - 1.0))
+    n = scores.shape[-1]
+    f_diag = _diag(scores)
+    first_term = (-F.softplus(-f_diag)).mean(dim=-1)
+    second_term = (F.softplus(scores).sum(dim=_LAST2)
+                   - F.softplus(f_diag).sum(dim=-1)) / (n * (n - 1.0))
     return first_term - second_term
 
 
@@ -97,7 +110,7 @@ def js_lower_bound(scores: Tensor) -> Tensor:
 def smile_lower_bound(scores: Tensor, clip: float = 1.0) -> Tensor:
     """SMILE with clip = 1 (ref: VMI.py:185-198)."""
     z = logmeanexp_nodiag(torch.clamp(scores, -clip, clip))
-    dv = torch.diagonal(scores).mean() - z
+    dv = _diag(scores).mean(dim=-1) - z
     js = js_fgan_lower_bound(scores)
     return js + (dv - js).detach()
 
@@ -116,12 +129,12 @@ def log_interpolate(log_a: Tensor, log_b: Tensor, alpha_logit: float) -> Tensor:
 def compute_log_loomean(scores: Tensor) -> Tensor:
     """Log leave-one-out mean of exponentiated scores
     (ref: VMI.py:213-226)."""
-    max_scores = scores.amax(dim=1, keepdim=True)
-    lse_minus_max = torch.logsumexp(scores - max_scores, dim=1, keepdim=True)
+    max_scores = scores.amax(dim=-1, keepdim=True)
+    lse_minus_max = torch.logsumexp(scores - max_scores, dim=-1, keepdim=True)
     d = lse_minus_max + (max_scores - scores)
     safe_d = torch.where(d != 0.0, d, torch.ones_like(d))
     loo_lse = scores + safe_d + torch.log(-torch.expm1(-safe_d))
-    return loo_lse - math.log(scores.shape[1] - 1.0)
+    return loo_lse - math.log(scores.shape[-1] - 1.0)
 
 
 def interp_lower_bound(scores: Tensor, baseline: Tensor,
@@ -130,15 +143,15 @@ def interp_lower_bound(scores: Tensor, baseline: Tensor,
     ``baseline`` is the learned log-baseline a(y), [bs, 1]. The reference's
     ``torch.diag`` of a matrix is the diagonal vector, which broadcasts
     across rows."""
-    n = scores.shape[0]
+    n = scores.shape[-1]
     nce_baseline = compute_log_loomean(scores)
     interpolated_baseline = log_interpolate(
-        nce_baseline, baseline.repeat(1, n), alpha_logit)
-    critic_marg = scores - torch.diagonal(interpolated_baseline)[None, :]
+        nce_baseline, baseline.expand(*baseline.shape[:-1], n), alpha_logit)
+    critic_marg = scores - _diag(interpolated_baseline)[..., None, :]
     marg_term = torch.exp(logmeanexp_nodiag(critic_marg))
-    critic_joint = torch.diagonal(scores)[None, :] - interpolated_baseline
-    joint_term = (critic_joint.sum() - torch.diagonal(critic_joint).sum()) / (
-        n * (n - 1.0))
+    critic_joint = _diag(scores)[..., None, :] - interpolated_baseline
+    joint_term = (critic_joint.sum(dim=_LAST2)
+                  - _diag(critic_joint).sum(dim=-1)) / (n * (n - 1.0))
     return 1.0 + joint_term - marg_term
 
 
@@ -168,8 +181,9 @@ def mi_and_loss(bound_type: str, scores: Tensor,
     every call, and its in-model loss is not negated, as in the reference."""
     if bound_type == "mine":
         mi, t, et = mine_lower_bound_parts(scores)
-        ma_et = (1.0 - ma_rate) * 1.0 + ma_rate * et.mean()
-        mi_loss = t.mean() - (1.0 / ma_et).detach() * et.mean()
+        et_mean = et.mean(dim=_LAST2)
+        ma_et = (1.0 - ma_rate) * 1.0 + ma_rate * et_mean
+        mi_loss = t.mean(dim=-1) - (1.0 / ma_et).detach() * et_mean
         return mi, mi_loss
     if bound_type == "dv":
         mi = dv_lower_bound(scores)

@@ -4,11 +4,17 @@ port of ``mimrl_tpu.mi.critics``; ref: VMI.py:25-110).
 Sub-module names are the reference torch model's (``MLP_g``, ``MLP_h``,
 ``MLP_f``, ``MLP``), so an estimator's keys read
 ``vmi_estimator_f_t.critic_model.MLP_g.fc_in.weight``.
+
+``batched_scores`` and ``batched_log_baseline`` run E critics or baselines
+of one parameter shape in one pass (``[E, bs, ...]`` inputs): their
+``nn.Linear`` weights are stacked on every call, so gradients flow back to
+each module's own parameters, and each layer is one ``baddbmm``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -31,11 +37,41 @@ class MLPStack(nn.Module):
                     nn.Linear(hidden_dim, hidden_dim, device=device))
         self.fc_out = nn.Linear(hidden_dim, output_dim, device=device)
 
+    def linears(self) -> List[nn.Linear]:
+        return ([self.fc_in]
+                + [getattr(self, f"fc_{i}") for i in range(self.n_hidden)]
+                + [self.fc_out])
+
     def forward(self, x):
-        x = self.act(self.fc_in(x))
-        for i in range(self.n_hidden):
-            x = self.act(getattr(self, f"fc_{i}")(x))
-        return self.fc_out(x)
+        *hidden, out = self.linears()
+        for layer in hidden:
+            x = self.act(layer(x))
+        return out(x)
+
+
+def stack_linears(modules: Sequence[nn.Module]
+                  ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """Per layer, the weights [E, out, in] and biases [E, out] of E modules
+    of one shape (each has ``linears()``), stacked on this call."""
+    return [(torch.stack([lin.weight for lin in layer]),
+             torch.stack([lin.bias for lin in layer]))
+            for layer in zip(*(m.linears() for m in modules))]
+
+
+def batched_chain(layers: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                  x: torch.Tensor, act: Callable) -> torch.Tensor:
+    """x [E, rows, in] through stacked layers, ``act`` after every layer
+    but the last: E ``nn.Linear`` chains as one ``baddbmm`` per layer."""
+    for i, (w, b) in enumerate(layers):
+        x = torch.baddbmm(b[:, None, :], x, w.transpose(1, 2))
+        if i < len(layers) - 1:
+            x = act(x)
+    return x
+
+
+def batched_mlp(stacks: Sequence[MLPStack], x: torch.Tensor) -> torch.Tensor:
+    """E ``MLPStack``s of one shape on x [E, rows, in]."""
+    return batched_chain(stack_linears(stacks), x, stacks[0].act)
 
 
 class CriticModel(nn.Module):
@@ -70,6 +106,22 @@ class CriticModel(nn.Module):
         yy = y[:, None, :].expand(bs, bs, y.shape[-1])  # [a, b] = y_a
         raw = self.MLP_f(torch.cat([xx, yy], dim=-1))[..., 0]
         return raw.t()  # scores[i, j] = f(x_i, y_j), VMI.py:65's .t()
+
+
+def batched_scores(critics: Sequence[CriticModel], x: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """E critics of one type and shape on x [E, bs, x_dim], y [E, bs,
+    y_dim] -> scores [E, bs, bs], each as ``CriticModel.forward``."""
+    if critics[0].critic_type == "separate":
+        g = batched_mlp([c.MLP_g for c in critics], x)
+        h = batched_mlp([c.MLP_h for c in critics], y)
+        return torch.bmm(h, g.transpose(1, 2))
+    E, bs = x.shape[:2]
+    xx = x[:, None, :, :].expand(E, bs, bs, x.shape[-1])  # [e, a, b] = x_b
+    yy = y[:, :, None, :].expand(E, bs, bs, y.shape[-1])  # [e, a, b] = y_a
+    pairs = torch.cat([xx, yy], dim=-1).reshape(E, bs * bs, -1)
+    raw = batched_mlp([c.MLP_f for c in critics], pairs).reshape(E, bs, bs)
+    return raw.transpose(1, 2)
 
 
 class ClubCritic(nn.Module):
@@ -110,6 +162,21 @@ class BaselineModel(nn.Module):
             return self.MLP(y).reshape(bs, 1)
         if self.baseline_type == "constant":
             return torch.zeros((bs, 1), dtype=y.dtype, device=y.device)
+        return self.gaussian_log_prob(y).reshape(bs, 1)
+
+    def gaussian_log_prob(self, y):
         log_prob = (-0.5 * math.log(2.0 * math.pi) - math.log(self.rho)
                     - 0.5 * ((y - self.mu) / self.rho).square())
-        return log_prob.sum(dim=-1).reshape(bs, 1)
+        return log_prob.sum(dim=-1)
+
+
+def batched_log_baseline(baselines: Sequence[BaselineModel],
+                         y: torch.Tensor) -> torch.Tensor:
+    """E baselines of one type and shape on y [E, bs, y_dim] -> [E, bs, 1],
+    each as ``BaselineModel.forward``."""
+    kind = baselines[0].baseline_type
+    if kind == "unnormalized":
+        return batched_mlp([b.MLP for b in baselines], y)
+    if kind == "constant":
+        return y.new_zeros(y.shape[:2] + (1,))
+    return baselines[0].gaussian_log_prob(y)[..., None]

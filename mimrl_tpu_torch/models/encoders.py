@@ -25,12 +25,19 @@ mask (``encoders.py:145-180``); here:
   positions stay in place), runs the reverse weights as a forward RNN
   from a zero state, masks the output and gathers it back.
 
+``run_pair`` runs the audio and video towers side by side: on CUDA on two
+streams forked from the current one (the JAX package chains both towers'
+recurrences into one scan per layer because scans serialize on the TPU
+core, ``run_bidir_pair``, encoders.py:182-250).
+
 ``ConvEncoder`` is the reference's ``Conv1d(d_in, d_common, 3, padding=1)``
 over time (Model.py:248-249; flax's ``SAME`` padding at kernel 3),
 applied to the padded sequence as the JAX package does.
 """
 
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -75,6 +82,42 @@ class BiRnnEncoder(nn.RNNBase):
                               self.training, False, True)[0]
         return torch.gru(x, h0, weights, True, 1, 0.0, self.training, False,
                          True)[0]
+
+
+_PAIR_STREAMS: Dict[torch.device, Tuple[torch.cuda.Stream, ...]] = {}
+
+
+def run_pair(enc_a: nn.Module, x_a: torch.Tensor, lengths_a: torch.Tensor,
+             enc_b: nn.Module, x_b: torch.Tensor, lengths_b: torch.Tensor):
+    """``(enc_a(x_a, lengths_a), enc_b(x_b, lengths_b))``. On CUDA each
+    runs on its own stream, forked from the current stream and joined back
+    into it before the return, so the two recurrences overlap; autograd
+    runs each backward op on its forward op's stream and joins the streams
+    of the gradients it returns, so the backward overlaps too. The join is
+    also what CUDA graph capture needs. Tensors that cross streams are
+    recorded on the stream that uses them, so the allocator reuses none
+    early. The kernels and their inputs are those of the two calls, so the
+    results equal them bit for bit. On the CPU: the two calls in turn."""
+    if x_a.device.type != "cuda":
+        return enc_a(x_a, lengths_a), enc_b(x_b, lengths_b)
+    device = x_a.device
+    if device not in _PAIR_STREAMS:
+        _PAIR_STREAMS[device] = (torch.cuda.Stream(device),
+                                 torch.cuda.Stream(device))
+    current = torch.cuda.current_stream(device)
+    outs = []
+    for stream, enc, x, lengths in zip(_PAIR_STREAMS[device],
+                                       (enc_a, enc_b), (x_a, x_b),
+                                       (lengths_a, lengths_b)):
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            outs.append(enc(x, lengths))
+        x.record_stream(stream)
+        lengths.record_stream(stream)
+    for stream, out in zip(_PAIR_STREAMS[device], outs):
+        current.wait_stream(stream)
+        out.record_stream(current)
+    return tuple(outs)
 
 
 class ConvEncoder(nn.Conv1d):

@@ -13,10 +13,21 @@ fusion it is), ``classifier``,
 keys are the reference's names and the optimizer's name-based split
 ('bert' / 'vmi' / 'vcmi' / rest) works on them.
 
-Ported: every encoder and every fusion. The estimator bank runs
-its eleven estimators one after the other; ``fused_estimators`` (the JAX
-package's batched execution of the same math, model.py:371-425) is
-accepted and changes nothing here.
+Ported: every encoder and every fusion, and both execution-order flags
+of the JAX package:
+
+- ``fused_estimators`` (model.py:339-425): the estimators whose parameters
+  have equal shapes run as one batched pass (``mi/estimators.py``'s
+  ``batched_vmi`` / ``batched_vcmi``). The five VMI estimators form one
+  group when the fused features are ``d_common`` wide, else ``{f_t, f_a,
+  f_v}`` and ``{t_a, t_v}``; the six classifiers always form one group.
+  CLUB runs one estimator after the other, as in JAX (:344). Off, all
+  eleven run one after the other.
+- ``fused_av_scan`` (model.py:268-277): the audio and video recurrences on
+  two CUDA streams (``encoders.run_pair``); on the CPU one after the
+  other.
+
+Both change the order of the same math, not the parameters or their names.
 """
 
 from __future__ import annotations
@@ -30,11 +41,12 @@ from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.device import compute_dtype
-from mimrl_tpu_torch.mi.estimators import VCMIEstimator, VMIEstimator
+from mimrl_tpu_torch.mi.estimators import (VCMIEstimator, VMIEstimator,
+                                           batched_vcmi, batched_vmi)
 from mimrl_tpu_torch.models.bert import BertConfig, BertModel
 from mimrl_tpu_torch.models.cubemlp import AxisLayerNorm, MLPEncoder
 from mimrl_tpu_torch.models.encoders import (BiRnnEncoder, ConvEncoder,
-                                             lengths_from_sequence)
+                                             lengths_from_sequence, run_pair)
 from mimrl_tpu_torch.models.fusion import (MoEBlock, MoEFusion, TFNFusion,
                                            TransformerFusion)
 
@@ -77,6 +89,18 @@ def _compose(x: torch.Tensor, how: str, dim: int) -> torch.Tensor:
     return torch.cat(x.unbind(dim=dim), dim=-1)  # cat
 
 
+def _groups_by_shape(model: nn.Module, prefix: str,
+                     keys: Sequence[str]) -> list:
+    """The keys whose modules ``{prefix}{key}`` have parameters of equal
+    names and shapes, grouped in key order."""
+    groups: Dict[tuple, list] = {}
+    for key in keys:
+        shapes = tuple((name, tuple(p.shape)) for name, p in getattr(
+            model, prefix + key).named_parameters())
+        groups.setdefault(shapes, []).append(key)
+    return list(groups.values())
+
+
 class MimrlModel(nn.Module):
     def __init__(self, d_a: int, d_v: int, d_common: int = 128,
                  d_t: int = 768, raw_text: bool = True,
@@ -93,9 +117,9 @@ class MimrlModel(nn.Module):
                  bound_type: str = "infonce", k_neighbor: int = 2,
                  radius: float = 1.0, cmi_last_acticate: str = "sigmoid",
                  use_pallas: bool = False, fused_estimators: bool = False,
-                 fusion: str = "cubemlp", fusion_layers: int = 2,
-                 fusion_heads: int = 4, moe_experts: int = 4,
-                 moe_topk: int = 2,
+                 fused_av_scan: bool = False, fusion: str = "cubemlp",
+                 fusion_layers: int = 2, fusion_heads: int = 4,
+                 moe_experts: int = 4, moe_topk: int = 2,
                  bert_config: BertConfig = BertConfig(), device=None):
         super().__init__()
         self.time_len = time_len
@@ -106,6 +130,9 @@ class MimrlModel(nn.Module):
         self.features_compose_k = features_compose_k
         self.encoders = encoders
         self.raw_text = raw_text
+        self.bound_type = bound_type
+        self.fused_estimators = fused_estimators
+        self.fused_av_scan = fused_av_scan
 
         # raw text: BERT over the token ids; dense text (glove etc.) goes
         # to the projector directly and no BERT exists (model.py:235-254)
@@ -178,6 +205,8 @@ class MimrlModel(nn.Module):
             setattr(self, f"vcmi_estimator_{key}", VCMIEstimator(
                 EST_EMBED_DIM, EST_HIDDEN_DIM, EST_ACTIVATION,
                 cmi_last_acticate, device=device))
+        self.vmi_groups = _groups_by_shape(self, "vmi_estimator_", VMI_KEYS)
+        self.cmi_groups = _groups_by_shape(self, "vcmi_estimator_", CMI_KEYS)
 
     def forward(self, bert_sentences, bert_sentence_types,
                 bert_sentence_att_mask, a, v, return_features: bool = True,
@@ -202,8 +231,14 @@ class MimrlModel(nn.Module):
             a, v = self.conv_a(a), self.conv_v(v)
         else:
             # lengths from non-zero rows, clamped to >=1 (ref: Model.py:425-432)
-            a = self.rnn_a(a, lengths_from_sequence(a))
-            v = self.rnn_v(v, lengths_from_sequence(v))
+            lengths_a = lengths_from_sequence(a)
+            lengths_v = lengths_from_sequence(v)
+            if self.fused_av_scan:
+                a, v = run_pair(self.rnn_a, a, lengths_a,
+                                self.rnn_v, v, lengths_v)
+            else:
+                a = self.rnn_a(a, lengths_a)
+                v = self.rnn_v(v, lengths_v)
         a = F.relu(self.ln_a(a))
         v = F.relu(self.ln_v(v))
 
@@ -238,7 +273,8 @@ class MimrlModel(nn.Module):
     def _all_estimates(self, labels, F_F, T_F, A_F, V_F, knn: Dict):
         """The 5 MI and 6 CMI estimates; ``knn`` maps CMI_KEYS to (x, y, z)
         conditional-product sample triples. Labels are tiled to d_common
-        (model.py:336-337)."""
+        (model.py:336-337). Batched by parameter shape under
+        ``fused_estimators`` unless the bound is CLUB (model.py:343-345)."""
         labels = labels.reshape(-1, 1).to(T_F.dtype).repeat(1, self.d_common)
         pairs = {"f_t": (F_F, T_F), "f_a": (F_F, A_F), "f_v": (F_F, V_F),
                  "t_a": (T_F, A_F), "t_v": (T_F, V_F)}
@@ -248,12 +284,31 @@ class MimrlModel(nn.Module):
             "tc_a": (T_F, labels, A_F), "tc_v": (T_F, labels, V_F),
         }
         mis, losses = {}, {}
-        for key in VMI_KEYS:
-            mis[key], losses[key] = getattr(
-                self, f"vmi_estimator_{key}")(*pairs[key])
-        for key in CMI_KEYS:
-            mis[key], losses[key] = getattr(
-                self, f"vcmi_estimator_{key}")(*triples[key], *knn[key])
+        if not self.fused_estimators or self.bound_type == "club":
+            for key in VMI_KEYS:
+                mis[key], losses[key] = getattr(
+                    self, f"vmi_estimator_{key}")(*pairs[key])
+            for key in CMI_KEYS:
+                mis[key], losses[key] = getattr(
+                    self, f"vcmi_estimator_{key}")(*triples[key], *knn[key])
+            return mis, losses
+
+        def stack(inputs, group, j):
+            return torch.stack([inputs[k][j] for k in group])
+
+        for group in self.vmi_groups:
+            mi, loss = batched_vmi(
+                [getattr(self, f"vmi_estimator_{k}") for k in group],
+                stack(pairs, group, 0), stack(pairs, group, 1))
+            for i, key in enumerate(group):
+                mis[key], losses[key] = mi[i], loss[i]
+        for group in self.cmi_groups:
+            mi, loss = batched_vcmi(
+                [getattr(self, f"vcmi_estimator_{k}") for k in group],
+                [stack(triples, group, j) for j in range(3)],
+                [stack(knn, group, j) for j in range(3)])
+            for i, key in enumerate(group):
+                mis[key], losses[key] = mi[i], loss[i]
         return mis, losses
 
     def compute_vmi_loss_stage1(self, labels, F_F, T_F, A_F, V_F, knn):
@@ -329,7 +384,7 @@ def build_model(cfg: MimrlConfig, vocab_size: int, d_a: int, d_v: int,
             bound_type=cfg.bound_type, k_neighbor=cfg.k_neighbor,
             radius=cfg.radius, cmi_last_acticate=cfg.cmi_last_acticate,
             use_pallas=cfg.use_pallas, fused_estimators=cfg.fused_estimators,
-            fusion=cfg.fusion, fusion_layers=cfg.fusion_layers,
+            fused_av_scan=cfg.fused_av_scan, fusion=cfg.fusion, fusion_layers=cfg.fusion_layers,
             fusion_heads=cfg.fusion_heads, moe_experts=cfg.moe_experts,
             moe_topk=cfg.moe_topk,
             bert_config=bert_config_from(cfg, vocab_size))

@@ -207,11 +207,13 @@ def test_pipeline_matches_jax(tmp_path, shuffle):
 
     with pytest.raises(ValueError, match="loader"):
         list(pipeline.prefetch(failing()))
-    threads = threading.active_count()
+    # the port's own threads only: JAX's prefetch never joins its
+    # producer, which may end at any time between two counts
+    before = set(threading.enumerate())
     early = pipeline.prefetch(iter(range(100)), 2)
     assert next(early) == 0
     early.close()
-    assert threading.active_count() == threads
+    assert set(threading.enumerate()) - before == set()
 
 
 # (dataset, flags, fixture writer and its arguments); a/v widths as the

@@ -36,6 +36,7 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch.models.fusion, mimrl_tpu_torch.train.custom\n"
             "import mimrl_tpu_torch.train.regularizers\n"
             "import mimrl_tpu_torch.tools.parity, mimrl_tpu_torch.data.preflight\n"
+            "import mimrl_tpu_torch.mi.standalone, mimrl_tpu_torch.train.sam\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -45,6 +46,9 @@ def test_import_loads_no_jax():
     assert "mimrl_tpu_torch.train.steps" in loaded
     assert "mimrl_tpu_torch.train.regularizers" in loaded
     assert "mimrl_tpu_torch.tools.parity" in loaded
+    assert "mimrl_tpu_torch.mi.standalone" in loaded
+    # matplotlib (absent on the card's machine) only for --plot_dir
+    assert "matplotlib" not in loaded
     assert not [m for m in loaded if _forbidden(m)]
 
 

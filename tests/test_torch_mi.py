@@ -3,6 +3,9 @@ the baselines, ``VMIEstimator`` and ``VCMIEstimator``, on the same numpy
 inputs and, where there are weights, on flax-initialised weights carried
 over by ``state_dict_from_jax``. Float32 on the CPU; tolerance 1e-5
 (absolute and relative): the two sides differ by the order of their sums.
+The model's estimator bank, batched (``--fused_estimators``) against
+sequential and against JAX's fused bank, at JAX's own limits
+(``tests/test_fused_estimators.py``).
 """
 
 import jax
@@ -76,6 +79,44 @@ def test_bound_helpers_match_jax():
         bounds.interp_lower_bound(_t(scores), _t(base), 0.01).numpy(),
         np.asarray(jbounds.interp_lower_bound(
             jnp.asarray(scores), jnp.asarray(base), 0.01)), **TOL)
+    _check_standalone_helpers()
+
+
+def _check_standalone_helpers():
+    """``mi/standalone.py``: ``compute_mi``'s max / mean / smooth on one
+    fixed history against JAX's (its ``train_mine`` replaced by the
+    history); the correlated Gaussian's moments against what
+    ``rho_to_mi`` assumes (unit variances, correlation rho per
+    coordinate, independent coordinates); ``rho_to_mi`` against JAX's."""
+    from mimrl_tpu.mi import standalone as jsa
+    from mimrl_tpu_torch.mi import standalone
+
+    history = np.cumsum(_np(30, 80)) / 10.0
+    real = jsa.train_mine
+    jsa.train_mine = lambda *a, **k: history
+    try:
+        for mode in ("max", "mean", "smooth"):
+            want = jsa.compute_mi(None, "separate", "constant", "infonce",
+                                  None, None, estimation=mode)[0]
+            got = standalone.estimate_from_history(history, mode)
+            assert got == pytest.approx(want, rel=1e-12), mode
+    finally:
+        jsa.train_mine = real
+    with pytest.raises(NotImplementedError):
+        standalone.estimate_from_history(history, "median")
+    x, y = standalone.sample_correlated_gaussian(
+        torch.Generator().manual_seed(0), rho=0.6, dim=4,
+        num_samples=200_000)
+    assert x.shape == y.shape == (200_000, 4)
+    cov = np.cov(torch.cat([x, y], 1).numpy().T)
+    np.testing.assert_allclose(np.diag(cov), 1.0, atol=0.01)
+    np.testing.assert_allclose(np.diag(cov[:4, 4:]), 0.6, atol=0.01)
+    off = cov - np.diag(np.diag(cov))
+    off[:4, 4:] -= np.diag(np.diag(cov[:4, 4:]))
+    off[4:, :4] -= np.diag(np.diag(cov[4:, :4]))
+    assert np.abs(off).max() < 0.01
+    assert standalone.rho_to_mi(5, 0.7) == pytest.approx(jsa.rho_to_mi(5, 0.7))
+    assert standalone.rho_to_mi(5, 0.7) == pytest.approx(-2.5 * np.log(0.51))
 
 
 def test_club_matches_jax():
@@ -105,6 +146,18 @@ def test_mi_and_loss_matches_jax_with_gradient(bound_type):
     np.testing.assert_allclose(mi.detach().numpy(), np.asarray(w_mi), **TOL)
     np.testing.assert_allclose(loss.detach().numpy(), np.asarray(w_loss), **TOL)
     np.testing.assert_allclose(grad.numpy(), np.asarray(w_grad), **TOL)
+    # a stack of matrices [E, bs, bs] (the batched bank): one value each
+    stack = torch.stack([_t(scores), 0.5 * _t(scores).t()])
+    base2 = torch.stack([_t(base), -_t(base)]) if needs_base else None
+    mis, losses = bounds.mi_and_loss(bound_type, stack, base2)
+    assert mis.shape == losses.shape == (2,)
+    for e in range(2):
+        want = bounds.mi_and_loss(bound_type, stack[e],
+                                  base2[e] if needs_base else None)
+        np.testing.assert_allclose(mis[e].numpy(), want[0].numpy(),
+                                   rtol=2e-6, atol=1e-6)
+        np.testing.assert_allclose(losses[e].numpy(), want[1].numpy(),
+                                   rtol=2e-6, atol=1e-6)
 
 
 def test_mi_and_loss_refuses_unknown_bound():
@@ -143,12 +196,178 @@ def test_baseline_matches_jax(baseline_type):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
 
 
+# the estimator bank of the model: 5 VMI estimators and 6 classifiers at
+# the model's hard-coded widths, on small features (as
+# tests/test_fused_estimators.py)
+BANK_BS, BANK_DC = 8, 16
+BANK_TOL = dict(rtol=2e-5, atol=1e-6)  # JAX's limits for the fused bank
+BANK_GRAD_TOL = dict(rtol=5e-5, atol=1e-6)
+
+
+def _bank_models(critic_type, baseline_type, bound_type, d_f):
+    """The JAX model (sequential and fused) and the port's model (batched
+    and sequential) of one estimator configuration, on the JAX bank's
+    weights; the fused features are d_f wide (d_f > d_common: a cat
+    compose)."""
+    from mimrl_tpu.models import model as jmodel
+    from mimrl_tpu.models.bert import BertConfig as JBertConfig
+    from mimrl_tpu_torch.models.bert import BertConfig
+    from mimrl_tpu_torch.models.model import CMI_KEYS, VMI_KEYS, MimrlModel
+
+    T, d_c = 4, BANK_DC
+    compose = "cat" if d_f > d_c else "mean"
+    kw = dict(d_a=3, d_v=2, d_common=d_c, time_len=T,
+              d_hiddens=((T, 2, d_c), (2, 2, d_c)),
+              d_outs=((T, 2, d_c), (2, 2, d_c // 2 if d_f > d_c else d_c)),
+              features_compose_k=compose, features_compose_t=compose,
+              critic_type=critic_type, baseline_type=baseline_type,
+              bound_type=bound_type)
+    jm = {fused: jmodel.MimrlModel(d_t=8, bert_config=JBertConfig.tiny(),
+                                   fused_estimators=fused, **kw)
+          for fused in (False, True)}
+    est_kw = dict(hidden_dim=jmodel.EST_HIDDEN_DIM,
+                  embed_dim=jmodel.EST_EMBED_DIM, layers=jmodel.EST_LAYERS)
+    feats, labels, knn = _bank_inputs(d_f)
+    xs = {"f": feats[0], "t": feats[1], "a": feats[2], "v": feats[3]}
+    params = {}
+    for i, key in enumerate(VMI_KEYS):
+        params[f"vmi_estimator_{key}"] = jest.VMIEstimator(
+            critic_type, baseline_type, bound_type, **est_kw).init(
+                jax.random.PRNGKey(10 + i), xs[key[0]], xs[key[2]])["params"]
+    lab = jnp.tile(labels[:, None], (1, d_c))
+    for i, key in enumerate(CMI_KEYS):
+        params[f"vcmi_estimator_{key}"] = jest.VCMIEstimator(
+            embed_dim=jmodel.EST_EMBED_DIM,
+            hidden_dim=jmodel.EST_HIDDEN_DIM).init(
+                jax.random.PRNGKey(20 + i), lab, lab, lab, *knn[key])["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    pm = {}
+    for fused in (True, False):
+        m = MimrlModel(d_t=8, raw_text=False, bert_config=BertConfig.tiny(),
+                       fused_estimators=fused, **kw)
+        _bank_of(m).load_state_dict(state_dict_from_jax(params, _bank_of(m)),
+                                    strict=True)
+        assert m.classify_dim == d_f
+        pm[fused] = m
+    return jm, params, pm
+
+
+def _bank_of(model):
+    """The model's 11 estimators under their names, alone."""
+    holder = nn.Module()
+    for name, child in model.named_children():
+        if name.startswith(("vmi_", "vcmi_")):
+            setattr(holder, name, child)
+    return holder
+
+
+def _bank_inputs(d_f):
+    rng = np.random.default_rng(0)
+    feats = tuple(jnp.asarray(rng.normal(size=(BANK_BS, d)), jnp.float32)
+                  for d in (d_f, BANK_DC, BANK_DC, BANK_DC))
+    labels = jnp.asarray(rng.normal(size=(BANK_BS,)), jnp.float32)
+    knn = {k: tuple(jnp.asarray(rng.normal(size=(BANK_BS, BANK_DC)),
+                                jnp.float32) for _ in range(3))
+           for k in ("ac_t", "ta_c", "vc_t", "tv_c", "tc_a", "tc_v")}
+    return feats, labels, knn
+
+
+def _port_bank(m, stage, labels, feats, knn):
+    """(mis, losses, gradients of the summed losses by parameter name)."""
+    method = (m.compute_vmi_loss_stage1 if stage == 1
+              else m.compute_vmi_loss_stage2)
+    mis, losses = method(_t(labels), *map(_t, feats),
+                         {k: tuple(map(_t, v)) for k, v in knn.items()})
+    names = [n for n, _ in m.named_parameters()
+             if n.startswith(("vmi_", "vcmi_"))]
+    params = dict(m.named_parameters())
+    grads = torch.autograd.grad(sum(losses), [params[n] for n in names],
+                                allow_unused=True)
+    return (torch.stack(mis).detach().numpy(),
+            torch.stack(losses).detach().numpy(),
+            {n: (torch.zeros_like(params[n]) if g is None else g).numpy()
+             for n, g in zip(names, grads)})
+
+
+def _check_bank(monkeypatch, critic_type, baseline_type, bound_type,
+                d_f=BANK_DC, against_jax=True):
+    """The port's batched bank (``fused_estimators``) against its
+    sequential bank at JAX's limits: values of both stages and the
+    stage-1 gradients, element by element. Against JAX's fused bank
+    (``against_jax``): the values at JAX's limits; the gradients at JAX's
+    limits for a critic with a constant baseline, and otherwise by their
+    largest error over the tensor's largest gradient, within JAX's rtol:
+    TUBA's gradients reach 8.7 at these weights, and the port's sequential
+    bank already differs from JAX's by 1.7e-6 of that (float32 sums in
+    another order), past an elementwise atol of 1e-6 on elements that
+    cancel. CLUB takes the sequential path in both packages."""
+    from mimrl_tpu.models import model as jmodel
+    from mimrl_tpu_torch.models import model as pmodel
+
+    jm, params, pm = _bank_models(critic_type, baseline_type, bound_type, d_f)
+    feats, labels, knn = _bank_inputs(d_f)
+    calls = []
+    for name in ("batched_vmi", "batched_vcmi"):
+        def counted(*a, fn=getattr(pmodel, name)):
+            calls.append(fn.__name__)
+            return fn(*a)
+        monkeypatch.setattr(pmodel, name, counted)
+    got = {stage: _port_bank(pm[True], stage, labels, feats, knn)
+           for stage in (1, 2)}
+    monkeypatch.undo()
+    groups = len(pm[True].vmi_groups) + len(pm[True].cmi_groups)
+    assert len(calls) == (0 if bound_type == "club" else 2 * groups)
+    assert list(pm[True].state_dict()) == list(pm[False].state_dict())
+    seq = {stage: _port_bank(pm[False], stage, labels, feats, knn)
+           for stage in (1, 2)}
+    for stage in (1, 2):
+        for g, w in zip(got[stage][:2], seq[stage][:2]):
+            np.testing.assert_allclose(g, w, **BANK_TOL)
+    for n, w in seq[1][2].items():
+        np.testing.assert_allclose(got[1][2][n], w, err_msg=n,
+                                   **BANK_GRAD_TOL)
+    if not against_jax:
+        return
+    if d_f != BANK_DC:  # JAX's fused bank stacks F_F with T_F (ROADMAP §3)
+        with pytest.raises(ValueError):
+            jm[True].apply({"params": params}, labels, *feats, knn,
+                           method=jmodel.MimrlModel.compute_vmi_loss_stage1)
+        return
+    for stage in (1, 2):
+        method = (jmodel.MimrlModel.compute_vmi_loss_stage1 if stage == 1
+                  else jmodel.MimrlModel.compute_vmi_loss_stage2)
+        want = jax.jit(lambda p: jm[True].apply(
+            {"params": p}, labels, *feats, knn, method=method))(params)
+        for g, w in zip(got[stage][:2], want):
+            np.testing.assert_allclose(g, np.stack(w), **BANK_TOL)
+
+    def total(p):
+        return sum(jm[True].apply(
+            {"params": p}, labels, *feats, knn,
+            method=jmodel.MimrlModel.compute_vmi_loss_stage1)[1])
+
+    jgrads = jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(total))(params))
+    want = state_dict_from_jax(jgrads, _bank_of(pm[True]))
+    for n, g in got[1][2].items():
+        w = want[n].numpy()
+        if baseline_type == "constant":
+            np.testing.assert_allclose(g, w, err_msg=n, **BANK_GRAD_TOL)
+        else:
+            err = np.abs(g - w).max() / max(np.abs(w).max(), 1e-30)
+            assert err <= BANK_GRAD_TOL["rtol"], (n, err)
+
+
 @pytest.mark.parametrize("critic_type,baseline_type,bound_type", [
     ("separate", "constant", "infonce"), ("concat", "constant", "nwj"),
     ("separate", "unnormalized", "tuba"), ("separate", "gaussain", "interpolate"),
     ("separate", "constant", "mine"), ("separate", "constant", "smile"),
     ("separate", "constant", "club")])
-def test_vmi_estimator_matches_jax(critic_type, baseline_type, bound_type):
+def test_vmi_estimator_matches_jax(monkeypatch, critic_type, baseline_type,
+                                   bound_type):
+    """One estimator against JAX's; then the model's bank of this
+    configuration, batched against sequential and (InfoNCE, the concat
+    critic, TUBA) against JAX's fused bank, and with fused features wider
+    than d_common (``_check_bank``)."""
     x, y = _np(11, BS, DX), _np(12, BS, DY)
     kw = dict(hidden_dim=16, embed_dim=6, layers=2)
     jm = jest.VMIEstimator(critic_type, baseline_type, bound_type, **kw)
@@ -159,6 +378,51 @@ def test_vmi_estimator_matches_jax(critic_type, baseline_type, bound_type):
     got = pm(_t(x), _t(y))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+    _check_bank(monkeypatch, critic_type, baseline_type, bound_type,
+                against_jax=bound_type in ("infonce", "nwj", "tuba"))
+    if bound_type == "infonce":
+        _check_bank(monkeypatch, critic_type, baseline_type, bound_type,
+                    d_f=2 * BANK_DC)
+    _check_train_mine(critic_type, baseline_type, bound_type)
+
+
+def _check_train_mine(critic_type, baseline_type, bound_type):
+    """Two epochs of ``mi/standalone.py::train_mine`` (Adamax, the EMA
+    shadow after every step) against JAX's, from the weights JAX's draws
+    (carried by the converter) and with one row order injected on both
+    sides; the epochs' MI within 1e-5."""
+    from mimrl_tpu.mi import standalone as jsa
+    from mimrl_tpu_torch.mi import standalone
+
+    rng = np.random.default_rng(21)
+    n, d, bs = 64, 3, 16
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    y = (0.7 * x + 0.5 * rng.normal(size=(n, d))).astype(np.float32)
+    perm = rng.permutation(n)
+    kw = dict(hidden_dim=16, embed_dim=8, layers=1)
+    train = dict(epochs=2, batch_size=bs, lr=1e-2, weight_decay=0.9, **kw)
+    key = jax.random.PRNGKey(3)
+    want = jsa.train_mine(key, critic_type, baseline_type, bound_type,
+                          x[perm], y[perm], **train)
+    # JAX's train_mine draws its weights so (mimrl_tpu/mi/standalone.py:110)
+    _, k_critic, k_base = jax.random.split(key, 3)
+    xj, yj = jnp.asarray(x[perm][:2]), jnp.asarray(y[perm][:2])
+    if bound_type == "club":
+        tree = {"critic_model": jcritics.ClubCritic(
+            y_dim=d, hidden_dim=16, layers=1).init(k_critic, xj)["params"]}
+    else:
+        tree = {"critic_model": jcritics.CriticModel(critic_type, **kw).init(
+            k_critic, xj, yj)["params"]}
+    if baseline_type == "unnormalized":  # the other baselines hold none
+        tree["baseline_model"] = jcritics.BaselineModel(
+            baseline_type, hidden_dim=16, layers=1).init(k_base, yj)["params"]
+    est = _carry("e", tree, estimators.VMIEstimator(
+        critic_type, baseline_type, bound_type, d, d, **kw))
+    got = standalone.train_mine(
+        None, critic_type, baseline_type, bound_type, x, y, device="cpu",
+        init_state=est.state_dict(), batch_order=torch.as_tensor(perm),
+        **train)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("bs,k,last,cmi_type", [
@@ -180,6 +444,18 @@ def test_vcmi_estimator_matches_jax(bs, k, last, cmi_type):
     got = pm(*map(_t, args))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), **TOL)
+    # two classifiers batched (the second on reversed rows) against each
+    torch.manual_seed(0)
+    other = estimators.VCMIEstimator(embed_dim=8, hidden_dim=16,
+                                     last_activate=last, cmi_type=cmi_type)
+    inputs = [torch.stack([_t(f), _t(f).flip(0)]) for f in args]
+    cmi, bce = estimators.batched_vcmi([pm, other], inputs[:3], inputs[3:])
+    for e, est in enumerate((pm, other)):
+        want = est(*(f[e] for f in inputs))
+        np.testing.assert_allclose(cmi[e].detach().numpy(),
+                                   want[0].detach().numpy(), **BANK_TOL)
+        np.testing.assert_allclose(bce[e].detach().numpy(),
+                                   want[1].detach().numpy(), **BANK_TOL)
 
 
 def test_cmi_head_clamps_and_bce_clamps_its_log():

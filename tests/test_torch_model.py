@@ -236,6 +236,27 @@ def test_full_model_matches_jax(pair):
         assert np.isfinite(g.numpy()).all()
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
     np.testing.assert_array_equal(out_only.numpy(), got[0].numpy())
+    # --fused_av_scan: the towers through encoders.run_pair (two streams
+    # on the card, one after the other here), bit for bit the same
+    calls = []
+
+    def counted(*args):
+        calls.append(len(args))
+        return encoders.run_pair(*args)
+
+    import mimrl_tpu_torch.models.model as pmodel
+    assert not pm.fused_av_scan
+    pm.fused_av_scan = True
+    try:
+        real, pmodel.run_pair = pmodel.run_pair, counted
+        with torch.no_grad():
+            paired = pm(*map(_t, batch), return_features=True)
+    finally:
+        pmodel.run_pair = real
+        pm.fused_av_scan = False
+    assert calls == [6]
+    for g, p in zip(got, paired):
+        np.testing.assert_array_equal(p.numpy(), g.numpy())
 
 
 def test_wide_classifier_branch_matches_jax(pair):

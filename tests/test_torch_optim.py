@@ -159,9 +159,42 @@ def test_partition_is_by_top_level_name():
 
 
 def test_sam_raises_as_in_the_reference():
+    """The Solver refuses SAM; ``train/sam.py`` is a library module: one
+    ``sam_step`` (SGD and Adam) against JAX's on the same parameters and
+    loss, and the ascent's norm is rho."""
+    from mimrl_tpu.train import sam as jsam
+    from mimrl_tpu_torch.train import sam
+
     with pytest.raises(NotImplementedError, match="SAM"):
         optim.make_vmi_optimizer(MimrlConfig(optm="SAM"),
                                  {"vmi_x.w": nn.Parameter(torch.zeros(1))})
+    rng = np.random.default_rng(3)
+    w0, b0, x = (rng.normal(size=s).astype(np.float32)
+                 for s in ((2, 1), (1,), (3, 2)))
+
+    def jloss(p):
+        return jnp.sum(jnp.tanh(jnp.asarray(x) @ p["w"] + p["b"]) ** 2)
+
+    for jopt, make in ((optax.sgd(0.1), lambda ps: torch.optim.SGD(ps, 0.1)),
+                       (optax.adam(0.01),
+                        lambda ps: torch.optim.Adam(ps, 0.01))):
+        params = {"w": jnp.asarray(w0), "b": jnp.asarray(b0)}
+        want, _, want_loss = jsam.sam_step(jloss, params, jopt,
+                                           jopt.init(params), rho=0.05)
+        model = nn.Module()
+        model.w = nn.Parameter(torch.from_numpy(w0.copy()))
+        model.b = nn.Parameter(torch.from_numpy(b0.copy()))
+        loss = sam.sam_step(
+            lambda: (torch.tanh(torch.from_numpy(x) @ model.w + model.b)
+                     ** 2).sum(),
+            model, make([model.w, model.b]), rho=0.05)
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+        for name in ("w", "b"):
+            np.testing.assert_allclose(getattr(model, name).detach().numpy(),
+                                       np.asarray(want[name]), rtol=1e-6,
+                                       atol=1e-6)
+    e = sam.sam_ascent([torch.from_numpy(w0), torch.from_numpy(b0)], rho=0.05)
+    assert float(sam.global_grad_norm(e)) == pytest.approx(0.05, abs=1e-6)
 
 
 @pytest.mark.parametrize("kind,iters", [("step", "3"), ("multi_step", "2-5"),
