@@ -209,6 +209,37 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            truth, an independent y (CLUB, 30 epochs, as
            ``tests/test_fusion_club.py``) below 0.4 and 0.35 x the truth,
            InfoNCE on the independent y stated; wall s each.
+14. mesh   ``parallel/mesh.py::Dropout`` on a split batch against
+           ``F.dropout`` of the whole batch (each rank's rows, output and
+           input gradient, bit-equal); then the mesh at full width in
+           three cases, as
+           ``recipes/multichip.sh`` runs them: ``--mesh_data 2`` (under
+           ``--flash_attn auto``, i.e. plain attention as in JAX, under
+           ``on``, and under ``on --use_pallas --quant int8``),
+           ``--mesh_data 1 --mesh_model 2 --seq_shard``, and ``--fusion moe
+           --mesh_model 2`` (``--seq_shard`` keeps the activations whole
+           for now). Each, at 2 BERT layers: one SGD critic_step +
+           train_step on the
+           mesh against the unsharded step from the same weights, bank,
+           batch and seeds (``parallel/check.py``), forward values and
+           each parameter's gradient within MESH_GAP_FACTOR times the
+           order-only control (the unsharded step with its forward in two
+           row blocks; the updates stated beside them),
+           every kernel launch of the mesh step held against its plain
+           version, launches per rank exact; on the data case three fault
+           controls (a rank skips one parameter's gradient average; the
+           average's division left out; a rank draws its dropout rows from
+           row 0) must miss that gate tenfold. Then a 2-epoch
+           ``--epoch_scan`` run per case at 1 BERT layer (the data case
+           with all four kernels): finite scores
+           equal on both ranks, per rank the epoch s, one eager train
+           step's ms and the profiler's collective rows, the launches and
+           peak memory. Two cards or more: one rank per card
+           over NCCL. One card: both ranks share it over gloo (eager: gloo
+           cannot be captured; correctness only, no measure of scaling),
+           and a one-rank NCCL group runs the flagged recipe 2 epochs (1
+           BERT layer) with
+           its step graphs capturing the NCCL gradient average.
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -370,6 +401,60 @@ INT8_MAIN = (ROWS, 768, 3072)
 # K % 16 != 0 (mma_sync); ragged M and N with a K tail under stream-K (wgmma)
 INT8_RAGGED = [(333, 1000, 77), (200, 12800 + 48, 136)]
 
+# the mesh phase (parallel/mesh.py): three cases as recipes/multichip.sh
+# runs them at full width, each (case flags, (variant, flags) ...); every
+# variant's one-step gate runs SGD (the update is linear in the gradient, so
+# a fault in it shows; under Adam a gradient scaled by 2 moves little)
+MESH_CASES = {
+    "data": (["--mesh_data", "2"],
+             (("auto", []), ("flash", ["--flash_attn", "on"]),
+              ("flagged", ["--flash_attn", "on", "--use_pallas", "--quant",
+                           "int8"]))),
+    "seq_shard": (["--mesh_data", "1", "--mesh_model", "2", "--seq_shard"],
+                  (("plain", []),)),
+    "moe": (["--mesh_data", "1", "--mesh_model", "2", "--fusion", "moe"],
+            (("plain", []),)),
+}
+# the gates run at 2 BERT layers (full width): the host's float64 copies
+# and the gloo sums of every gradient scale with the parameter count
+MESH_GATE_LAYERS = 2
+MESH_GATE_ARGS = ["--optm", "SGD", "--bert_layers", str(MESH_GATE_LAYERS)]
+MESH_VOCAB = 30522
+# the gate: a mesh step may differ from the unsharded step (forward values
+# and each parameter's update, relative: check.relative_gaps) by at most
+# MESH_GAP_FACTOR times what the order-only control moves, the unsharded
+# step with its forward in two row blocks whose gradients are summed in
+# the other order (check.split_batch_step), and no less than that factor
+# times MESH_GAP_FLOOR. A bf16 step over 64 rows need not match one over
+# 128 bit for bit: cuBLAS picks other kernels, and the gradient sum runs in
+# another order.
+MESH_GAP_FACTOR = 4.0
+MESH_GAP_FLOOR = 1e-4
+# the gated readings: the forward values and each parameter's gradient as
+# the optimizer takes it; the update is stated beside them (the same
+# optimizer arithmetic on the gated gradient, resolved no finer than a
+# parameter's float32 last place: one last place of a LayerNorm weight is
+# 2% of its first SGD update)
+MESH_GATED = ("forward", "gradient")
+# each must miss the gate by at least tenfold: rank 1 keeps its own
+# gradient of the first main parameter; the average's division left out
+# (the gradient summed over the ranks); rank 1 draws its dropout rows of
+# the whole batch from row 0
+MESH_FAULTS = {"skip_reduce": {"skip_reduce": 0},
+               "no_scaling": {"sum_gradients": True},
+               "dropout_rows": {"dropout_from_zero": True}}
+# the readings: 2 epochs on --epoch_scan (train_phase's split), per rank,
+# at 1 BERT layer (full width): gloo moves every collective through host
+# memory (12.6 s an eager step of the model axis at full depth with two
+# ranks, measured on one H100); the data case with all four kernels
+MESH_READ_ARGS = ["--epoch_scan", "--epochs_num", "2", "--no_save_models",
+                  "--save_latest_every", "0", "--bert_layers", "1"]
+MESH_READ_FLAGS = {"data": ["--flash_attn", "on", "--use_pallas", "--quant",
+                            "int8"]}
+# the cases run in one group of two processes (each case builds its own
+# mesh over it): each group costs a start and a CUDA context per rank
+MESH_GROUPS = (("data", "seq_shard", "moe"),)
+
 CANONICAL_MOSI = [
     "--dataset", "mosi_Dec", "--log_scale", "0-0-0", "--normalize", "0-1-1",
     "--batch_size", str(BATCH), "--d_common", "128", "--encoders", "gru",
@@ -475,18 +560,20 @@ def sub(c1, c0):
     return tuple(a - b for a, b in zip(c1, c0))
 
 
-def step_launches(kind: str, use_pallas: bool, quant: str, n: int = 1):
+def step_launches(kind: str, use_pallas: bool, quant: str, n: int = 1,
+                  layers: int = 12):
     """Launches of the four kernels in ``n`` steps of one kind ('train',
-    'critic' or 'eval') at the canonical depth: 12 attention forwards, in a
-    train step 12 attention backwards; 6 axis MLPs (forward only: their
-    backward is einsums); 4 int8 products per layer and forward, and in a
-    train step as many again for dw ('int8') or twice as many for dw and
-    dx ('int8_all')."""
+    'critic' or 'eval') at a BERT depth of ``layers`` (the canonical 12):
+    one attention forward per layer, in a train step one attention
+    backward per layer; 6 axis MLPs (forward only: their backward is
+    einsums); 4 int8 products per layer and forward, and in a train step
+    as many again for dw ('int8') or twice as many for dw and dx
+    ('int8_all')."""
     train = kind == "train"
-    int8 = 0 if quant == "none" else 48 + (
-        {"int8_fwd": 0, "int8": 48, "int8_all": 96}[quant] if train else 0)
-    return (12 * n, 12 * n if train else 0, 6 * n if use_pallas else 0,
-            int8 * n)
+    int8 = 0 if quant == "none" else 4 * layers * (1 + (
+        {"int8_fwd": 0, "int8": 1, "int8_all": 2}[quant] if train else 0))
+    return (layers * n, layers * n if train else 0,
+            6 * n if use_pallas else 0, int8 * n)
 
 
 def add(*cs):
@@ -606,9 +693,11 @@ def simt_attention(q, k, v, bias, seed=None, dropout_p=0.0, d_out=None):
     from mimrl_tpu_torch.ops import flash_attention as fa
 
     bs, nh, t, hd = q.shape
-    seed_ptr, drop, threshold, inv_keep = fa._dropout_args(seed, dropout_p)
+    seed_ptr, drop, threshold, inv_keep, batch0 = fa._dropout_args(
+        seed, dropout_p)
     tail = (bs, nh, t, hd, fa._DTYPE_CODES[q.dtype], 1.0 / hd ** 0.5, drop,
-            threshold, inv_keep, torch.cuda.current_stream().cuda_stream)
+            threshold, inv_keep, batch0,
+            torch.cuda.current_stream().cuda_stream)
     if d_out is None:
         out = torch.empty_like(q)
         rc = fa._entry(fa.SOURCE, "mimrl_flash_attention_fwd", 6, q.dtype)(
@@ -680,17 +769,18 @@ def checked_launches(errors):
     forward = fa._forward
     backward = vars(fa._FlashAttention)["backward"].__func__
 
-    def checked_forward(q, k, v, bias, seed, dropout_p):
-        out = forward(q, k, v, bias, seed, dropout_p)
+    def checked_forward(q, k, v, bias, seed, dropout_p, row0=0):
+        out = forward(q, k, v, bias, seed, dropout_p, row0)
         errors["fwd"].append(rel_err(out, fa.flash_attention_plain(
-            q, k, v, bias, seed, dropout_p)))
+            q, k, v, bias, seed, dropout_p, row0)))
         return out
 
     def checked_backward(ctx, d_out):
         grads = backward(ctx, d_out)
         q, k, v, bias, seed = ctx.saved_tensors
         want = fa.flash_attention_bwd_plain(q, k, v, bias, seed,
-                                            d_out.to(q.dtype), ctx.dropout_p)
+                                            d_out.to(q.dtype), ctx.dropout_p,
+                                            ctx.row0)
         errors["bwd"].append(max(rel_err(g, w) for g, w in zip(grads, want)))
         return grads
 
@@ -4612,6 +4702,410 @@ def standalone_phase() -> None:
     require(not failed, f"standalone: recovery gates failed for {failed}")
 
 
+# ---------------------------------------------------------------------- #
+# 14. mesh: the data-, tensor-, sequence- and expert-parallel mesh
+
+
+def mesh_argv(data: str, *flags) -> list:
+    return CANONICAL_MOSI + CANONICAL_TRAIN + ["--data_dir", data, *flags]
+
+
+def mesh_inputs(seed: int = 0):
+    """A seeded full-width batch (bs 128, T 100, the fixture's widths), its
+    labels and a seeded bank of 3 batches' rows (d_common 128)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = (rng.uniform(size=(BATCH, TIME_LEN)) > 0.2).astype(np.int64)
+    mask[:, 0] = 1
+    sample_mask = np.ones(BATCH, np.float32)
+    sample_mask[-(BATCH // 16 + 1):] = 0.0  # cycle-padded rows
+    batch = dict(
+        bert_sentences=rng.integers(0, MESH_VOCAB, (BATCH, TIME_LEN)),
+        bert_sentence_types=np.zeros((BATCH, TIME_LEN), np.int64),
+        bert_sentence_att_mask=mask,
+        audio=rng.normal(size=(BATCH, TIME_LEN, 5)).astype(np.float32),
+        video=rng.normal(size=(BATCH, TIME_LEN, 20)).astype(np.float32),
+        sample_mask=sample_mask)
+    bank = dict(C=rng.normal(size=(3 * BATCH, 1)).astype(np.float32),
+                **{f: rng.normal(size=(3 * BATCH, 128)).astype(np.float32)
+                   for f in "FTAV"})
+    return batch, rng.normal(size=BATCH).astype(np.float32), bank
+
+
+def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
+    """One rank of a case's equality gate: per variant, one critic_step +
+    train_step at full width on the mesh against the unsharded step (and,
+    on rank 0, the order-only control), every kernel launch of the mesh
+    step held against its plain version; then the fault controls on the
+    first variant. Returns (rank 0) the readings."""
+    import torch
+    import torch.distributed as dist
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.models.model import build_model, init_weights
+    from mimrl_tpu_torch.parallel import check
+    from mimrl_tpu_torch.parallel.mesh import make_mesh
+
+    batch, labels, bank = mesh_inputs()
+    out, state = {}, None
+    for name, flags in variants:
+        cfg = parse_args(mesh_argv(data, *case_flags, *flags,
+                                   *MESH_GATE_ARGS))
+        if cfg.flash_attn == "auto":  # the Solver's rule on a mesh
+            cfg = cfg.replace(flash_attn="off")
+        mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, cfg.mesh_pipe,
+                         cfg.mesh_dcn)
+        if state is None or cfg.fusion != state[0]:
+            model = build_model(cfg, MESH_VOCAB, 5, 20, "cpu")
+            init_weights(model, torch.Generator().manual_seed(cfg.seed))
+            state = (cfg.fusion, model.state_dict())
+            del model
+        args = (cfg, batch, labels, bank, 2 * BATCH, device)
+
+        def build():
+            return check.build(cfg, MESH_VOCAB, 5, 20, state[1], device)
+
+        ref = check.one_step(build(), *args)
+        control = None
+        if rank == 0:
+            start = {k: v.double() for k, v in state[1].items()}
+            control = check.relative_gaps(
+                ref, check.split_batch_step(build(), *args), start)
+        errors, axis_errors, int8_seen = {"fwd": [], "bwd": []}, [], []
+        checks = (checked_launches(errors) + checked_axis_mlp(axis_errors)
+                  + checked_int8(int8_seen))
+        zero_counts()
+        with patched(checks):
+            gaps, _, _ = check.equality_gap(
+                cfg, mesh, state[1], batch, labels, bank, 2 * BATCH,
+                vocab=MESH_VOCAB, d_a=5, d_v=20, device=device,
+                reference=ref, measure=check.relative_gaps)
+        torch.cuda.synchronize(device)
+        on = device if mesh.backend == "nccl" else "cpu"
+        every = torch.zeros((mesh.n_ranks, 4), dtype=torch.int64, device=on)
+        every[rank] = torch.tensor(counts(), device=on)
+        dist.all_reduce(every)
+        worst = torch.tensor([max(errors["fwd"], default=0.0),
+                              max(errors["bwd"], default=0.0),
+                              max(axis_errors, default=0.0),
+                              float(not all(e for *_, e in int8_seen))],
+                             dtype=torch.float64, device=on)
+        dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+        out[name] = dict(gaps=gaps, control=control,
+                         launches_per_rank=every.tolist(),
+                         kernel_errors=dict(zip(
+                             ("attention_fwd", "attention_bwd", "axis_mlp",
+                              "int8_not_bit_equal"), worst.tolist())),
+                         attention_dtype=str(cfg.compute_dtype),
+                         flash_attn=cfg.flash_attn)
+        if name == variants[0][0]:
+            for fault, spec in faults.items():
+                fgaps, _, _ = check.equality_gap(
+                    cfg, mesh, state[1], batch, labels, bank, 2 * BATCH,
+                    vocab=MESH_VOCAB, d_a=5, d_v=20, device=device,
+                    reference=ref, faults=spec, measure=check.relative_gaps)
+                out[f"fault_{fault}"] = dict(gaps=fgaps)
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_read_rank(rank, device, argv):
+    """One rank of a case's 2-epoch ``--epoch_scan`` run: its scores, epoch
+    seconds (and over the epoch's train batches), launches, peak memory,
+    and one eager train step after the run: its ms and the profiler's
+    collective rows. Returns (rank 0) every rank's readings."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    epochs, box = [], {}
+    finalize = vars(Solver)["_finalize_epoch"]
+
+    def timed(self, tracking, epoch, dt, *args, **kwargs):
+        epochs.append(dt)
+        return finalize(self, tracking, epoch, dt, *args, **kwargs)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    zero_counts()
+    with patched([(Solver, "_finalize_epoch", timed)]):
+        solver = Solver(parse_args(argv), device=device)
+        scores = solver.solve()
+    torch.cuda.synchronize(device)
+    launches = counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    n_steps = len(solver.train_loader)
+    batch = next(iter(solver.train_loader))
+    mb, labels, _ = solver._prep(batch)
+
+    def step():
+        steps.train_step(solver.model, solver.opt_main, solver.opt, mb,
+                         labels, solver.bank, solver.new_bank, 0,
+                         solver.generator, True)
+        torch.cuda.synchronize(device)
+
+    step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [dict(name=e.key, calls=e.count,
+                 host_ms=e.cpu_time_total / 1e3,
+                 device_ms=getattr(e, "device_time_total",
+                                   getattr(e, "cuda_time_total", 0.0)) / 1e3)
+            for e in prof.key_averages()
+            if any(w in e.key.lower() for w in ("all_reduce", "allreduce",
+                                                  "gloo", "nccl"))]
+    busy, _ = device_busy_ms(prof)
+    mine = dict(rank=rank, scores=scores, epoch_s=epochs,
+                ms_per_train_batch=[1e3 * dt / n_steps for dt in epochs],
+                eager_step_ms=step_ms, eager_step_busy_ms=busy,
+                collective_rows=rows, launches=launches, peak_gb=peak_gb,
+                graphs=solver.graphs.stats(),
+                mesh=repr(solver.mesh))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def mesh_one_rank_nccl(data: str, runs: str):
+    """A one-rank NCCL group on this card: the flagged recipe's 2-epoch
+    ``--epoch_scan`` run on a one-rank mesh, whose step graphs capture the
+    kernels with the mesh's NCCL collectives (the gradient average);
+    returns its readings and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from mimrl_tpu_torch.cli.main import free_port
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.parallel.mesh import make_mesh
+    from mimrl_tpu_torch.train.solver import Solver
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        argv = mesh_argv(data, "--flash_attn", "on", *QUANT_FLAGS,
+                         *MESH_READ_ARGS, "--task_dir", runs,
+                         "--task_name", "mesh_nccl1")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        epochs = []
+        finalize = vars(Solver)["_finalize_epoch"]
+
+        def timed(self, tracking, epoch, dt, *args, **kwargs):
+            epochs.append(dt)
+            return finalize(self, tracking, epoch, dt, *args, **kwargs)
+
+        zero_counts()
+        t0 = time.perf_counter()
+        with patched([(Solver, "_finalize_epoch", timed)]):
+            solver = Solver(parse_args(argv), mesh=mesh)
+            scores = solver.solve()
+        torch.cuda.synchronize()
+        launches = counts()
+        stats = solver.graphs.stats()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del solver
+    finally:
+        dist.destroy_process_group()
+    require(mesh.backend == "nccl" and mesh.capturable, repr(mesh))
+    require(all(all(v == v for v in s.values() if isinstance(v, float))
+                for s in scores), f"one-rank NCCL run: scores {scores}")
+    require(stats and all(g["replays"] >= 1 for g in stats.values()),
+            f"one-rank NCCL run: graphs {stats}")
+    return dict(wall_s=time.perf_counter() - t0, epoch_s=epochs,
+                scores=scores, launches=launches, graphs=stats,
+                peak_gb=peak_gb)
+
+
+def mesh_group_rank(rank, device, data, root, cases):
+    """One rank of a group of processes that runs ``cases`` (of one mesh
+    shape): each case's gate, then its 2-epoch readings. Returns (rank 0)
+    {case: {"gate": ..., "readings": [per rank]}}."""
+    out = {}
+    for case in cases:
+        case_flags, variants = MESH_CASES[case]
+        faults = MESH_FAULTS if case == "data" else {}
+        t0 = time.perf_counter()
+        gate = mesh_gate_rank(rank, device, data, case_flags, variants,
+                              faults)
+        gate_s = time.perf_counter() - t0
+        argv = mesh_argv(data, *case_flags, *MESH_READ_FLAGS.get(case, []),
+                         *MESH_READ_ARGS, "--task_dir", f"{root}/runs",
+                         "--task_name", f"mesh_{case}")
+        t0 = time.perf_counter()
+        readings = mesh_read_rank(rank, device, argv)
+        out[case] = dict(gate=gate, readings=readings, gate_s=gate_s,
+                         readings_s=time.perf_counter() - t0)
+    return out
+
+
+def mesh_dropout_check() -> dict:
+    """``parallel/mesh.py::Dropout`` on a split batch against ``F.dropout``
+    of the whole batch on the card, from one generator state: each rank's
+    rows (2 ranks) of the output and of the input gradient bit-equal, at
+    the canonical step's dropout shapes and a CubeMLP input's permuted
+    layout, bf16 and float32."""
+    import torch
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.parallel.mesh import Dropout, Mesh
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, perm in (((BATCH, TIME_LEN, 768), None),
+                            ((BATCH, 128), None),
+                            ((BATCH, 3, 128, 50), (0, 3, 1, 2))):
+            g = torch.Generator("cuda").manual_seed(len(shape))
+            x = torch.randn(shape, device="cuda", generator=g).to(dtype)
+            if perm is not None:
+                x = x.permute(*perm)
+            dy = torch.randn(x.shape, device="cuda", generator=g).to(dtype)
+            x.requires_grad_()
+            state = torch.cuda.get_rng_state()
+            want = F.dropout(x, DROPOUT_P, True)
+            (want_dx,) = torch.autograd.grad(want, x, dy)
+            half = BATCH // 2
+            for rank in range(2):
+                mesh = Mesh({"data": 2}, rank)
+                mesh.set_batch(BATCH)
+                drop = Dropout(DROPOUT_P)
+                drop.mesh = mesh
+                torch.cuda.set_rng_state(state)
+                rows = slice(rank * half, (rank + 1) * half)
+                got = drop(x[rows])
+                (dx,) = torch.autograd.grad(got, x, dy[rows])
+                require(torch.equal(got, want[rows])
+                        and torch.equal(dx[rows], want_dx[rows]),
+                        f"mesh Dropout {dtype} {shape} rank {rank}: not "
+                        "F.dropout's rows")
+            out[f"{str(dtype)[6:]}_{'x'.join(map(str, x.shape))}"] = float(
+                (want != 0).float().mean())
+    return out
+
+
+def mesh_phase(root: str):
+    """The mesh's dropout against ``F.dropout``; the three cases of the
+    mesh (``parallel/mesh.py``) at full width: the one-step equality gates
+    with their controls and fault controls, and the 2-epoch
+    ``--epoch_scan`` readings per rank (one group of two processes for
+    the three); then, on one card, a one-rank NCCL run
+    whose graphs capture the collectives. Returns the launches of the
+    counted mesh runs (the data case's flagged run on every rank, and the
+    one-rank NCCL run)."""
+    import math
+
+    import torch
+
+    from mimrl_tpu_torch.parallel.check import run_ranks
+
+    data = f"{root}/train_data"  # train_phase's split
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    devices = ([f"cuda:{i}" for i in range(2)] if n_cards >= 2
+               else ["cuda:0", "cuda:0"])
+    emit(phase="mesh", step="setup", cards=n_cards, backend=backend,
+         devices=devices, card=card(),
+         note=("two ranks share one card over gloo: correctness only, the "
+               "times are no measure of scaling") if n_cards < 2 else
+         "one rank per card over NCCL")
+    emit(phase="mesh", step="dropout", keep_rates=mesh_dropout_check(),
+         card=card())
+    flagged = add(step_launches("train", True, "int8", 6, layers=1),
+                  step_launches("critic", True, "int8", 6, layers=1),
+                  step_launches("eval", True, "int8", 4, layers=1))
+    launches = (0, 0, 0, 0)
+
+    def limits_of(control):
+        return {k: MESH_GAP_FACTOR * max(control[k], MESH_GAP_FLOOR)
+                for k in MESH_GATED}
+
+    for cases in MESH_GROUPS:
+        t0 = time.perf_counter()
+        results = run_ranks(2, mesh_group_rank, (data, root, cases),
+                            backend=backend, devices=devices, store_dir=root)
+        emit(phase="mesh", step="group_seconds", cases=cases,
+             seconds=time.perf_counter() - t0)
+        for case in cases:
+            gate, ranks = results[case]["gate"], results[case]["readings"]
+            variants = MESH_CASES[case][1]
+            for name, _ in variants:
+                r = gate[name]
+                limits = limits_of(r["control"])
+                ratio = {k: r["gaps"][k] / limits[k] for k in limits}
+                emit(phase="mesh", step="gate", case=case, variant=name,
+                     gaps=r["gaps"], control=r["control"], limits=limits,
+                     gap_over_limit=ratio, factor=MESH_GAP_FACTOR,
+                     launches_per_rank=r["launches_per_rank"],
+                     kernel_errors=r["kernel_errors"],
+                     flash_attn=r["flash_attn"], card=card(),
+                     seconds=results[case]["gate_s"])
+                require(all(v <= 1.0 for v in ratio.values()),
+                        f"mesh {case}/{name}: gaps {r['gaps']} over the "
+                        f"limits {limits}")
+                ke = r["kernel_errors"]
+                require(ke["attention_fwd"] <= LAUNCH_BF16_TOL
+                        and ke["attention_bwd"] <= LAUNCH_BF16_TOL
+                        and ke["axis_mlp"] <= AXIS_MLP_TOL
+                        and ke["int8_not_bit_equal"] == 0.0,
+                        f"mesh {case}/{name}: a kernel launch against its "
+                        f"plain version {ke}")
+                # per rank: a critic_step and a train_step
+                kernels = "--flash_attn" in dict(variants)[name]
+                pallas = "--use_pallas" in dict(variants)[name]
+                want = list(add(
+                    *(step_launches(kind, pallas, "int8" if pallas else "none",
+                                    layers=MESH_GATE_LAYERS)
+                      for kind in ("critic", "train"))))
+                if not kernels:
+                    want[:2] = [0, 0]
+                for per_rank in r["launches_per_rank"]:
+                    require(per_rank == want, f"mesh {case}/{name}: "
+                            f"launches per rank {per_rank}, want {want}")
+            limits = limits_of(gate[variants[0][0]]["control"])
+            for fault in (MESH_FAULTS if case == "data" else {}):
+                g = gate[f"fault_{fault}"]["gaps"]
+                miss = max(g[k] / limits[k] for k in limits)
+                emit(phase="mesh", step="fault_control", case=case,
+                     fault=fault, gaps=g, limits=limits, gap_over_limit=miss)
+                require(miss >= 10.0, f"mesh fault control {fault} missed "
+                        f"its limit by {miss:.3g}x only (want >= 10x)")
+            for r in ranks:
+                require(all(math.isfinite(v) for s in r["scores"]
+                            for v in s.values()),
+                        f"mesh {case} rank {r['rank']}: scores {r['scores']}")
+                emit(phase="mesh", step="readings", case=case,
+                     flags=MESH_READ_FLAGS.get(case, []), backend=backend,
+                     card=card(), seconds=results[case]["readings_s"], **r)
+            require(ranks[0]["scores"] == ranks[1]["scores"],
+                    f"mesh {case}: the ranks' scores differ")
+            if case == "data":
+                for r in ranks:
+                    require(tuple(r["launches"]) == flagged,
+                            f"mesh data rank {r['rank']}: launches "
+                            f"{r['launches']}, want {flagged}")
+                    launches = add(launches, tuple(r["launches"]))
+    if n_cards < 2:
+        one = mesh_one_rank_nccl(data, f"{root}/runs")
+        require(tuple(one["launches"]) == flagged,
+                f"one-rank NCCL run: launches {one['launches']}, "
+                f"want {flagged}")
+        emit(phase="mesh", step="one_rank_nccl", card=card(), **one)
+        launches = add(launches, tuple(one["launches"]))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4672,6 +5166,8 @@ def main() -> int:
         done("mi_bank")
         standalone_phase()
         done("standalone")
+        mesh = mesh_phase(root)
+        done("mesh")
     emit(phase="timeline", seconds_after=timeline)
 
     # launches: each path was driven with all four counts set to 0 just
@@ -4680,11 +5176,12 @@ def main() -> int:
     # epoch of the resume phase, the three flag-free rung runs with graphs
     # and the flagged one, the families phase's runs and serving, the three
     # fusions' runs and serving, the hooks run, the group phase's
-    # grouped runs, and the mi_bank phase's counted steps
+    # grouped runs, the mi_bank phase's counted steps, and the mesh phase's
+    # flagged 2-epoch run on each of its ranks and its one-rank NCCL run
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
                  rungs_quant=rungs_quant, families=families, fusions=fusions,
-                 hooks=hooks, group=group, mi_bank=mi_bank)
+                 hooks=hooks, group=group, mi_bank=mi_bank, mesh=mesh)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -4717,7 +5214,7 @@ def main() -> int:
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
             "launches_fusions", "launches_hooks", "launches_group",
-            "launches_mi_bank",
+            "launches_mi_bank", "launches_mesh",
             "library_ms_dw_layer", "library_profiler_ms_dw_layer", "shapes",
             "shapes_families")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -31,6 +31,13 @@ instead of passing it by as a missing one.
 
 ``config.json`` is the ``MimrlConfig`` as JSON, the same file the JAX
 package writes.
+
+A mesh run (``parallel/mesh.py``) writes from rank 0 alone
+(``CheckpointManager(write=False)`` on the others), and its slots hold
+whole tensors: ``whole_slot`` gathers the model-sharded parameters and
+rebuilds each optimizer's flat moments in the whole parameters' layout,
+so a mesh run's slot serves and resumes unsharded; ``local_slot`` takes a
+rank's blocks back, so any slot resumes on a mesh.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from mimrl_tpu_torch.core import flax_msgpack
+from mimrl_tpu_torch.parallel.mesh import gather_blocks, shard_dim, take_block
 
 SLOT_FORMAT = "mimrl_tpu_torch.slot/1"
 
@@ -51,9 +59,62 @@ def is_full_slot(state: Dict) -> bool:
     return state.get("format") == SLOT_FORMAT
 
 
+def _convert(slot: Dict, model, optimizers: Dict, mesh, to_whole: bool
+             ) -> Dict:
+    """``slot`` with each model-sharded parameter, and its segment of the
+    optimizers' flat moments, gathered whole (``to_whole``) or cut to this
+    rank's block."""
+    dims = {name: shard_dim(p) for name, p in model.named_parameters()}
+
+    def fn(t, d):
+        return gather_blocks(t, mesh, d) if to_whole else take_block(t, mesh, d)
+
+    out = dict(slot)
+    out["model"] = {k: (fn(v, dims[k]) if dims.get(k) is not None else v)
+                    for k, v in slot["model"].items()}
+    n_model = mesh.shape["model"]
+    for name, opt in optimizers.items():
+        state = dict(slot[name])
+        pdims = [shard_dim(p) for p in opt.params]
+        local = [torch.Size(p.shape) for p in opt.params]
+        whole = [s if d is None else
+                 torch.Size(n_model * n if i == d else n
+                            for i, n in enumerate(s))
+                 for s, d in zip(local, pdims)]
+        src, dst = (local, whole) if to_whole else (whole, local)
+        for key in ("mu", "nu"):
+            if state[key].numel() == 0:
+                continue
+            parts = state[key].split([s.numel() for s in src])
+            state[key] = torch.cat([
+                part if d is None else fn(part.view(shape), d).reshape(-1)
+                for part, d, shape in zip(parts, pdims, src)])
+        state["sizes"] = [s.numel() for s in dst]
+        out[name] = state
+    return out
+
+
+def whole_slot(mesh, model, optimizers: Dict, slot: Dict) -> Dict:
+    """A mesh rank's slot (``Solver._snapshot``) with whole tensors: the
+    model-sharded parameters gathered over ``model`` and the optimizers'
+    (``{"opt_main": ..., "opt_vmi": ...}``) flat moments and sizes in the
+    whole parameters' layout. Collective: every rank calls it."""
+    return _convert(slot, model, optimizers, mesh, True)
+
+
+def local_slot(mesh, model, optimizers: Dict, slot: Dict) -> Dict:
+    """The inverse of ``whole_slot``: this rank's blocks of a slot of
+    whole tensors (a mesh run's or an unsharded run's)."""
+    return _convert(slot, model, optimizers, mesh, False)
+
+
 class CheckpointManager:
-    def __init__(self, task_path: str):
+    """The slots and config of one run directory; ``write=False`` (a mesh
+    rank other than 0) reads and writes nothing."""
+
+    def __init__(self, task_path: str, write: bool = True):
         self.task_path = task_path
+        self.write = write
 
     def _path(self, slot: str) -> str:
         return os.path.join(self.task_path, f"{slot}_model.pt")
@@ -78,6 +139,8 @@ class CheckpointManager:
                 "section 3); rerun mimrl_tpu with --ckpt_backend msgpack")
 
     def save(self, slot: str, state: Dict[str, Any]) -> None:
+        if not self.write:
+            return
         os.makedirs(self.task_path, exist_ok=True)
         tmp = self._path(slot) + ".tmp"
         torch.save(state, tmp)
@@ -108,6 +171,8 @@ class CheckpointManager:
         return flax_msgpack.read(path)
 
     def save_config(self, cfg_json: str) -> None:
+        if not self.write:
+            return
         os.makedirs(self.task_path, exist_ok=True)
         with open(os.path.join(self.task_path, "config.json"), "w") as f:
             f.write(cfg_json)

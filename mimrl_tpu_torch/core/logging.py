@@ -12,13 +12,15 @@ from __future__ import annotations
 import json
 import logging
 import os
+from typing import Optional
 
 _LOGGER = "mimrl_torch"
 
 
-def set_logger(log_path: str) -> None:
+def set_logger(log_path: Optional[str]) -> None:
     """Attach this run's file and stream handlers. Handlers of an earlier
-    run are replaced, and foreign handlers (pytest's) are left alone."""
+    run are replaced, and foreign handlers (pytest's) are left alone.
+    ``None`` (a mesh rank that writes no log) attaches none."""
     logger = logging.getLogger(_LOGGER)
     logger.setLevel(logging.DEBUG)
     logger.propagate = False
@@ -26,6 +28,8 @@ def set_logger(log_path: str) -> None:
         if getattr(h, "_mimrl_handler", False):
             logger.removeHandler(h)
             h.close()
+    if log_path is None:
+        return
     file_handler = logging.FileHandler(log_path)
     file_handler.setFormatter(
         logging.Formatter("%(asctime)s:%(levelname)s: %(message)s"))

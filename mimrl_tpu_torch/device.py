@@ -42,6 +42,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32 for the parts that the dtype policy runs in float32
+    (LayerNorm, softmax, BERT's output), float64 left as it is (the
+    float64 equality certificates of ``parallel/check.py``)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def compute_dtype(name: str) -> torch.dtype:
     """``MimrlConfig.compute_dtype`` string -> torch dtype."""
     if name not in _COMPUTE_DTYPES:

@@ -27,7 +27,11 @@ versions. ``flash_attn`` 'off' runs the plain forward under
 autograd. In training mode with a positive attention dropout rate a seed
 is drawn from the caller's generator on the inputs' device (no host
 round trip) and both routes build the same Philox mask from it, as
-``mimrl_tpu/models/bert.py:158-173`` draws a seed for its kernel.
+``mimrl_tpu/models/bert.py:158-173`` draws a seed for its kernel; on a
+data-parallel mesh the mask's batch rows are the rank's global rows.
+
+On a mesh with a ``model`` axis (``parallel/mesh.py``) the four dense
+kernels hold column blocks (tensor parallelism).
 """
 
 from __future__ import annotations
@@ -39,10 +43,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mimrl_tpu_torch.device import widen
 from mimrl_tpu_torch.models.convert import state_dict_from_jax
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from mimrl_tpu_torch.ops.quant import MODES, quant_linear
+from mimrl_tpu_torch.parallel import mesh as pmesh
+from mimrl_tpu_torch.parallel.mesh import Dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,18 +81,34 @@ class BertConfig:
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
     """LayerNorm in float32, result cast back to the compute dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    return F.layer_norm(widen(x), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps).to(dtype)
 
 
 def _dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-           c: "BertConfig") -> torch.Tensor:
+           c: "BertConfig", mesh=None, parts: int = 1) -> torch.Tensor:
     """``x @ weight.T + bias`` in the compute dtype, or through the int8
-    product when the config quantises."""
+    product when the config quantises. Tensor-parallel (``mesh``: ``weight``
+    holds this rank's block of the output rows, ``parallel/mesh.py``): the
+    product runs on the block, its output columns (``parts`` concatenated
+    outputs: 3 for the fused QKV) are gathered over ``model`` and the whole
+    bias is added after."""
+    if mesh is None:
+        if c.quant != "none":
+            return quant_linear(x.to(c.dtype), weight, bias, c.quant, c.dtype)
+        return F.linear(x.to(c.dtype), weight.to(c.dtype), bias.to(c.dtype))
+    x = pmesh.copy_to(x.to(c.dtype), mesh, (pmesh.MODEL_AXIS,))
     if c.quant != "none":
-        return quant_linear(x.to(c.dtype), weight, bias, c.quant, c.dtype)
-    return F.linear(x.to(c.dtype), weight.to(c.dtype), bias.to(c.dtype))
+        y = quant_linear(x, weight, None, c.quant, c.dtype)
+    else:
+        y = F.linear(x, weight.to(c.dtype))
+    return pmesh.gather_columns(y, mesh, parts) + bias.to(c.dtype)
 
+
+def _tp(module: nn.Module, weight: torch.Tensor):
+    """The mesh when ``weight`` holds this rank's block of its output rows
+    (tensor parallelism, ``parallel/mesh.py::shard_params``), else None."""
+    return pmesh.mesh_of(module) if pmesh.shard_dim(weight) is not None else None
 
 
 class BertEmbeddings(nn.Module):
@@ -100,7 +123,7 @@ class BertEmbeddings(nn.Module):
             c.type_vocab_size, c.hidden_size, device=device)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, input_ids, token_type_ids):
         dt = self.config.dtype
@@ -146,11 +169,12 @@ class BertSelfOutput(nn.Module):
         self.dense = nn.Linear(d_in, c.hidden_size, device=device)
         self.LayerNorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps,
                                       device=device)
-        self.dropout = nn.Dropout(c.hidden_dropout_prob)
+        self.dropout = Dropout(c.hidden_dropout_prob)
 
     def forward(self, h, residual):
         c = self.config
-        h = self.dropout(_dense(h, self.dense.weight, self.dense.bias, c))
+        h = self.dropout(_dense(h, self.dense.weight, self.dense.bias, c,
+                                _tp(self, self.dense.weight)))
         return _layer_norm(self.LayerNorm, h + residual, c.dtype)
 
 
@@ -171,7 +195,7 @@ class BertAttention(nn.Module):
         # quantised, one [H, 3H] matrix with per-column scales)
         w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
         b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
-        qkv = _dense(x, w, b, c)
+        qkv = _dense(x, w, b, c, _tp(self, s.query.weight), parts=3)
         q, k, v = (y.reshape(bs, T, nh, hd).transpose(1, 2).contiguous()
                    for y in qkv.split(H, dim=-1))
         p_rate = float(c.attention_probs_dropout_prob)
@@ -183,10 +207,11 @@ class BertAttention(nn.Module):
         if c.flash_attn not in ("auto", "on", "off"):
             raise ValueError(
                 f"BertConfig.flash_attn={c.flash_attn!r} (want auto|on|off)")
+        row0 = pmesh.attention_batch_offset(self)
         if c.flash_attn != "off":
-            ctx = flash_attention(q, k, v, attn_bias, seed, p_rate)
+            ctx = flash_attention(q, k, v, attn_bias, seed, p_rate, row0)
         else:
-            ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate)
+            ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate, row0)
         ctx = ctx.transpose(1, 2).reshape(bs, T, H).to(c.dtype)
         return self.output(ctx, x)
 
@@ -209,7 +234,8 @@ class BertLayer(nn.Module):
     def forward(self, x, attn_bias, generator=None):
         x = self.attention(x, attn_bias, generator)
         up = self.intermediate.dense
-        h = F.gelu(_dense(x, up.weight, up.bias, self.config),
+        h = F.gelu(_dense(x, up.weight, up.bias, self.config,
+                          _tp(self, up.weight)),
                    approximate="none")
         return self.output(h, x)
 
@@ -224,8 +250,8 @@ class BertEncoder(nn.Module):
 class BertModel(nn.Module):
     """Returns last_hidden_state [bs, T, hidden] in float32. ``generator``
     (on the inputs' device) feeds the attention dropout seeds in training
-    mode; hidden dropout is ``nn.Dropout`` and draws from the device's
-    default generator."""
+    mode; hidden dropout (``parallel/mesh.py::Dropout``) draws from the
+    device's default generator."""
 
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
@@ -243,7 +269,7 @@ class BertModel(nn.Module):
         attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
         for layer in self.encoder.layer:
             x = layer(x, attn_bias, generator)
-        return x.float()
+        return widen(x)
 
 
 def load_bert_weights(path: str, model: BertModel) -> None:

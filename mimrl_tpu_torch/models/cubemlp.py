@@ -27,6 +27,7 @@ from torch import nn
 
 from mimrl_tpu_torch.ops.cubemlp_kernel import (check_activation,
                                                 fused_axis_mlp)
+from mimrl_tpu_torch.parallel.mesh import Dropout
 from mimrl_tpu_torch.utils.activations import get_activation_fn
 
 # axis of [bs, l, k, d] -> einsum contracting it with a Linear weight [out, in]
@@ -132,7 +133,7 @@ class MLPsBlock(nn.Module):
             if res_project:
                 self.add_module(f"res_projection_{n}", AxisResProject(
                     axis, d_ins[i], d_outs[i], device))
-            self.add_module(f"dropout_{n}", nn.Dropout(dropouts[i]))
+            self.add_module(f"dropout_{n}", Dropout(dropouts[i]))
 
     def forward(self, x):
         for n in _NAMES:

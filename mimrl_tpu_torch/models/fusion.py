@@ -8,8 +8,10 @@ the composition, the classifier and the MI estimator bank do not change:
   modality, their product summed over the rank, broadcast back over K;
 - ``MoEFusion`` (:162): attention blocks, each followed by a top-k routed
   mixture of expert MLPs in dense dispatch (every expert sees every token,
-  the gates zero the unrouted pairs). On one device the expert axis is not
-  sharded.
+  the gates zero the unrouted pairs). On a mesh with a ``model`` axis the
+  experts are split over it (``parallel/mesh.py::shard_params``): a rank
+  runs its experts' ``[E/M, bs, S, h]`` and the gated sum is completed over
+  ``model``; the router and its top-k run whole on every rank.
 
 Parameter names mirror the flax tree, so the converter is mechanical:
 ``pos_time`` [time_len, 1, d], ``pos_modality`` [1, K, d],
@@ -46,6 +48,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mimrl_tpu_torch.device import widen
+from mimrl_tpu_torch.parallel import mesh as pmesh
+from mimrl_tpu_torch.parallel.mesh import Dropout
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 
@@ -115,7 +121,7 @@ class FusionBlock(nn.Module):
         self.ln2 = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
         self.fc1 = nn.Linear(d_model, 4 * d_model, device=device)
         self.fc2 = nn.Linear(4 * d_model, d_model, device=device)
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.drop(self.attn(self.ln1(x)))
@@ -156,7 +162,7 @@ class TFNFusion(nn.Module):
         for k in range(n_modalities):
             setattr(self, f"factor_{k}",
                     nn.Linear(d_model, rank * d_model, device=device))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.ln_out = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,12 +192,12 @@ class MoEBlock(nn.Module):
         self.b1 = nn.Parameter(torch.empty(E, h, device=device))
         self.w2 = nn.Parameter(torch.empty(E, h, d, device=device))
         self.b2 = nn.Parameter(torch.empty(E, d, device=device))
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
 
     def gates(self, h: torch.Tensor) -> torch.Tensor:
         """[bs, S, E] gates: the router's probabilities on the top-k
         experts (lower index first on ties), renormalised; 0 elsewhere."""
-        probs = torch.softmax(self.router(h).float(), dim=-1)
+        probs = torch.softmax(widen(self.router(h)), dim=-1)
         E = probs.shape[-1]
         top = torch.sort(probs, dim=-1, descending=True, stable=True)[1]
         sel = F.one_hot(top[..., :self.top_k], E).to(probs.dtype).sum(dim=-2)
@@ -201,10 +207,19 @@ class MoEBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.ln(x)  # [bs, S, d]
         gates = self.gates(h)
+        # expert parallelism (parallel/mesh.py): this rank holds E / M
+        # experts; its gated sum is completed over `model`
+        mesh = pmesh.mesh_of(self) if pmesh.shard_dim(self.w1) is not None else None
+        axes = (pmesh.MODEL_AXIS,)
+        if mesh is not None:
+            gates = pmesh.split(gates, mesh, axes, gates.dim() - 1)
+            h = pmesh.copy_to(h, mesh, axes)
         he = torch.einsum("bsd,edh->ebsh", h, self.w1) + self.b1[:, None, None]
         he = F.gelu(he, approximate="tanh")
         oe = torch.einsum("ebsh,ehd->ebsd", he, self.w2) + self.b2[:, None, None]
         out = torch.einsum("ebsd,bse->bsd", oe, gates.to(oe.dtype))
+        if mesh is not None:
+            out = pmesh.reduce_from(out, mesh, axes)
         return x + self.drop(out)
 
 
@@ -225,7 +240,7 @@ class MoEFusion(_PositionTables):
             setattr(self, f"moe_{i}", MoEBlock(d_model, num_experts, top_k,
                                                dropout, device))
         self.num_layers = num_layers
-        self.drop = nn.Dropout(dropout)
+        self.drop = Dropout(dropout)
         self.ln_out = nn.LayerNorm(d_model, eps=LN_EPS, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

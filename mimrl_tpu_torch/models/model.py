@@ -49,6 +49,7 @@ from mimrl_tpu_torch.models.encoders import (BiRnnEncoder, ConvEncoder,
                                              lengths_from_sequence, run_pair)
 from mimrl_tpu_torch.models.fusion import (MoEBlock, MoEFusion, TFNFusion,
                                            TransformerFusion)
+from mimrl_tpu_torch.parallel.mesh import Dropout, gather_rows, mesh_of
 
 
 # Estimator hyperparameters hard-coded by the reference (ref: Model.py:285-286)
@@ -152,9 +153,9 @@ class MimrlModel(nn.Module):
             self.rnn_v = BiRnnEncoder(encoders, d_v, d_common, layers, device)
         self.ln_a = nn.LayerNorm(d_common, eps=1e-6, device=device)
         self.ln_v = nn.LayerNorm(d_common, eps=1e-6, device=device)
-        self.dropout_t = nn.Dropout(dropout[0])
-        self.dropout_a = nn.Dropout(dropout[1])
-        self.dropout_v = nn.Dropout(dropout[2])
+        self.dropout_t = Dropout(dropout[0])
+        self.dropout_a = Dropout(dropout[1])
+        self.dropout_v = Dropout(dropout[2])
         # the fusion encoder (model.py:149-185); every fusion but CubeMLP
         # keeps the [bs, T, 3, d_common] shape
         if fusion == "cubemlp":
@@ -188,7 +189,7 @@ class MimrlModel(nn.Module):
         else:
             self.classifier_hidden = nn.Linear(self.classify_dim, 128,
                                                device=device)
-            self.classifier_dropout = nn.Dropout(dropout[3])
+            self.classifier_dropout = Dropout(dropout[3])
             self.classifier = nn.Linear(128, num_class, device=device)
 
         # Fusion information I(F;T), I(F;A), I(F;V) and invariant
@@ -337,10 +338,14 @@ class MimrlModel(nn.Module):
 def forward_batch(model: MimrlModel, batch: Dict[str, torch.Tensor],
                   return_features: bool = True, generator=None):
     """The model on a batch dict of MODEL_INPUTS; a batch holds the raw or
-    the dense text, as its model takes."""
-    return model(*(batch.get(k) for k in MODEL_INPUTS[:5]),
+    the dense text, as its model takes. On a mesh (``parallel/mesh.py``)
+    the inputs are this rank's rows of the batch and the outputs are
+    gathered to the global batch."""
+    outs = model(*(batch.get(k) for k in MODEL_INPUTS[:5]),
                  return_features=return_features, generator=generator,
                  text_features=batch.get("text"))
+    mesh = mesh_of(model)
+    return tuple(gather_rows(o, mesh) for o in outs)
 
 
 def bert_config_from(cfg: MimrlConfig, vocab_size: int) -> BertConfig:

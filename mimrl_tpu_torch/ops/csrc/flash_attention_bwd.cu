@@ -190,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
                      const long long* __restrict__ seed, T* dq, float* dq_acc,
                      T* __restrict__ dk, T* __restrict__ dv, int nh, int t_len,
                      int t_pad, float scale, uint32_t threshold,
-                     float inv_keep) {
+                     float inv_keep, int batch0) {
   using S = Smem<HD>;
   constexpr int kDims = (HD + 31) / 32;  // columns per lane
   extern __shared__ float4 smem4[];
@@ -251,7 +251,7 @@ __global__ void __launch_bounds__(kThreads)
         const float e = expf(sv - m_new);
         float dp = dpd[r];
         if (kDrop)
-          dp = dropout_keep(key, threshold, b, h, row, key_idx) ? dp * inv_keep : 0.f;
+          dp = dropout_keep(key, threshold, b + batch0, h, row, key_idx) ? dp * inv_keep : 0.f;
         l_run[r] = l_run[r] * alpha + warp_sum(e);
         d_run[r] = d_run[r] * alpha + warp_sum(in_k ? e * dp : 0.f);
         m_run[r] = m_new;
@@ -308,7 +308,7 @@ __global__ void __launch_bounds__(kThreads)
           float dp = dpd[r];
           pd = p;
           if (kDrop) {
-            const bool keep = dropout_keep(key, threshold, b, h, row, key_idx);
+            const bool keep = dropout_keep(key, threshold, b + batch0, h, row, key_idx);
             pd = keep ? p * inv_keep : 0.f;
             dp = keep ? dp * inv_keep : 0.f;
           }
@@ -421,7 +421,7 @@ template <typename T, int HD, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* d_out, const void* seed, void* dq, void* dq_acc,
            void* dk, void* dv, int bs, int nh, int t_len, float scale,
-           uint32_t threshold, float inv_keep, cudaStream_t stream) {
+           uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
   auto kern = flash_bwd_kernel<T, HD, kDrop>;
   const int t_pad = (t_len + kBQ - 1) / kBQ * kBQ;
   const size_t smem = Smem<HD>::bytes(t_pad);
@@ -434,7 +434,7 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const T*>(d_out), static_cast<const long long*>(seed),
       static_cast<T*>(dq), static_cast<float*>(dq_acc), static_cast<T*>(dk),
-      static_cast<T*>(dv), nh, t_len, t_pad, scale, threshold, inv_keep);
+      static_cast<T*>(dv), nh, t_len, t_pad, scale, threshold, inv_keep, batch0);
   return (int)cudaGetLastError();
 }
 
@@ -442,13 +442,13 @@ template <typename T, bool kDrop>
 int dispatch_hd(const void* q, const void* k, const void* v, const void* bias,
                 const void* d_out, const void* seed, void* dq, void* dq_acc,
                 void* dk, void* dv, int bs, int nh, int t_len, int hd,
-                float scale, uint32_t threshold, float inv_keep,
+                float scale, uint32_t threshold, float inv_keep, int batch0,
                 cudaStream_t stream) {
 #define MIMRL_BWD_CASE(HD)                                                    \
   case HD:                                                                    \
     return launch<T, HD, kDrop>(q, k, v, bias, d_out, seed, dq, dq_acc, dk,   \
                                 dv, bs, nh, t_len, scale, threshold,          \
-                                inv_keep, stream)
+                                inv_keep, batch0, stream)
   switch (hd) {
     MIMRL_BWD_CASE(8);
     MIMRL_BWD_CASE(16);
@@ -465,13 +465,13 @@ int dispatch_drop(const void* q, const void* k, const void* v,
                   const void* bias, const void* d_out, const void* seed,
                   void* dq, void* dq_acc, void* dk, void* dv, int bs, int nh,
                   int t_len, int hd, float scale, int dropout,
-                  uint32_t threshold, float inv_keep, cudaStream_t stream) {
+                  uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
   if (dropout)
     return dispatch_hd<T, true>(q, k, v, bias, d_out, seed, dq, dq_acc, dk, dv,
-                                bs, nh, t_len, hd, scale, threshold, inv_keep,
+                                bs, nh, t_len, hd, scale, threshold, inv_keep, batch0,
                                 stream);
   return dispatch_hd<T, false>(q, k, v, bias, d_out, seed, dq, dq_acc, dk, dv,
-                               bs, nh, t_len, hd, scale, threshold, inv_keep,
+                               bs, nh, t_len, hd, scale, threshold, inv_keep, batch0,
                                stream);
 }
 
@@ -519,7 +519,7 @@ __global__ void __launch_bounds__(tc_max_warps<HD>() * 32)
                         const long long* __restrict__ seed,
                         bf16* __restrict__ dq, bf16* __restrict__ dk,
                         bf16* __restrict__ dv, int nh, int t_len, int t_pad,
-                        float scale, uint32_t threshold, float inv_keep) {
+                        float scale, uint32_t threshold, float inv_keep, int batch0) {
   using R = TcRow<HD>;
   constexpr int kS = R::kStride;
   constexpr int kKS = R::kKSteps;
@@ -607,7 +607,7 @@ __global__ void __launch_bounds__(tc_max_warps<HD>() * 32)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           bool keep[4];
-          dropout_keep_frag(key, threshold, b, h, r0 + g, kc + 8 * j, lane,
+          dropout_keep_frag(key, threshold, b + batch0, h, r0 + g, kc + 8 * j, lane,
                             keep);
           uint32_t lo = (keep[0] << (2 * t4)) | (keep[1] << (2 * t4 + 1));
           uint32_t hi = (keep[2] << (2 * t4)) | (keep[3] << (2 * t4 + 1));
@@ -865,7 +865,7 @@ __global__ void __launch_bounds__(f32_max_warps<HD>() * 32, 1)
                             float* __restrict__ dq, float* __restrict__ dk,
                             float* __restrict__ dv, int nh, int t_len,
                             int t_pad, float scale, uint32_t threshold,
-                            float inv_keep) {
+                            float inv_keep, int batch0) {
   constexpr int kS = F32Row<HD>::kStride;
   constexpr int kDT = F32Row<HD>::kDTiles;
   constexpr int kSteps = HD < 16 ? 1 : 2;  // k8 steps of a 16-term chunk of hd
@@ -1007,7 +1007,7 @@ __global__ void __launch_bounds__(f32_max_warps<HD>() * 32, 1)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           bool keep[4];
-          dropout_keep_frag(key, threshold, b, h, r0 + g, kc + 8 * j, lane,
+          dropout_keep_frag(key, threshold, b + batch0, h, r0 + g, kc + 8 * j, lane,
                             keep);
           uint32_t lo = (keep[0] << (2 * t4)) | (keep[1] << (2 * t4 + 1));
           uint32_t hi = (keep[2] << (2 * t4)) | (keep[3] << (2 * t4 + 1));
@@ -1208,7 +1208,7 @@ template <int HD, bool kDrop>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               const void* d_out, const void* seed, void* dq, void* dk,
               void* dv, int bs, int nh, int t_len, float scale,
-              uint32_t threshold, float inv_keep, cudaStream_t stream) {
+              uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
   const int t_pad = (t_len + 15) / 16 * 16;
 #if defined(MIMRL_DTYPE) && MIMRL_DTYPE == 0
   using T = float;
@@ -1241,7 +1241,7 @@ int launch_tc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<const T*>(d_out), static_cast<const long long*>(seed),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), nh,
-      t_len, t_pad, scale, threshold, inv_keep);
+      t_len, t_pad, scale, threshold, inv_keep, batch0);
   return (int)cudaGetLastError();
 }
 
@@ -1249,11 +1249,11 @@ template <bool kDrop>
 int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
                 const void* d_out, const void* seed, void* dq, void* dk,
                 void* dv, int bs, int nh, int t_len, int hd, float scale,
-                uint32_t threshold, float inv_keep, cudaStream_t stream) {
+                uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
 #define MIMRL_BWD_TC_CASE(HD)                                                 \
   case HD:                                                                    \
     return launch_tc<HD, kDrop>(q, k, v, bias, d_out, seed, dq, dk, dv, bs,   \
-                                nh, t_len, scale, threshold, inv_keep, stream)
+                                nh, t_len, scale, threshold, inv_keep, batch0, stream)
   switch (hd) {
     MIMRL_BWD_TC_CASE(8);
     MIMRL_BWD_TC_CASE(16);
@@ -1292,13 +1292,15 @@ int tc_max_t(int hd) {
 // dq_acc: float32 [bs, nh, T, hd] scratch for the sum of dq over key tiles;
 // for float32 it may be dq itself.
 // dropout: 0 = off (seed may be null), 1 = on: seed points to one int64 on
-// the device, threshold is uint32(p * 2^32), inv_keep is 1 / (1 - p).
+// the device, threshold is uint32(p * 2^32), inv_keep is 1 / (1 - p) and
+// batch0 is the global batch row of q's row 0 in the Philox counter (a
+// data-parallel rank draws the mask of its rows of the whole batch).
 // Returns a cudaError_t value (0 = ok).
 extern "C" int mimrl_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     const void* d_out, const void* seed, void* dq, void* dq_acc, void* dk,
     void* dv, int bs, int nh, int t_len, int hd, int dtype, float scale,
-    int dropout, unsigned int threshold, float inv_keep, void* stream) {
+    int dropout, unsigned int threshold, float inv_keep, int batch0, void* stream) {
   if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535 ||
       t_len > kMaxT)
     return (int)cudaErrorInvalidValue;
@@ -1308,13 +1310,13 @@ extern "C" int mimrl_flash_attention_bwd(
   if (dtype == 0)
     return dispatch_drop<float>(q, k, v, bias, d_out, seed, dq, dq_acc, dk, dv,
                                 bs, nh, t_len, hd, scale, dropout, threshold,
-                                inv_keep, s);
+                                inv_keep, batch0, s);
 #endif
 #if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
   if (dtype == 1)
     return dispatch_drop<__nv_bfloat16>(q, k, v, bias, d_out, seed, dq, dq_acc,
                                         dk, dv, bs, nh, t_len, hd, scale,
-                                        dropout, threshold, inv_keep, s);
+                                        dropout, threshold, inv_keep, batch0, s);
 #endif
   return (int)cudaErrorInvalidValue;
 }
@@ -1328,16 +1330,16 @@ extern "C" int mimrl_flash_attention_bwd_tc(
     const void* q, const void* k, const void* v, const void* bias,
     const void* d_out, const void* seed, void* dq, void* dk, void* dv, int bs,
     int nh, int t_len, int hd, float scale, int dropout,
-    unsigned int threshold, float inv_keep, void* stream) {
+    unsigned int threshold, float inv_keep, int batch0, void* stream) {
   if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
     return (int)cudaErrorInvalidValue;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dropout)
     return dispatch_tc<true>(q, k, v, bias, d_out, seed, dq, dk, dv, bs, nh,
-                             t_len, hd, scale, threshold, inv_keep, s);
+                             t_len, hd, scale, threshold, inv_keep, batch0, s);
   return dispatch_tc<false>(q, k, v, bias, d_out, seed, dq, dk, dv, bs, nh,
-                            t_len, hd, scale, threshold, inv_keep, s);
+                            t_len, hd, scale, threshold, inv_keep, batch0, s);
 }
 
 // the longest T the library's tensor-core backward takes at head dim hd (-1:

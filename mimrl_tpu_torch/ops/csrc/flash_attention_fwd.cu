@@ -129,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, const float* __restrict__ bias,
                      T* __restrict__ out, const long long* __restrict__ seed,
                      int nh, int t_len, float scale, uint32_t threshold,
-                     float inv_keep) {
+                     float inv_keep, int batch0) {
   using S = Smem<HD>;
   constexpr int kDims = (HD + 31) / 32;  // output columns per lane
   extern __shared__ float4 smem4[];
@@ -206,8 +206,8 @@ __global__ void __launch_bounds__(kThreads)
       l_run[r] = l_run[r] * alpha + warp_sum(pa + pb);
       if (kDrop) {  // the sum above is over all keys, dropped or not
         const int row = q0 + warp * kRowsPerWarp + r;
-        if (!dropout_keep(key, threshold, b, h, row, k0 + lane)) pa = 0.f;
-        if (!dropout_keep(key, threshold, b, h, row, k0 + lane + 32)) pb = 0.f;
+        if (!dropout_keep(key, threshold, b + batch0, h, row, k0 + lane)) pa = 0.f;
+        if (!dropout_keep(key, threshold, b + batch0, h, row, k0 + lane + 32)) pb = 0.f;
       }
       m_run[r] = m_new;
 #pragma unroll
@@ -260,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int HD, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            void* out, const void* seed, int bs, int nh, int t_len, float scale,
-           uint32_t threshold, float inv_keep, cudaStream_t stream) {
+           uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, HD, kDrop>;
   const size_t smem = Smem<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -271,19 +271,19 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<const long long*>(seed), nh, t_len,
-      scale, threshold, inv_keep);
+      scale, threshold, inv_keep, batch0);
   return (int)cudaGetLastError();
 }
 
 template <typename T, bool kDrop>
 int dispatch_hd(const void* q, const void* k, const void* v, const void* bias,
                 void* out, const void* seed, int bs, int nh, int t_len, int hd,
-                float scale, uint32_t threshold, float inv_keep,
+                float scale, uint32_t threshold, float inv_keep, int batch0,
                 cudaStream_t stream) {
 #define MIMRL_FWD_CASE(HD)                                                   \
   case HD:                                                                   \
     return launch<T, HD, kDrop>(q, k, v, bias, out, seed, bs, nh, t_len,     \
-                                scale, threshold, inv_keep, stream)
+                                scale, threshold, inv_keep, batch0, stream)
   switch (hd) {
     MIMRL_FWD_CASE(8);
     MIMRL_FWD_CASE(16);
@@ -299,12 +299,12 @@ template <typename T>
 int dispatch_drop(const void* q, const void* k, const void* v,
                   const void* bias, void* out, const void* seed, int bs, int nh,
                   int t_len, int hd, float scale, int dropout,
-                  uint32_t threshold, float inv_keep, cudaStream_t stream) {
+                  uint32_t threshold, float inv_keep, int batch0, cudaStream_t stream) {
   if (dropout)
     return dispatch_hd<T, true>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
-                                scale, threshold, inv_keep, stream);
+                                scale, threshold, inv_keep, batch0, stream);
   return dispatch_hd<T, false>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
-                               scale, threshold, inv_keep, stream);
+                               scale, threshold, inv_keep, batch0, stream);
 }
 
 
@@ -335,7 +335,7 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
                         const bf16* __restrict__ v,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         const long long* __restrict__ seed, int nh, int t_len,
-                        float scale, uint32_t threshold, float inv_keep) {
+                        float scale, uint32_t threshold, float inv_keep, int batch0) {
   using R = TcRow<HD>;
   constexpr int kS = R::kStride;
   constexpr int kNT = kTcKeys / 8;  // n8 tiles of one score tile
@@ -444,7 +444,7 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
         }
         if (kDrop && j * 8 < keys_left) {
           bool keep[4];
-          dropout_keep_frag(key, threshold, b, h, row0 + g, k0 + 8 * j, lane,
+          dropout_keep_frag(key, threshold, b + batch0, h, row0 + g, k0 + 8 * j, lane,
                             keep);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -525,7 +525,7 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
                             float* __restrict__ out,
                             const long long* __restrict__ seed, int nh,
                             int t_len, float scale, uint32_t threshold,
-                            float inv_keep) {
+                            float inv_keep, int batch0) {
   constexpr int kS = F32Row<HD>::kStride;
   constexpr int kDT = F32Row<HD>::kDTiles;
   constexpr int kNT = kTcKeys / 8;  // n8 tiles of one score tile
@@ -642,7 +642,7 @@ __global__ void __launch_bounds__(kTcMaxWarps * 32)
         }
         if (kDrop && j * 8 < keys_left) {
           bool keep[4];
-          dropout_keep_frag(key, threshold, b, h, row0 + g, k0 + 8 * j, lane,
+          dropout_keep_frag(key, threshold, b + batch0, h, row0 + g, k0 + 8 * j, lane,
                             keep);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
@@ -708,7 +708,7 @@ __host__ inline void tc_fwd_grid(int t_len, int* blocks, int* warps) {
 template <int HD, bool kDrop>
 int launch_tc(const void* q, const void* k, const void* v, const void* bias,
               void* out, const void* seed, int bs, int nh, int t_len,
-              float scale, uint32_t threshold, float inv_keep,
+              float scale, uint32_t threshold, float inv_keep, int batch0,
               cudaStream_t stream) {
   int blocks, warps;
   tc_fwd_grid(t_len, &blocks, &warps);
@@ -728,19 +728,19 @@ int launch_tc(const void* q, const void* k, const void* v, const void* bias,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(bias),
       static_cast<T*>(out), static_cast<const long long*>(seed), nh, t_len,
-      scale, threshold, inv_keep);
+      scale, threshold, inv_keep, batch0);
   return (int)cudaGetLastError();
 }
 
 template <bool kDrop>
 int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
                 void* out, const void* seed, int bs, int nh, int t_len, int hd,
-                float scale, uint32_t threshold, float inv_keep,
+                float scale, uint32_t threshold, float inv_keep, int batch0,
                 cudaStream_t stream) {
 #define MIMRL_FWD_TC_CASE(HD)                                                \
   case HD:                                                                   \
     return launch_tc<HD, kDrop>(q, k, v, bias, out, seed, bs, nh, t_len,     \
-                                scale, threshold, inv_keep, stream)
+                                scale, threshold, inv_keep, batch0, stream)
   switch (hd) {
     MIMRL_FWD_TC_CASE(8);
     MIMRL_FWD_TC_CASE(16);
@@ -758,7 +758,9 @@ int dispatch_tc(const void* q, const void* k, const void* v, const void* bias,
 // dtype: 0 = float32, 1 = bfloat16; compiled with -DMIMRL_DTYPE=0 or 1 the
 // library holds that type's kernels only and refuses the other.
 // dropout: 0 = off (seed may be null), 1 = on: seed points to one int64 on
-// the device, threshold is uint32(p * 2^32) and inv_keep is 1 / (1 - p).
+// the device, threshold is uint32(p * 2^32), inv_keep is 1 / (1 - p) and
+// batch0 is the global batch row of q's row 0 in the Philox counter (a
+// data-parallel rank draws the mask of its rows of the whole batch).
 // Returns a cudaError_t value (0 = ok).
 extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, const void* bias,
@@ -766,7 +768,7 @@ extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
                                          int nh, int t_len, int hd, int dtype,
                                          float scale, int dropout,
                                          unsigned int threshold,
-                                         float inv_keep, void* stream) {
+                                         float inv_keep, int batch0, void* stream) {
   if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
     return (int)cudaErrorInvalidValue;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
@@ -774,13 +776,13 @@ extern "C" int mimrl_flash_attention_fwd(const void* q, const void* k,
 #if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 0
   if (dtype == 0)
     return dispatch_drop<float>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
-                                scale, dropout, threshold, inv_keep, s);
+                                scale, dropout, threshold, inv_keep, batch0, s);
 #endif
 #if !defined(MIMRL_DTYPE) || MIMRL_DTYPE == 1
   if (dtype == 1)
     return dispatch_drop<__nv_bfloat16>(q, k, v, bias, out, seed, bs, nh,
                                         t_len, hd, scale, dropout, threshold,
-                                        inv_keep, s);
+                                        inv_keep, batch0, s);
 #endif
   return (int)cudaErrorInvalidValue;
 }
@@ -796,15 +798,15 @@ extern "C" int mimrl_flash_attention_fwd_tc(const void* q, const void* k,
                                             int nh, int t_len, int hd,
                                             float scale, int dropout,
                                             unsigned int threshold,
-                                            float inv_keep, void* stream) {
+                                            float inv_keep, int batch0, void* stream) {
   if (bs <= 0 || nh <= 0 || t_len <= 0 || nh > 65535 || bs > 65535)
     return (int)cudaErrorInvalidValue;
   if (dropout && seed == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dropout)
     return dispatch_tc<true>(q, k, v, bias, out, seed, bs, nh, t_len, hd,
-                             scale, threshold, inv_keep, s);
+                             scale, threshold, inv_keep, batch0, s);
   return dispatch_tc<false>(q, k, v, bias, out, seed, bs, nh, t_len, hd, scale,
-                            threshold, inv_keep, s);
+                            threshold, inv_keep, batch0, s);
 }
 #endif

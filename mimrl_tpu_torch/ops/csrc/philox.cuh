@@ -8,6 +8,8 @@
 //
 //   key     = (low word of the seed, high word of the seed)
 //   counter = (key index / 4, query row, head, batch row)
+//   (the batch row of the whole batch: a kernel's row b is row b + batch0,
+//   batch0 > 0 on a data-parallel rank)
 //   bits(b, h, q, k) = word (k mod 4) of philox4x32_10(counter, key)
 //   keep = bits > threshold,   threshold = uint32(p * 2^32)
 //

@@ -20,6 +20,9 @@ function of (seed, batch row, head, query, key) (``ops/philox.py``,
 ``csrc/philox.cuh``): the backward regenerates it, so nothing but q, k, v,
 bias and the seed is saved for it. ``seed`` is one int64 on the inputs'
 device, read by the kernels; drawing it does not synchronise the host.
+``row0`` is the global batch row of q's row 0: a data-parallel rank
+(``parallel/mesh.py``) draws the mask of its rows of the whole batch. The
+kernels take it as a scalar argument.
 
 Each source holds two instances of its kernel, and ``_instance`` picks one
 from the dtype, T and hd alone:
@@ -57,6 +60,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from mimrl_tpu_torch.device import widen
 from mimrl_tpu_torch.ops import _build
 from mimrl_tpu_torch.ops.philox import dropout_keep_mask, dropout_threshold
 
@@ -73,32 +77,34 @@ _DTYPE_CODES = {torch.float32: _build.VARIANTS["float32"],
 
 def _probabilities(q, k, bias):
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
+    s = torch.matmul(widen(q), widen(k).transpose(-1, -2)) * scale + bias
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _keep_mask(q, seed, dropout_p):
+def _keep_mask(q, seed, dropout_p, row0):
     bs, nh, t, _ = q.shape
-    return dropout_keep_mask(seed, bs, nh, t, t, dropout_p)
+    return dropout_keep_mask(seed, bs, nh, t, t, dropout_p, row0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor,
                           seed: Optional[torch.Tensor] = None,
-                          dropout_p: float = 0.0) -> torch.Tensor:
+                          dropout_p: float = 0.0, row0: int = 0
+                          ) -> torch.Tensor:
     """The forward kernel's math in PyTorch ops (and the CPU route)."""
     p = _probabilities(q, k, bias)
     if dropout_p > 0.0:
-        p = torch.where(_keep_mask(q, seed, dropout_p),
+        p = torch.where(_keep_mask(q, seed, dropout_p, row0),
                         p * (1.0 / (1.0 - dropout_p)), 0.0)
-    return torch.matmul(p.to(q.dtype).float(), v.float()).to(q.dtype)
+    return torch.matmul(widen(p.to(q.dtype)), widen(v)).to(q.dtype)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, bias: torch.Tensor,
                               seed: Optional[torch.Tensor],
-                              d_out: torch.Tensor, dropout_p: float = 0.0
+                              d_out: torch.Tensor, dropout_p: float = 0.0,
+                              row0: int = 0
                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel's math in PyTorch ops (and the CPU route): the
     algebra of ``_bwd_kernel`` (flash_attention.py:302-355) written out,
@@ -108,7 +114,7 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     do = d_out.to(dt).float()
     p = _probabilities(q, k, bias)
     if dropout_p > 0.0:
-        keep = _keep_mask(q, seed, dropout_p)
+        keep = _keep_mask(q, seed, dropout_p, row0)
         inv = 1.0 / (1.0 - dropout_p)
         pd = torch.where(keep, p * inv, 0.0)
     else:
@@ -200,17 +206,17 @@ def _check(q, k, v, bias, seed=None, dropout_p: float = 0.0, d_out=None):
             raise ValueError(f"flash_attention: {name} must be contiguous")
 
 
-def _dropout_args(seed, dropout_p):
-    """(seed pointer, dropout flag, threshold, 1 / (1 - p)) for the C
-    entry points."""
+def _dropout_args(seed, dropout_p, row0=0):
+    """(seed pointer, dropout flag, threshold, 1 / (1 - p), the global batch
+    row of row 0) for the C entry points."""
     if dropout_p > 0.0:
         return (seed.data_ptr(), 1, dropout_threshold(dropout_p),
-                1.0 / (1.0 - dropout_p))
-    return None, 0, 0, 1.0
+                1.0 / (1.0 - dropout_p), int(row0))
+    return None, 0, 0, 1.0, 0
 
 
 _TAIL_ARGTYPES = [ctypes.c_float, ctypes.c_int, ctypes.c_uint,
-                  ctypes.c_float, ctypes.c_void_p]
+                  ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 _entries = {}  # (source, name, dtype) -> the configured C entry point
 
@@ -219,7 +225,8 @@ def _entry(source: str, name: str, n_pointers: int, dtype: torch.dtype):
     """The C entry point ``name`` of a kernel for one input type (built and
     configured at first use, then kept): n_pointers device pointers, then
     bs, nh, T, hd, the dtype code (the SIMT instances only), scale,
-    dropout flag, threshold, 1 / (1 - p), stream."""
+    dropout flag, threshold, 1 / (1 - p), the global batch row of row 0,
+    stream."""
     fn = _entries.get((source, name, dtype))
     if fn is None:
         variant = str(dtype).replace("torch.", "")
@@ -232,15 +239,16 @@ def _entry(source: str, name: str, n_pointers: int, dtype: torch.dtype):
     return fn
 
 
-def _forward(q, k, v, bias, seed, dropout_p):
+def _forward(q, k, v, bias, seed, dropout_p, row0=0):
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, bias, seed, dropout_p)
+        return flash_attention_plain(q, k, v, bias, seed, dropout_p, row0)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, bias, seed, dropout_p)
     bs, nh, t, hd = q.shape
     out = torch.empty_like(q)
-    seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
+    seed_ptr, drop, threshold, inv_keep, batch0 = _dropout_args(
+        seed, dropout_p, row0)
     instance = _instance(q.dtype, t, hd, backward=False)
     _check_aligned(q, k, v)
     fn = _entry(SOURCE, "mimrl_flash_attention_fwd_tc", 6, q.dtype)
@@ -248,7 +256,7 @@ def _forward(q, k, v, bias, seed, dropout_p):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), seed_ptr, bs, nh, t, hd, 1.0 / (hd ** 0.5),
-                drop, threshold, inv_keep, stream)
+                drop, threshold, inv_keep, batch0, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
     flash_attention.launches += 1
@@ -258,20 +266,23 @@ def _forward(q, k, v, bias, seed, dropout_p):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias: torch.Tensor, seed: Optional[torch.Tensor],
-                        d_out: torch.Tensor, dropout_p: float = 0.0
+                        d_out: torch.Tensor, dropout_p: float = 0.0,
+                        row0: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` for the output gradient
     ``d_out``. CPU tensors take the plain version; CUDA tensors launch the
     backward kernel (or raise)."""
     dropout_threshold(dropout_p)  # raises outside [0, 1)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, bias, seed, d_out, dropout_p)
+        return flash_attention_bwd_plain(q, k, v, bias, seed, d_out, dropout_p,
+                                         row0)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v, bias, seed, dropout_p, d_out)
     bs, nh, t, hd = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    seed_ptr, drop, threshold, inv_keep = _dropout_args(seed, dropout_p)
+    seed_ptr, drop, threshold, inv_keep, batch0 = _dropout_args(
+        seed, dropout_p, row0)
     inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
               d_out.data_ptr(), seed_ptr)
     instance = _instance(q.dtype, t, hd, backward=True)
@@ -289,7 +300,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          dv.data_ptr(), bs, nh, t, hd, _DTYPE_CODES[q.dtype])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(*args, 1.0 / (hd ** 0.5), drop, threshold, inv_keep, stream)
+        rc = fn(*args, 1.0 / (hd ** 0.5), drop, threshold, inv_keep, batch0,
+                stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {rc}")
     flash_attention_bwd.launches += 1
@@ -305,10 +317,10 @@ class _FlashAttention(torch.autograd.Function):
     """Forward kernel, backward kernel; residuals q, k, v, bias, seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, dropout_p):
-        out = _forward(q, k, v, bias, seed, dropout_p)
+    def forward(ctx, q, k, v, bias, seed, dropout_p, row0):
+        out = _forward(q, k, v, bias, seed, dropout_p, row0)
         ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.dropout_p = dropout_p
+        ctx.dropout_p, ctx.row0 = dropout_p, row0
         return out
 
     @staticmethod
@@ -316,20 +328,22 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, bias, seed = ctx.saved_tensors
         # dO is rounded to the input dtype (flash_attention.py:556)
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, bias, seed, d_out.to(q.dtype).contiguous(), ctx.dropout_p)
-        return dq, dk, dv, None, None, None
+            q, k, v, bias, seed, d_out.to(q.dtype).contiguous(), ctx.dropout_p,
+            ctx.row0)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: torch.Tensor, seed: Optional[torch.Tensor] = None,
-                    dropout_p: float = 0.0) -> torch.Tensor:
+                    dropout_p: float = 0.0, row0: int = 0) -> torch.Tensor:
     """Fused attention, differentiable in q, k and v. CPU tensors take the
     plain versions; CUDA tensors launch the kernels (or raise). ``seed``
-    (one int64 on the inputs' device) is read only when ``dropout_p > 0``."""
+    (one int64 on the inputs' device) and ``row0`` (the global batch row of
+    q's row 0) are read only when ``dropout_p > 0``."""
     dropout_threshold(dropout_p)  # raises outside [0, 1)
     if dropout_p > 0.0 and seed is None:
         raise ValueError("flash_attention: dropout_p > 0 needs a seed")
-    return _FlashAttention.apply(q, k, v, bias, seed, dropout_p)
+    return _FlashAttention.apply(q, k, v, bias, seed, dropout_p, row0)
 
 
 flash_attention.launches = 0

@@ -35,6 +35,12 @@ package's ``lax.scan`` epoch programs (``mimrl_tpu/train/steps.py:340-578``).
   back at each replay, so the counts are launches on the device.
 - A body that cannot be captured raises with its name. Nothing falls back
   to eager execution on the card.
+- On a mesh (``parallel/mesh.py``) a body holds its collectives (the
+  gathers of the batch and over ``model``, the gradient average). NCCL's
+  are captured with the step and replay with it; the first, eager call
+  creates the communicators, outside the capture. gloo's cannot be
+  captured, so the Solver turns capture off on a gloo group: the CPU
+  tests, and two ranks sharing one card, run the bodies eagerly.
 """
 
 from __future__ import annotations

@@ -29,6 +29,14 @@ port of ``mimrl_tpu.train.optim``; ref: Solver.py:119-170).
 - ``--optm SAM`` raises as in the reference (Solver.py:150-151).
 - ``fused_optim`` is an execution-order flag of the JAX package; there is
   one code path here.
+- On a mesh (``parallel/mesh.py``) ``ChainOptimizer.reduce`` averages the
+  gradients over the batch axes; ``train/steps.py`` calls it before the
+  step, so the clip by value sees the whole gradient (clipping a partial
+  sum would clip another value) and the non-finite decision is the same
+  on every rank. A model-sharded parameter's moments in the flat tensors
+  are those of this rank's block.
+- Float64 parameters (the equality certificates of
+  ``parallel/check.py``) keep float64 moments and arithmetic.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.parallel.mesh import reduce_gradients
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 SGD_MOMENTUM = 0.9  # ref: Solver.py:148
@@ -105,9 +114,13 @@ class ChainOptimizer:
         self.scales = list(scales) if scales is not None else [1.0] * len(self.params)
         self.gradient_clip = cfg.gradient_clip
         self.weight_decay = cfg.weight_decay
-        mu_dtype = (torch.bfloat16 if cfg.moment_dtype == "bfloat16"
+        # float32 arithmetic, float64 for float64 parameters
+        self.acc = (torch.float64 if self.params[0].dtype == torch.float64
                     else torch.float32)
+        mu_dtype = (torch.bfloat16 if cfg.moment_dtype == "bfloat16"
+                    else self.acc)
         dev = self.params[0].device
+        self.mesh = None  # parallel/mesh.py: set on a mesh run
         self.sizes = [p.numel() for p in self.params]
         total = sum(self.sizes)
         # the step count lives on the device, so that the non-finite guard
@@ -119,7 +132,7 @@ class ChainOptimizer:
                               else learning_rate)
         self.mu = torch.zeros(total, dtype=mu_dtype, device=dev)
         self.nu = torch.zeros(total if self.kind == "Adam" else 0,
-                              dtype=torch.float32, device=dev)
+                              dtype=self.acc, device=dev)
         # optax's `decay * m` takes the moment's dtype, so under bfloat16
         # the decay is bf16(0.9) = 0.8984375; the compiled JAX step keeps the
         # product itself in float32 (XLA allows the excess precision), and
@@ -178,7 +191,13 @@ class ChainOptimizer:
             dst.copy_(src)
 
     def _flat(self, tensors) -> torch.Tensor:
-        return torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        return torch.cat([t.detach().reshape(-1).to(self.acc) for t in tensors])
+
+    def reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients as ``step`` takes them: on a mesh averaged over
+        its batch axes (``parallel/mesh.py::reduce_gradients``), else as
+        they are."""
+        return reduce_gradients(self.mesh, grads)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:
@@ -188,7 +207,7 @@ class ChainOptimizer:
         if self.weight_decay > 0:
             g.add_(self._flat(self.params), alpha=self.weight_decay)
         self.count += 1
-        m2 = self.mu.float() * self.mu_decay  # a new tensor, never mu itself
+        m2 = self.mu.to(self.acc) * self.mu_decay  # a new tensor, never mu
         if self.kind == "Adam":
             m2.add_(g, alpha=1.0 - B1)  # (1 - b1) * g + b1 * m
             self.nu.mul_(B2).addcmul_(g, g, value=1.0 - B2)

@@ -65,9 +65,33 @@ The single-device tools (ref: ``mimrl_tpu/train/solver.py``):
   ``tensorboard_trace_handler`` (:1371-1373, :1419-1422); the run is not
   pipelined, so the trace holds exactly that epoch.
 
+The mesh (ref: ``mimrl_tpu/train/solver.py:169-209``,
+``parallel/mesh.py``): with a ``torch.distributed`` group of more than one
+rank (``cli/main.py`` starts one rank per visible card, or joins
+torchrun's group under ``--distributed``), a mesh request
+(``--mesh_data``, default -1 = every rank, ``--mesh_model``,
+``--mesh_dcn``) builds the ``(dcn, data, pipe, model)`` mesh over the
+ranks. Each rank holds its rows of every batch's model inputs (the same
+shuffle on every rank: the loaders draw from ``seed + passes``), the
+global labels and sample mask, and the whole host state: outputs and
+features are gathered, so scores, model selection, the bank and the
+checkpoint cadence are the same on every rank. Rank 0 alone writes the
+log, the scalars, the predictions and the slots; a slot holds whole
+tensors (``core/checkpoint.py::whole_slot``). ``--flash_attn auto`` means
+the plain attention on a mesh, as in JAX (``:79-88``), ``on`` is
+honoured, and ``--seq_shard`` takes the plain route; its activations
+stay whole for now, so it saves no memory yet (a warning says so). The
+``--epoch_scan``
+steps are captured with their collectives under NCCL; gloo's collectives
+cannot be captured, so on a gloo group they run eagerly
+(``train/graphs.py``). ``--epoch_group`` groups on a ``dcn x data`` mesh;
+a ``model`` axis runs per epoch (``_group_mesh_ok``). A mesh request with
+one rank logs JAX's warning and runs unsharded.
+
 Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: ``--distributed``, a mesh over more than one device, and
-``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
+ROADMAP.md: ``--mesh_pipe`` > 1 (the pipeline schedules of
+``mimrl_tpu/parallel/pipeline.py``) and ``--ckpt_backend orbax`` (this
+package writes ``.pt`` slots).
 """
 
 from __future__ import annotations
@@ -82,9 +106,11 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mimrl_tpu_torch.core.checkpoint import (SLOT_FORMAT, CheckpointManager,
-                                             is_full_slot)
+                                             is_full_slot, local_slot,
+                                             whole_slot)
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
 from mimrl_tpu_torch.data.pipeline import prefetch
@@ -98,6 +124,9 @@ from mimrl_tpu_torch.eval.metrics import (current_result_better,
 from mimrl_tpu_torch.models.bert import load_bert_weights
 from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
                                           init_weights)
+from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, MODEL_AXIS, PIPE_AXIS,
+                                           Mesh, make_mesh, shard_batch,
+                                           shard_params)
 from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.custom import load_custom_loss
 from mimrl_tpu_torch.train.graphs import StepGraphs
@@ -110,11 +139,8 @@ MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
 
 def _refuse_unported(opt: MimrlConfig) -> None:
     unported = {
-        "--distributed": opt.distributed,
-        "a mesh over more than one device (--mesh_data/--mesh_model/"
-        "--mesh_pipe/--mesh_dcn)": (
-            opt.mesh_data > 1 or opt.mesh_model > 1 or opt.mesh_pipe > 1
-            or opt.mesh_dcn > 1),
+        "--mesh_pipe > 1 (the pipeline schedules of parallel/pipeline.py)":
+            opt.mesh_pipe > 1,
         "--ckpt_backend orbax (this package writes .pt slots; orbax and "
         "tensorstore are not among its dependencies)":
             opt.ckpt_backend == "orbax",
@@ -124,6 +150,27 @@ def _refuse_unported(opt: MimrlConfig) -> None:
         raise NotImplementedError(
             "not ported to mimrl_tpu_torch yet (ROADMAP.md, Open items): "
             + "; ".join(asked))
+
+
+def wants_mesh(opt: MimrlConfig) -> bool:
+    """A mesh is requested (ref: mimrl_tpu/train/solver.py:172-173): an
+    explicit ``--mesh_data 1`` still builds one when another axis is
+    asked for."""
+    return (opt.mesh_data != 1 or opt.mesh_model > 1 or opt.mesh_pipe > 1
+            or opt.mesh_dcn > 1)
+
+
+class _NoScalars:
+    """The scalar writer of a mesh rank other than 0."""
+
+    def add_scalar(self, *_args) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 _GROUP_WARNING = (  # ref: mimrl_tpu/train/solver.py:1352-1357
@@ -239,13 +286,25 @@ class Solver:
 
     ``graphs=False`` runs the ``--epoch_scan`` step bodies eagerly on the
     card too, as the reference that the captured run must equal.
+
+    ``mesh``: a connected ``parallel/mesh.py::Mesh`` to run on, in place of
+    the one the mesh flags request over the process group (the checks use
+    it for a mesh of one rank).
     """
 
-    def __init__(self, opt: MimrlConfig, device=None, graphs: bool = True):
+    def __init__(self, opt: MimrlConfig, device=None, graphs: bool = True,
+                 mesh: Optional[Mesh] = None):
         _refuse_unported(opt)
         self.opt = opt
         self.device = resolve_device(device if device is not None
                                      else opt.device)
+        # (ref: mimrl_tpu/train/solver.py:169-209) one device per rank
+        n_dev = dist.get_world_size() if dist.is_initialized() else 1
+        if mesh is None and wants_mesh(opt) and n_dev > 1:
+            mesh = make_mesh(opt.mesh_data, opt.mesh_model, opt.mesh_pipe,
+                             opt.mesh_dcn)
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.rank == 0
         self.task_path, self.writer, self.ckpt = self.prepare_checkpoint_log()
         log_message(str(opt))
         log_message("Making logger and dataset...")
@@ -256,8 +315,14 @@ class Solver:
          self.d_t, self.d_a, self.d_v) = get_data_loader(opt, self.tokenizer)
 
         log_message("Making model and optimizer...")
-        if opt.fusion == "moe" and opt.moe_experts > 1:
-            # (ref: mimrl_tpu/train/solver.py:182-184; a mesh is refused)
+        if wants_mesh(opt) and mesh is None:
+            log_message(
+                f"WARNING: --mesh_data/--mesh_model/--mesh_pipe requested "
+                f"but only {n_dev} device is visible — running unsharded.")
+        if opt.seq_shard and opt.mesh_model <= 1:
+            log_message("WARNING: --seq_shard requires --mesh_model > 1 — "
+                        "sequence parallelism is disabled.")
+        if opt.fusion == "moe" and opt.moe_experts > 1 and opt.mesh_model <= 1:
             log_message("WARNING: --fusion moe with --mesh_model 1: experts "
                         "run unsharded (no expert parallelism).")
         # --custom_loss, resolved once (ref: mimrl_tpu/train/steps.py:192-195)
@@ -267,14 +332,41 @@ class Solver:
         torch.manual_seed(opt.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.seed)
-        self.graphs = StepGraphs(self.device, [self.generator], enabled=graphs)
-        self.model = build_model(opt, self.tokenizer.vocab_size, self.d_a,
-                                 self.d_v, self.device, d_t=self.d_t,
+        # gloo's collectives cannot be captured in a CUDA graph
+        self.graphs = StepGraphs(self.device, [self.generator],
+                                 enabled=graphs and (mesh is None
+                                                     or mesh.capturable))
+        seq = (mesh is not None and opt.seq_shard
+               and mesh.shape[MODEL_AXIS] > 1)
+        model_opt = opt
+        if mesh is not None and (opt.flash_attn == "auto" or seq):
+            # 'auto' is the plain attention on a mesh (ref: solver.py:79-88),
+            # and the plain route serves --seq_shard (ref: bert.py:136)
+            model_opt = opt.replace(flash_attn="off")
+        self.model = build_model(model_opt, self.tokenizer.vocab_size,
+                                 self.d_a, self.d_v, self.device, d_t=self.d_t,
                                  raw_text=self.raw_text)
         init_weights(self.model, torch.Generator().manual_seed(opt.seed))
         if opt.bert_weights and self.raw_text:
             load_bert_weights(opt.bert_weights, self.model.bertmodel)
             log_message(f"Loaded BERT weights from {opt.bert_weights}")
+        self.model_blocks: List[str] = []
+        if mesh is not None:
+            mesh.set_batch(opt.batch_size)
+            self.model_blocks = shard_params(mesh, self.model)
+            if seq:
+                log_message("WARNING: --seq_shard keeps BERT's activations "
+                            "whole on every rank for now: it saves no memory "
+                            "yet (ROADMAP.md, mesh).")
+            rows = (f"{mesh.local_batch} rows of {opt.batch_size} per rank"
+                    if mesh.sharded else f"all {opt.batch_size} rows on "
+                    "every rank")
+            log_message(f"Mesh: {mesh!r}, {mesh.n_ranks} ranks; batch: "
+                        f"{rows}; {len(self.model_blocks)} parameters held as "
+                        f"blocks over model; sequence sharding "
+                        f"{'on' if seq else 'off'}; attention "
+                        f"{model_opt.flash_attn}; step graphs "
+                        f"{'on' if self.graphs.capture else 'off'}")
         if opt.print_params:
             for name, _ in self.model.named_parameters():
                 log_message("\t" + name)
@@ -287,6 +379,7 @@ class Solver:
                                   ("vmi", params_vmi))))
         self.opt_main = make_main_optimizer(opt, params_main, params_bert)
         self.opt_vmi = make_vmi_optimizer(opt, params_vmi)
+        self.opt_main.mesh = self.opt_vmi.mesh = mesh
         self.lr_schedule = LRScheduler(opt)
         self.base_lr_main = opt.learning_rate
         self.base_lr_vmi = opt.learning_rate * opt.mi_lr_rate
@@ -326,7 +419,13 @@ class Solver:
 
     # ------------------------------------------------------------------ #
     def prepare_checkpoint_log(self):
+        """The run directory, its log, scalar writer and checkpoints; a
+        mesh rank other than 0 writes none of them."""
         task_path = os.path.join(self.opt.task_dir, self.opt.task_name)
+        if not self.is_writer:
+            set_logger(None)
+            return task_path, _NoScalars(), CheckpointManager(task_path,
+                                                              write=False)
         os.makedirs(task_path, exist_ok=True)
         set_logger(os.path.join(task_path, "Running.log"))
         writer = ScalarWriter(task_path)
@@ -336,8 +435,12 @@ class Solver:
 
     def _host(self, batch: Dict):
         """Host batch -> (CPU tensors and labels, page-locked on the card's
-        runs, host labels, host sample mask)."""
+        runs, host labels, host sample mask); on a mesh the model inputs
+        are this rank's rows."""
         labels = np.asarray(get_label_from_datas(self.opt, batch))
+        if self.mesh is not None and self.mesh.sharded:
+            batch = dict(batch, **shard_batch(self.mesh, {
+                k: batch[k] for k in MODEL_INPUTS if k in batch}))
         tensors = steps.host_tensors(batch, labels, self.opt.task,
                                      pin=self.device.type == "cuda")
         return tensors, labels, batch["sample_mask"]
@@ -356,16 +459,24 @@ class Solver:
 
     def _snapshot(self, epoch: int) -> Dict:
         """The whole training state after ``epoch``, as a slot holds it
-        (``core/checkpoint.py``): copies, so the steps cannot change it."""
-        return {"format": SLOT_FORMAT, "epoch": epoch,
-                "model": {k: v.detach().clone()
-                          for k, v in self.model.state_dict().items()},
-                "opt_main": self.opt_main.state_dict(),
-                "opt_vmi": self.opt_vmi.state_dict(),
-                "bank": self.bank.state_dict(), "have_bank": self.have_bank,
-                "lr_schedule": self.lr_schedule.state_dict(),
-                "loader_passes": self.train_loader.passes,
-                "rng": self._rng_state()}
+        (``core/checkpoint.py``): copies, so the steps cannot change it;
+        on a mesh with model-sharded parameters, gathered whole (every
+        rank takes part)."""
+        snap = {"format": SLOT_FORMAT, "epoch": epoch,
+               "model": {k: v.detach().clone()
+                         for k, v in self.model.state_dict().items()},
+               "opt_main": self.opt_main.state_dict(),
+               "opt_vmi": self.opt_vmi.state_dict(),
+               "bank": self.bank.state_dict(), "have_bank": self.have_bank,
+               "lr_schedule": self.lr_schedule.state_dict(),
+               "loader_passes": self.train_loader.passes,
+               "rng": self._rng_state()}
+        if self.model_blocks:
+            snap = whole_slot(self.mesh, self.model, self._optimizers(), snap)
+        return snap
+
+    def _optimizers(self) -> Dict:
+        return {"opt_main": self.opt_main, "opt_vmi": self.opt_vmi}
 
     def _rng_state(self) -> Dict[str, torch.Tensor]:
         """The three generators' states (host reads: nothing waits)."""
@@ -396,6 +507,9 @@ class Solver:
         if ("cuda" in rng) != (self.device.type == "cuda"):
             raise ValueError(f"{resume_dir}: the latest slot was written on "
                              f"another device type than {self.device.type}")
+        if self.model_blocks:  # a slot holds whole tensors: take this rank's
+            state = local_slot(self.mesh, self.model, self._optimizers(),
+                               state)
         self.model.load_state_dict(state["model"], strict=True)
         self.opt_main.load_state_dict(state["opt_main"])
         self.opt_vmi.load_state_dict(state["opt_vmi"])
@@ -579,11 +693,16 @@ class Solver:
         """The epoch's [NB, bs, ...] model inputs and sample mask on the
         device, gathered by the row ids ``idx`` ([NB, bs], on the device)
         from the dataset-order tensors and, for AVEC's random words, the
-        pass's ``tokens``."""
+        pass's ``tokens``. On a mesh the model inputs are this rank's rows
+        of each batch; the sample mask stays whole."""
         flats = self._flat_tensors(loader)
         if tokens is not None:
             flats = dict(flats, **dict(zip(MODEL_INPUTS[:3], tokens)))
-        batches = {k: v[idx] for k, v in flats.items()}
+        rows = idx
+        if self.mesh is not None and self.mesh.sharded:
+            m = self.mesh
+            rows = idx[:, m.row_lo:m.row_lo + m.local_batch]
+        batches = {k: v[rows] for k, v in flats.items()}
         batches["sample_mask"] = mask
         return batches
 
@@ -600,6 +719,7 @@ class Solver:
         tensors (the valid and test splits) are stacked once."""
         if loader in self._stacks:
             return self._stacks[loader]
+        self._warn_replicated()
         idx_plan, mask_plan, tokens, labels, labels_np, masks = (
             self._epoch_plan(loader))
 
@@ -613,6 +733,20 @@ class Solver:
         if not loader.shuffle and loader.static_tensors:
             self._stacks[loader] = result
         return result
+
+    def _warn_replicated(self) -> None:
+        """JAX's warning (solver.py:364-375), once, when the mesh's batch
+        axes do not divide the batch: every rank then runs it whole."""
+        m = self.mesh
+        n_data = 1 if m is None else m.size(BATCH_AXES)
+        if n_data == 1 or m.sharded or getattr(self, "_warned_replicated",
+                                                 False):
+            return
+        self._warned_replicated = True
+        log_message(
+            f"WARNING: --epoch_scan batch dim {self.opt.batch_size} "
+            f"is not divisible by mesh data axis {n_data}; "
+            f"replicating the epoch stack to all devices.")
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device; on the card from page-locked memory
@@ -633,6 +767,7 @@ class Solver:
                                       and loader.static_tensors):
             stacked = self._stack_epoch(loader)
             return [lambda: stacked] * g
+        self._warn_replicated()
         plans = [self._epoch_plan(loader) for _ in range(g)]
         idx, mask, labels = (self._upload(np.stack([p[j] for p in plans]))
                              for j in (0, 1, 3))
@@ -866,10 +1001,19 @@ class Solver:
         """JAX's ``_group_supported`` (solver.py:733-744). Every loader of
         this package qualifies (fixed tensors, or AVEC's raw-text words,
         whose plans ``_stack_group`` draws up front) and every task has a
-        rule; a mesh is refused before."""
+        rule."""
         opt = self.opt
         return (opt.epoch_scan and opt.epoch_group > 1
-                and not opt.check_gradient and not opt.profile_dir)
+                and not opt.check_gradient and not opt.profile_dir
+                and self._group_mesh_ok())
+
+    def _group_mesh_ok(self) -> bool:
+        """Grouped dispatch takes a pure data-parallel mesh (dcn x data);
+        a pipe or model axis keeps the per-epoch path (JAX:
+        ``_group_mesh_ok``, solver.py:714-723)."""
+        m = self.mesh
+        return m is None or (m.shape[PIPE_AXIS] == 1
+                             and m.shape[MODEL_AXIS] == 1)
 
     def _live_state(self) -> Dict[str, torch.Tensor]:
         """The training state's tensors by slot path (``model/<name>``,
@@ -1300,7 +1444,9 @@ class Solver:
                      best_test_state: Optional[Dict]):
         """(ref: Solver.py:514-531) The ``best_valid`` and ``best_test``
         slots hold the training state of their epoch; ``Predictor`` loads
-        the model from them."""
+        the model from them. A mesh rank other than 0 writes nothing."""
+        if not self.is_writer:
+            return
         for name, array in (
                 ("predictions_val", best_predictions[0]),
                 ("predictions_test", best_predictions[1]),

@@ -37,6 +37,13 @@
   training state only through tensors that stay in place, and takes the
   batch's position as a device tensor.
 
+On a mesh (``parallel/mesh.py``) a batch holds this rank's rows of the
+model's inputs beside the global labels and sample mask; ``forward_batch``
+gathers the outputs and features to the global batch, so the losses, the
+kNN samples and the bank writes are the single-process ones, identical
+on every rank, and the gradients are averaged over the batch axes before
+each update.
+
 Nothing here reads a value back from the device: losses, MI values and
 outputs are returned as device tensors, and the non-finite guard
 (``--skip_nonfinite_updates``) selects with ``torch.where`` on a device
@@ -55,6 +62,8 @@ from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.mi.knn import prod_knn_sample
 from mimrl_tpu_torch.models.model import (CMI_KEYS, MODEL_INPUTS, MimrlModel,
                                           forward_batch)
+from mimrl_tpu_torch.parallel.mesh import (MODEL_AXIS, all_reduce, mesh_of,
+                                           reduce_gradients, shard_dim)
 from mimrl_tpu_torch.train.losses import compute_task_loss
 from mimrl_tpu_torch.train.optim import ChainOptimizer
 
@@ -169,7 +178,10 @@ def _guarded_step(enabled: bool, optimizer: ChainOptimizer, loss, grads
     Inf, parameters and optimizer state keep their old values. The loss is
     checked as well as the gradients, because a NaN target gives a NaN loss
     with finite garbage gradients (abs and max swallow NaN in their
-    backward). Returns the device flag ``ok``, or None when not enabled."""
+    backward). Returns the device flag ``ok``, or None when not enabled.
+    On a mesh the gradients are averaged over the batch axes first
+    (``ChainOptimizer.reduce``), so every rank decides alike."""
+    grads = optimizer.reduce(grads)
     if not enabled:
         optimizer.step(grads)
         return None
@@ -343,8 +355,16 @@ def grad_debug_step(model: MimrlModel, cfg: MimrlConfig,
     else:
         total = stage2_loss(model, cfg, batch, labels, knn, generator)[0]
     named = [(n, p) for n, p in model.named_parameters() if "bert" not in n]
-    grads = _grads(total, [p for _, p in named])
-    return {n: (p.detach().sum(), g.sum()) for (n, p), g in zip(named, grads)}
+    mesh = mesh_of(model)
+    grads = reduce_gradients(mesh, _grads(total, [p for _, p in named]))
+    sums = {}
+    for (n, p), g in zip(named, grads):
+        p_sum, g_sum = p.detach().sum(), g.sum()
+        if shard_dim(p) is not None:  # this rank's block: sum the blocks
+            p_sum, g_sum = (all_reduce(t, mesh, (MODEL_AXIS,))
+                            for t in (p_sum, g_sum))
+        sums[n] = (p_sum, g_sum)
+    return sums
 
 
 # ---------------------------------------------------------------------- #

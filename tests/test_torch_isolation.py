@@ -37,6 +37,7 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch.train.regularizers\n"
             "import mimrl_tpu_torch.tools.parity, mimrl_tpu_torch.data.preflight\n"
             "import mimrl_tpu_torch.mi.standalone, mimrl_tpu_torch.train.sam\n"
+            "import mimrl_tpu_torch.parallel.mesh, mimrl_tpu_torch.parallel.check\n"
             "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(PACKAGE.parent))
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
@@ -47,6 +48,7 @@ def test_import_loads_no_jax():
     assert "mimrl_tpu_torch.train.regularizers" in loaded
     assert "mimrl_tpu_torch.tools.parity" in loaded
     assert "mimrl_tpu_torch.mi.standalone" in loaded
+    assert "mimrl_tpu_torch.parallel.check" in loaded
     # matplotlib (absent on the card's machine) only for --plot_dir
     assert "matplotlib" not in loaded
     assert not [m for m in loaded if _forbidden(m)]
@@ -58,7 +60,7 @@ def test_no_source_file_imports_jax():
     offenders = []
     files = sorted(PACKAGE.rglob("*.py")) + [PACKAGE.parent / "chip_smoke.py"]
     assert len(files) > 10
-    for sub in ("mi", "train", "cli", "ops", "tools"):
+    for sub in ("mi", "train", "cli", "ops", "tools", "parallel"):
         assert any(path.parent.name == sub for path in files), sub
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -254,19 +254,24 @@ def test_flash_tensor_core_dropout_mask_on_card(cuda, t):
     q = k = 0 and no padding P is 1 / T everywhere: v = one-hot in the head
     dim (v[key, key] = 1) makes out[query, key] nonzero where the pair is
     kept, and dO = one-hot (dO[query, query] = 1) does the same for
-    dv[key, query]."""
+    dv[key, query]. With a batch offset (``row0``, a data-parallel rank's
+    first global row) the kernels keep the mask of those rows of the whole
+    batch."""
     bs, nh, hd, p = 2, 3, 128, 0.1
     z = torch.zeros(bs, nh, t, hd, device=cuda, dtype=torch.bfloat16)
     eye = torch.eye(t, hd, device=cuda, dtype=torch.bfloat16).expand(
         bs, nh, t, hd).contiguous()
     bias = torch.zeros(bs, 1, 1, t, device=cuda)
     seed = torch.tensor([77 + t], device=cuda)
-    want = dropout_keep_mask(seed, bs, nh, t, t, p)
-    out = flash_attention(z, z, eye, bias, seed, p)
-    _, _, dv = flash_attention_bwd(z, z, eye, bias, seed, eye, p)
-    torch.cuda.synchronize()
-    assert torch.equal(out[..., :t] != 0, want)
-    assert torch.equal(dv[..., :t].transpose(-1, -2) != 0, want)
+    whole = dropout_keep_mask(seed, bs + 5, nh, t, t, p)
+    for row0 in (0, 5):
+        want = dropout_keep_mask(seed, bs, nh, t, t, p, row0)
+        assert torch.equal(want, whole[row0:row0 + bs])
+        out = flash_attention(z, z, eye, bias, seed, p, row0)
+        _, _, dv = flash_attention_bwd(z, z, eye, bias, seed, eye, p, row0)
+        torch.cuda.synchronize()
+        assert torch.equal(out[..., :t] != 0, want)
+        assert torch.equal(dv[..., :t].transpose(-1, -2) != 0, want)
     assert abs(want.float().mean().item() - (1 - p)) < 0.02
 
 
@@ -288,7 +293,7 @@ def test_tensor_core_bwd_limit_matches_source_on_card(cuda):
                            9, dtype)
         bias = torch.zeros(1, 1, 1, t, device=cuda)
         rc = fn(*([q.data_ptr()] * 3), bias.data_ptr(), q.data_ptr(), None,
-                *([q.data_ptr()] * 3), 1, 1, t, hd, 0.125, 0, 0, 1.0,
+                *([q.data_ptr()] * 3), 1, 1, t, hd, 0.125, 0, 0, 1.0, 0,
                 torch.cuda.current_stream().cuda_stream)
         assert rc != 0
 

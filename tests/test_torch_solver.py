@@ -9,7 +9,7 @@ the run wrote, and its ``latest`` slot holds the whole training state.
 together (``test_hooks_train_on_the_cpu``). ``--epoch_group 2`` equals
 the per-epoch ``--epoch_scan`` run bit for bit, and the parity harness
 gives JAX's report (``test_epoch_group_equals_per_epoch``). Flags whose
-path is not ported raise; the two kernel flags
+path is not ported (``--mesh_pipe``) raise; the two kernel flags
 (``--use_pallas``, ``--quant``) train and serve through the plain versions.
 
 The schedule rungs (``test_rungs``): each stage-1 mode's epoch function,
@@ -158,8 +158,7 @@ def test_two_runs_of_one_seed_agree(run):
     assert other[0]["mae"] != pytest.approx(scores[0]["mae"], rel=1e-6)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh_model", "2"], ["--mesh_data", "4"], ["--distributed"]])
+@pytest.mark.parametrize("flags", [["--mesh_pipe", "2"]])
 def test_unported_flags_raise(run, flags):
     root = run[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
