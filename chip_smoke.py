@@ -2,6 +2,10 @@
 """Smoke run of the PyTorch / H100 port (``mimrl_tpu_torch``) on one card.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
+    python3 chip_smoke.py --mesh [data|seq_shard|moe|pipe ...]
+                                 # the build and those mesh cases alone
+                                 # (default pipe); NCCL on 2+ cards, and
+                                 # on 4+ the pipelined CLI (mesh_main)
 
 Phases, each of which raises (non-zero exit, no result line) on failure:
 
@@ -32,7 +36,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            events (median of 25 after 5 warm-up runs, 10-20 queued launches
            per pair of events) and by the profiler's kernel records, beside
            the plain version, the one-call PyTorch equivalent (timed only,
-           both ways) and the bound.
+           both ways) and the bound; the bf16 attention also at the pipe
+           case's microbatch, ``[32, 12, 100, 64]`` (``pipe_kernel_shapes``).
 3. serve   ``Predictor`` on the canonical MOSI config at full width
            (README quick start: bs 128, time_len 100, BERT-base
            12 x 768 x 12 heads, bi-GRU, CubeMLP 50-3-128=10-3-128, bf16)
@@ -234,7 +239,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            with all four kernels): finite scores
            equal on both ranks, per rank the epoch s, one eager train
            step's ms and the profiler's collective rows, the launches and
-           peak memory. Two cards or more: one rank per card
+           peak memory. The pipe case (``--mesh_data 1 --mesh_pipe 2
+           --pipe_microbatches 4 --flash_attn on``: GPipe, ``--pipe_virtual
+           2 --pipe_remat``, GPipe with ``--use_pallas --quant int8``):
+           the same gate at 4 BERT layers against the sequential stack on
+           the pipeline's 32-row microbatches (``check.microbatch_step``),
+           exact launches per rank (layers x microbatches, twice the
+           forward's under remat), two fault controls (BERT's gradients
+           not summed over pipe; the output's cotangent summed over pipe);
+           then one eager train_step per schedule at 12 layers: ms, busy
+           ms, the hops' and gradient sums' rows, ticks computed and idle,
+           launches, peak memory. Two cards or more: one rank per card
            over NCCL. One card: both ranks share it over gloo (eager: gloo
            cannot be captured; correctness only, no measure of scaling),
            and a one-rank NCCL group runs the flagged recipe 2 epochs (1
@@ -401,7 +416,8 @@ INT8_MAIN = (ROWS, 768, 3072)
 # K % 16 != 0 (mma_sync); ragged M and N with a K tail under stream-K (wgmma)
 INT8_RAGGED = [(333, 1000, 77), (200, 12800 + 48, 136)]
 
-# the mesh phase (parallel/mesh.py): three cases as recipes/multichip.sh
+PIPE_MICRO = 4  # --pipe_microbatches: 32-row microbatches of bs 128
+# the mesh phase (parallel/mesh.py): four cases as recipes/multichip.sh
 # runs them at full width, each (case flags, (variant, flags) ...); every
 # variant's one-step gate runs SGD (the update is linear in the gradient, so
 # a fault in it shows; under Adam a gradient scaled by 2 moves little)
@@ -414,11 +430,23 @@ MESH_CASES = {
                   (("plain", []),)),
     "moe": (["--mesh_data", "1", "--mesh_model", "2", "--fusion", "moe"],
             (("plain", []),)),
+    # the pipeline (parallel/pipeline.py) over two stages, as
+    # recipes/multichip.sh runs it with --mesh_data 1
+    "pipe": (["--mesh_data", "1", "--mesh_pipe", "2", "--pipe_microbatches",
+              str(PIPE_MICRO), "--flash_attn", "on"],
+             (("gpipe", []), ("interleaved", ["--pipe_virtual", "2",
+                                              "--pipe_remat"]),
+              ("flagged", ["--use_pallas", "--quant", "int8"]))),
 }
 # the gates run at 2 BERT layers (full width): the host's float64 copies
 # and the gloo sums of every gradient scale with the parameter count
 MESH_GATE_LAYERS = 2
 MESH_GATE_ARGS = ["--optm", "SGD", "--bert_layers", str(MESH_GATE_LAYERS)]
+# the pipe case's gates at 4 BERT layers, the least depth that the
+# interleaved schedule takes at 2 stages and 2 virtual chunks; its
+# order-only control is the sequential stack on the pipeline's 32-row
+# microbatches (check.microbatch_step)
+PIPE_GATE_LAYERS = 4
 MESH_VOCAB = 30522
 # the gate: a mesh step may differ from the unsharded step (forward values
 # and each parameter's update, relative: check.relative_gaps) by at most
@@ -443,6 +471,11 @@ MESH_GATED = ("forward", "gradient")
 MESH_FAULTS = {"skip_reduce": {"skip_reduce": 0},
                "no_scaling": {"sum_gradients": True},
                "dropout_rows": {"dropout_from_zero": True}}
+# the pipe case's: BERT's gradients not summed over pipe; the last stage's
+# cotangent of the shared output summed over pipe (2x BERT's gradient)
+PIPE_FAULTS = {"no_pipe_sum": {"no_pipe_sum": True},
+               "output_sum": {"output_sum": True}}
+CASE_FAULTS = {"data": MESH_FAULTS, "pipe": PIPE_FAULTS}
 # the readings: 2 epochs on --epoch_scan (train_phase's split), per rank,
 # at 1 BERT layer (full width): gloo moves every collective through host
 # memory (12.6 s an eager step of the model axis at full depth with two
@@ -453,7 +486,10 @@ MESH_READ_FLAGS = {"data": ["--flash_attn", "on", "--use_pallas", "--quant",
                             "int8"]}
 # the cases run in one group of two processes (each case builds its own
 # mesh over it): each group costs a start and a CUDA context per rank
-MESH_GROUPS = (("data", "seq_shard", "moe"),)
+MESH_GROUPS = (("data", "seq_shard", "moe", "pipe"),)
+# the pipe case's readings: one eager train_step at 12 BERT layers per
+# rank, GPipe, then the interleaved schedule with remat on the same model
+PIPE_READ_SCHEDULES = (("gpipe", 1, False), ("interleaved", 2, True))
 
 CANONICAL_MOSI = [
     "--dataset", "mosi_Dec", "--log_scale", "0-0-0", "--normalize", "0-1-1",
@@ -1534,6 +1570,8 @@ def train_phase(root: str, name: str = "train", use_pallas: bool = False,
     import os
 
     import numpy as np
+    import math
+
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
@@ -2354,6 +2392,8 @@ def resume_phase(root: str):
     import signal
     import warnings
 
+    import math
+
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
@@ -2654,6 +2694,8 @@ def rung_run(runs: str, name: str, argv, graphs=True, stage1=None, patches=(),
     """``cli.main`` on ``argv`` with its run in ``runs/name``, with CUDA
     graphs or eagerly; returns the run's readings and its final slot's
     tensors (``rung_profile``'s reading with ``stage1``)."""
+    import math
+
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
@@ -2946,6 +2988,8 @@ def family_run(root: str, name: str, argv, raw: bool, use_pallas=False,
     each side), the train epoch's samples/s, peak memory. Returns (record,
     launches, the run's Solver)."""
     import numpy as np
+    import math
+
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
@@ -3244,6 +3288,71 @@ def family_kernel_shapes() -> dict:
     for name, recs in out.items():
         emit(phase="families", step="kernel_shapes", card=card(), kernel=name,
              shapes=recs)
+    return out
+
+
+def pipe_kernel_shapes() -> dict:
+    """The attention kernels at the pipeline's microbatch shape, bf16
+    ``[BATCH / PIPE_MICRO, 12, 100, 64]`` (the pipe case's units), forward
+    and backward with and without dropout against their plain versions,
+    timed as the kernel phase times them beside the bound and SDPA.
+    Returns {kernel name: [records]} (the attention kernels only)."""
+    import torch
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    bs, dtype = BATCH // PIPE_MICRO, torch.bfloat16
+    q, k, v, bias = attention_inputs(bs, N_HEADS, TIME_LEN, HEAD_DIM, dtype,
+                                     seed=bs + 1)
+    seed = torch.tensor([bs], device="cuda")
+    d_out = torch.randn_like(q)
+    shape = [bs, N_HEADS, TIME_LEN, HEAD_DIM]
+    out = {}
+    for kernel, backward in (("flash_attention_fwd", False),
+                             ("flash_attention_bwd", True)):
+        instance = fa._instance(dtype, TIME_LEN, HEAD_DIM, backward)
+        if backward:
+            err = max(max(rel_err(g, w) for g, w in zip(
+                fa.flash_attention_bwd(q, k, v, bias, seed, d_out, p),
+                fa.flash_attention_bwd_plain(q, k, v, bias, seed, d_out, p)))
+                for p in (0.0, DROPOUT_P))
+            qq, kk, vv = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias)
+            times = timings(
+                lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out, 0.0),
+                lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out,
+                                               DROPOUT_P),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, bias, seed,
+                                                     d_out, 0.0),
+                lambda: torch.autograd.grad(sdpa, (qq, kk, vv), d_out,
+                                            retain_graph=True),
+                kernel_symbol("bwd", instance, "bfloat16"))
+            del sdpa, qq, kk, vv
+            tol = BWD_TOL["bfloat16"]
+        else:
+            err = max(rel_err(fa.flash_attention(q, k, v, bias, seed, p),
+                              fa.flash_attention_plain(q, k, v, bias, seed, p))
+                      for p in (0.0, DROPOUT_P))
+            times = timings(
+                lambda: fa.flash_attention(q, k, v, bias),
+                lambda: fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                lambda: fa.flash_attention_plain(q, k, v, bias),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=bias),
+                kernel_symbol("fwd", instance, "bfloat16"))
+            tol = KERNEL_TOL["bfloat16"]
+        require(err <= tol, f"{kernel} {shape} bfloat16: relative error "
+                f"{err} > {tol}")
+        require(instance == "tensor_core",
+                f"{kernel} {shape} bfloat16: instance {instance}")
+        bound, by, _ = attention_bound(q, bias, backward=backward)
+        out[kernel] = [dict(shape=shape, dtype="bfloat16", instance=instance,
+                            max_rel_err=err, bound_ms=bound, bound_by=by,
+                            **times)]
+        emit(phase="kernel", step="pipe_shape", card=card(), kernel=kernel,
+             **out[kernel][0])
     return out
 
 
@@ -3650,6 +3759,8 @@ def nwj_divergence(root: str) -> None:
     import math
 
     import numpy as np
+    import math
+
     import torch
 
     from mimrl_tpu_torch.cli.main import main as cli_main
@@ -4100,6 +4211,8 @@ def group_phase(root: str):
     grouped runs."""
     import math
     import os
+
+    import math
 
     import torch
 
@@ -4733,10 +4846,32 @@ def mesh_inputs(seed: int = 0):
     return batch, rng.normal(size=BATCH).astype(np.float32), bank
 
 
+def mesh_gate_args(case_flags) -> list:
+    layers = PIPE_GATE_LAYERS if "--mesh_pipe" in case_flags else \
+        MESH_GATE_LAYERS
+    return ["--optm", "SGD", "--bert_layers", str(layers)]
+
+
+def pipe_step_launches(pallas: bool, quant: str, remat: bool, layers: int,
+                       stages: int, micro: int):
+    """One pipe rank's launches in one critic_step + train_step: its
+    layers' attention and int8 launches on each microbatch, the six axis
+    MLPs of each forward on every rank, and under remat the backward's
+    second forward of its layers."""
+    per = layers // stages
+    c = add(*(step_launches(kind, False, quant, micro, per)
+              for kind in ("critic", "train")), (0, 0, 12 if pallas else 0, 0))
+    if remat:
+        c = add(c, step_launches("critic", False, quant, micro, per))
+    return c
+
+
 def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
     """One rank of a case's equality gate: per variant, one critic_step +
     train_step at full width on the mesh against the unsharded step (and,
-    on rank 0, the order-only control), every kernel launch of the mesh
+    on rank 0, the order-only control: check.split_batch_step, on a pipe
+    mesh check.microbatch_step; both are kept for a variant that differs
+    in its pipeline's schedule alone), every kernel launch of the mesh
     step held against its plain version; then the fault controls on the
     first variant. Returns (rank 0) the readings."""
     import torch
@@ -4748,10 +4883,10 @@ def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
     from mimrl_tpu_torch.parallel.mesh import make_mesh
 
     batch, labels, bank = mesh_inputs()
-    out, state = {}, None
+    out, state, refs = {}, None, {}
     for name, flags in variants:
         cfg = parse_args(mesh_argv(data, *case_flags, *flags,
-                                   *MESH_GATE_ARGS))
+                                   *mesh_gate_args(case_flags)))
         if cfg.flash_attn == "auto":  # the Solver's rule on a mesh
             cfg = cfg.replace(flash_attn="off")
         mesh = make_mesh(cfg.mesh_data, cfg.mesh_model, cfg.mesh_pipe,
@@ -4766,12 +4901,20 @@ def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
         def build():
             return check.build(cfg, MESH_VOCAB, 5, 20, state[1], device)
 
-        ref = check.one_step(build(), *args)
-        control = None
-        if rank == 0:
-            start = {k: v.double() for k, v in state[1].items()}
-            control = check.relative_gaps(
-                ref, check.split_batch_step(build(), *args), start)
+        key = repr(cfg.replace(pipe_virtual=1, pipe_remat=False))
+        if key not in refs:
+            refs.clear()
+            gc.collect()
+            ref = check.one_step(build(), *args)
+            control = None
+            if rank == 0:
+                start = {k: v.double() for k, v in state[1].items()}
+                split = (check.microbatch_step if cfg.mesh_pipe > 1
+                         else check.split_batch_step)
+                control = check.relative_gaps(ref, split(build(), *args),
+                                              start)
+            refs[key] = (ref, control)
+        ref, control = refs[key]
         errors, axis_errors, int8_seen = {"fwd": [], "bwd": []}, [], []
         checks = (checked_launches(errors) + checked_axis_mlp(axis_errors)
                   + checked_int8(int8_seen))
@@ -4809,6 +4952,7 @@ def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
         del ref
         gc.collect()
         torch.cuda.empty_cache()
+    refs.clear()
     return out
 
 
@@ -4877,6 +5021,78 @@ def mesh_read_rank(rank, device, argv):
     return every
 
 
+def pipe_read_rank(rank, device, argv):
+    """One rank of the pipe case's readings at 12 BERT layers: the Solver
+    of the flags, then per schedule of PIPE_READ_SCHEDULES one eager
+    train_step to warm up and one under the profiler: its ms, busy ms, the
+    rows of the hops, the output's share over pipe, the gradient sums and
+    gloo's all-reduces, launches, peak memory, and the ticks this rank
+    computes and idles. Returns (rank 0) every rank's readings."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.parallel.mesh import PIPE_AXIS
+    from mimrl_tpu_torch.parallel.pipeline import rank_ticks
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    solver = Solver(parse_args(argv), device=device)
+    init_s = time.perf_counter() - t0
+    mesh = solver.mesh
+    batch = next(iter(solver.train_loader))
+    mb, labels, _ = solver._prep(batch)
+
+    def step():
+        steps.train_step(solver.model, solver.opt_main, solver.opt, mb,
+                         labels, solver.bank, solver.new_bank, 0,
+                         solver.generator, True)
+        torch.cuda.synchronize(device)
+
+    mine = []
+    for name, virtual, remat in PIPE_READ_SCHEDULES:
+        mesh.set_pipeline(solver.opt.pipe_microbatches, virtual, remat)
+        step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        zero_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step()
+            step_ms = 1e3 * (time.perf_counter() - t1)
+        launches = counts()
+        rows = [dict(name=e.key, calls=e.count,
+                     host_ms=e.cpu_time_total / 1e3,
+                     device_ms=getattr(e, "device_time_total",
+                                       getattr(e, "cuda_time_total", 0.0))
+                     / 1e3)
+                for e in prof.key_averages()
+                if e.key.startswith("mimrl/") or any(
+                    w in e.key.lower() for w in ("all_reduce", "allreduce"))]
+        busy, _ = device_busy_ms(prof)
+        ticks = rank_ticks(mesh.shape[PIPE_AXIS], mesh.n_microbatches,
+                           virtual, mesh.coords[PIPE_AXIS])
+        computed = sum(any(op[0] == "unit" for op in ops) for ops in ticks)
+        mine.append(dict(
+            rank=rank, schedule=name, virtual=virtual, remat=remat,
+            microbatches=mesh.n_microbatches, eager_step_ms=step_ms,
+            eager_step_busy_ms=busy, rows=rows, launches=launches,
+            peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+            ticks=len(ticks), ticks_computed=computed,
+            ticks_idle=len(ticks) - computed, solver_init_s=init_s,
+            mesh=repr(mesh), bert_layers=solver.opt.bert_layers))
+    del solver
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
 def mesh_one_rank_nccl(data: str, runs: str):
     """A one-rank NCCL group on this card: the flagged recipe's 2-epoch
     ``--epoch_scan`` run on a one-rank mesh, whose step graphs capture the
@@ -4936,16 +5152,21 @@ def mesh_group_rank(rank, device, data, root, cases):
     out = {}
     for case in cases:
         case_flags, variants = MESH_CASES[case]
-        faults = MESH_FAULTS if case == "data" else {}
+        faults = CASE_FAULTS.get(case, {})
         t0 = time.perf_counter()
         gate = mesh_gate_rank(rank, device, data, case_flags, variants,
                               faults)
         gate_s = time.perf_counter() - t0
-        argv = mesh_argv(data, *case_flags, *MESH_READ_FLAGS.get(case, []),
-                         *MESH_READ_ARGS, "--task_dir", f"{root}/runs",
-                         "--task_name", f"mesh_{case}")
         t0 = time.perf_counter()
-        readings = mesh_read_rank(rank, device, argv)
+        if case == "pipe":
+            readings = pipe_read_rank(rank, device, mesh_argv(
+                data, *case_flags, "--task_dir", f"{root}/runs",
+                "--task_name", "mesh_pipe", "--no_save_models"))
+        else:
+            readings = mesh_read_rank(rank, device, mesh_argv(
+                data, *case_flags, *MESH_READ_FLAGS.get(case, []),
+                *MESH_READ_ARGS, "--task_dir", f"{root}/runs",
+                "--task_name", f"mesh_{case}"))
         out[case] = dict(gate=gate, readings=readings, gate_s=gate_s,
                          readings_s=time.perf_counter() - t0)
     return out
@@ -4996,14 +5217,15 @@ def mesh_dropout_check() -> dict:
 
 
 def mesh_phase(root: str):
-    """The mesh's dropout against ``F.dropout``; the three cases of the
-    mesh (``parallel/mesh.py``) at full width: the one-step equality gates
-    with their controls and fault controls, and the 2-epoch
-    ``--epoch_scan`` readings per rank (one group of two processes for
-    the three); then, on one card, a one-rank NCCL run
+    """The mesh's dropout against ``F.dropout``; the four cases of the
+    mesh (``parallel/mesh.py``, ``parallel/pipeline.py``) at full width:
+    the one-step equality gates with their controls and fault controls,
+    and the 2-epoch ``--epoch_scan`` readings per rank, for the pipe case
+    one eager train_step per schedule at 12 layers (one group of two
+    processes for the four); then, on one card, a one-rank NCCL run
     whose graphs capture the collectives. Returns the launches of the
-    counted mesh runs (the data case's flagged run on every rank, and the
-    one-rank NCCL run)."""
+    counted mesh runs (the data case's flagged run on every rank, the pipe
+    case's readings steps on every rank, and the one-rank NCCL run)."""
     import math
 
     import torch
@@ -5062,25 +5284,50 @@ def mesh_phase(root: str):
                         f"mesh {case}/{name}: a kernel launch against its "
                         f"plain version {ke}")
                 # per rank: a critic_step and a train_step
-                kernels = "--flash_attn" in dict(variants)[name]
-                pallas = "--use_pallas" in dict(variants)[name]
-                want = list(add(
-                    *(step_launches(kind, pallas, "int8" if pallas else "none",
-                                    layers=MESH_GATE_LAYERS)
-                      for kind in ("critic", "train"))))
+                flags = MESH_CASES[case][0] + dict(variants)[name]
+                kernels = "--flash_attn" in flags
+                pallas = "--use_pallas" in flags
+                quant = "int8" if pallas else "none"
+                if case == "pipe":
+                    want = list(pipe_step_launches(
+                        pallas, quant, "--pipe_remat" in flags,
+                        PIPE_GATE_LAYERS, 2, PIPE_MICRO))
+                else:
+                    want = list(add(
+                        *(step_launches(kind, pallas, quant,
+                                        layers=MESH_GATE_LAYERS)
+                          for kind in ("critic", "train"))))
                 if not kernels:
                     want[:2] = [0, 0]
                 for per_rank in r["launches_per_rank"]:
                     require(per_rank == want, f"mesh {case}/{name}: "
                             f"launches per rank {per_rank}, want {want}")
             limits = limits_of(gate[variants[0][0]]["control"])
-            for fault in (MESH_FAULTS if case == "data" else {}):
+            for fault in CASE_FAULTS.get(case, {}):
                 g = gate[f"fault_{fault}"]["gaps"]
                 miss = max(g[k] / limits[k] for k in limits)
                 emit(phase="mesh", step="fault_control", case=case,
                      fault=fault, gaps=g, limits=limits, gap_over_limit=miss)
                 require(miss >= 10.0, f"mesh fault control {fault} missed "
                         f"its limit by {miss:.3g}x only (want >= 10x)")
+            if case == "pipe":
+                for per_rank in ranks:
+                    for r in per_rank:
+                        want = pipe_step_launches(
+                            False, "none", r["remat"], r["bert_layers"], 2,
+                            PIPE_MICRO)
+                        want = sub(want, step_launches(
+                            "critic", False, "none", PIPE_MICRO,
+                            r["bert_layers"] // 2))
+                        require(tuple(r["launches"]) == want,
+                                f"mesh pipe readings {r['schedule']} rank "
+                                f"{r['rank']}: launches {r['launches']}, "
+                                f"want {want}")
+                        launches = add(launches, tuple(r["launches"]))
+                        emit(phase="mesh", step="pipe_readings",
+                             backend=backend, card=card(),
+                             seconds=results[case]["readings_s"], **r)
+                continue
             for r in ranks:
                 require(all(math.isfinite(v) for s in r["scores"]
                             for v in s.values()),
@@ -5106,6 +5353,57 @@ def mesh_phase(root: str):
     return launches
 
 
+def mesh_main(cases) -> None:
+    """``python3 chip_smoke.py --mesh [case ...]``: the build and the
+    `mesh` phase's ``cases`` alone (default: the pipe case), over NCCL
+    with one rank per card on two or more cards; on four or more cards
+    also ``cli.main`` with ``--mesh_data 2 --mesh_pipe 2`` (one rank per
+    card, started by ``cli/main.py``) for 2 epochs at 4 BERT layers beside
+    the same run on one card."""
+    import math
+
+    import torch
+
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.ops import _build
+
+    global MESH_GROUPS
+    MESH_GROUPS = (tuple(cases or ("pipe",)),)
+    t0 = time.perf_counter()
+    _build.build()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         cards=torch.cuda.device_count())
+    with tempfile.TemporaryDirectory() as root:
+        data = f"{root}/train_data"
+        make_dec_fixture(data, "mosi", n_per_split=(N_TRAIN, BATCH, BATCH),
+                         d_audio=5, d_video=20, max_len=TIME_LEN + 1, seed=1)
+        t0 = time.perf_counter()
+        launches = mesh_phase(root)
+        emit(phase="mesh", step="seconds", seconds=time.perf_counter() - t0,
+             launches=launches)
+        if torch.cuda.device_count() < 4:
+            return
+        argv = mesh_argv(data, "--flash_attn", "on", "--bert_layers", "4",
+                         "--epochs_num", "2", "--no_save_models",
+                         "--save_latest_every", "0", "--task_dir",
+                         f"{root}/runs")
+        for name, flags, device in (
+                ("one_card", ["--mesh_data", "1"], "cuda:0"),
+                ("data2_pipe2", ["--mesh_data", "2", "--mesh_pipe", "2",
+                                 "--pipe_microbatches", str(PIPE_MICRO)],
+                 None)):
+            t0 = time.perf_counter()
+            scores = cli_main(argv + flags + ["--task_name", name],
+                              device=device)
+            log = open(f"{root}/runs/{name}/Running.log").read()
+            require(all(math.isfinite(v) for r in scores for v in r.values()),
+                    f"cli {name}: scores {scores}")
+            emit(phase="mesh", step="cli", run=name, card=card(),
+                 wall_s=time.perf_counter() - t0, scores=scores,
+                 mesh=[ln for ln in log.splitlines() if "Mesh:" in ln])
+
+
 def main() -> int:
     import torch
 
@@ -5113,6 +5411,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
+    if "--mesh" in sys.argv[1:]:
+        from mimrl_tpu_torch.device import resolve_device
+
+        resolve_device()
+        mesh_main([a for a in sys.argv[1:] if a != "--mesh"])
+        print(card(), flush=True)
+        return 0
     from mimrl_tpu_torch.device import resolve_device
     from mimrl_tpu_torch.ops import _build
 
@@ -5135,6 +5440,7 @@ def main() -> int:
     # the families phase's shapes, beside the other kernel timings: later
     # in the run the profiler has returned sessions without kernel records
     family_shapes = family_kernel_shapes()
+    pipe_shapes = pipe_kernel_shapes()
     done("kernel")
     with tempfile.TemporaryDirectory() as root:
         task = write_run(root)
@@ -5195,6 +5501,7 @@ def main() -> int:
                    replaces=replaces[i],
                    launches=sum(c[i] for c in paths.values()),
                    shapes_families=family_shapes[KERNEL_NAMES[i]],
+                   shapes_pipe=pipe_shapes.get(KERNEL_NAMES[i]),
                    **{f"launches_{k}": c[i] for k, c in paths.items()})
         for key in ("ms_dropout", "shapes", "instance", "profiler_ms",
                     "ms_one_launch", "library_events_ms", "bound_rate",
@@ -5216,7 +5523,7 @@ def main() -> int:
             "launches_fusions", "launches_hooks", "launches_group",
             "launches_mi_bank", "launches_mesh",
             "library_ms_dw_layer", "library_profiler_ms_dw_layer", "shapes",
-            "shapes_families")
+            "shapes_families", "shapes_pipe")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in records]}), flush=True)
     smi = subprocess.run(

@@ -31,7 +31,10 @@ round trip) and both routes build the same Philox mask from it, as
 data-parallel mesh the mask's batch rows are the rank's global rows.
 
 On a mesh with a ``model`` axis (``parallel/mesh.py``) the four dense
-kernels hold column blocks (tensor parallelism).
+kernels hold column blocks (tensor parallelism). On a ``pipe`` axis
+``parallel/pipeline.py`` runs the layers in stages over microbatches: it
+draws each layer's attention seed once per forward (``attention_seed``,
+in layer order, as this module draws them) and hands it to the layer.
 """
 
 from __future__ import annotations
@@ -149,6 +152,13 @@ def _rows_in_fixed_order(table: torch.Tensor, ids: torch.Tensor
     return out
 
 
+def attention_seed(generator, device) -> torch.Tensor:
+    """One layer's attention dropout seed, drawn from ``generator`` on
+    ``device`` (no host round trip)."""
+    return torch.randint(0, 2 ** 31 - 1, (1,), device=device,
+                         generator=generator)
+
+
 class BertSelfAttention(nn.Module):
     """HF's ``attention.self``: query, key, value projections."""
 
@@ -185,7 +195,9 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, device)
         self.output = BertSelfOutput(c.hidden_size, c, device)
 
-    def forward(self, x, attn_bias, generator=None):
+    def forward(self, x, attn_bias, generator=None, seed=None):
+        """``seed``: the layer's attention seed drawn already (the
+        pipeline's), else one is drawn from ``generator``."""
         c = self.config
         bs, T, H = x.shape
         nh = c.num_attention_heads
@@ -200,8 +212,8 @@ class BertAttention(nn.Module):
                    for y in qkv.split(H, dim=-1))
         p_rate = float(c.attention_probs_dropout_prob)
         if self.training and p_rate > 0.0:
-            seed = torch.randint(0, 2 ** 31 - 1, (1,), device=x.device,
-                                 generator=generator)
+            if seed is None:
+                seed = attention_seed(generator, x.device)
         else:
             seed, p_rate = None, 0.0
         if c.flash_attn not in ("auto", "on", "off"):
@@ -231,8 +243,8 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c, device)
         self.output = BertSelfOutput(c.intermediate_size, c, device)
 
-    def forward(self, x, attn_bias, generator=None):
-        x = self.attention(x, attn_bias, generator)
+    def forward(self, x, attn_bias, generator=None, seed=None):
+        x = self.attention(x, attn_bias, generator, seed)
         up = self.intermediate.dense
         h = F.gelu(_dense(x, up.weight, up.bias, self.config,
                           _tp(self, up.weight)),

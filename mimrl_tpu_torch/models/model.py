@@ -49,7 +49,9 @@ from mimrl_tpu_torch.models.encoders import (BiRnnEncoder, ConvEncoder,
                                              lengths_from_sequence, run_pair)
 from mimrl_tpu_torch.models.fusion import (MoEBlock, MoEFusion, TFNFusion,
                                            TransformerFusion)
-from mimrl_tpu_torch.parallel.mesh import Dropout, gather_rows, mesh_of
+from mimrl_tpu_torch.parallel.mesh import (PIPE_AXIS, Dropout, gather_rows,
+                                           mesh_of)
+from mimrl_tpu_torch.parallel.pipeline import bert_forward_pipelined
 
 
 # Estimator hyperparameters hard-coded by the reference (ref: Model.py:285-286)
@@ -211,14 +213,19 @@ class MimrlModel(nn.Module):
 
     def forward(self, bert_sentences, bert_sentence_types,
                 bert_sentence_att_mask, a, v, return_features: bool = True,
-                generator=None, text_features=None):
+                generator=None, text_features=None, text_hidden=None):
         """Token ids/types/mask [bs, T] int (raw text; None for dense
         text), a [bs, T, d_a], v [bs, T, d_v], ``text_features`` [bs, T,
         d_t] (dense text). Returns (out, F_F, T_F, A_F, V_F), or (out,)
         without features. ``generator`` feeds BERT's attention dropout
-        seeds in training mode."""
+        seeds in training mode. ``text_hidden`` [bs, T, H]: BERT's output
+        computed already (the pipelined stack, ``parallel/pipeline.py``),
+        taken in place of the tower (ref: mimrl_tpu/models/model.py:
+        232-250)."""
         T = self.time_len
-        if self.raw_text:
+        if text_hidden is not None:
+            t = text_hidden
+        elif self.raw_text:
             t = self.bertmodel(bert_sentences, bert_sentence_types,
                                bert_sentence_att_mask, generator)
         elif text_features is None:
@@ -340,11 +347,21 @@ def forward_batch(model: MimrlModel, batch: Dict[str, torch.Tensor],
     """The model on a batch dict of MODEL_INPUTS; a batch holds the raw or
     the dense text, as its model takes. On a mesh (``parallel/mesh.py``)
     the inputs are this rank's rows of the batch and the outputs are
-    gathered to the global batch."""
-    outs = model(*(batch.get(k) for k in MODEL_INPUTS[:5]),
-                 return_features=return_features, generator=generator,
-                 text_features=batch.get("text"))
+    gathered to the global batch; on a ``pipe`` axis BERT runs as the
+    mesh's pipeline (``parallel/pipeline.py``, ``Mesh.set_pipeline``) and
+    the model takes its output (ref: mimrl_tpu/train/steps.py:198-218)."""
     mesh = mesh_of(model)
+    inputs = [batch.get(k) for k in MODEL_INPUTS[:5]]
+    hidden = None
+    if (mesh is not None and mesh.shape[PIPE_AXIS] > 1 and model.raw_text
+            and batch.get("text") is None):
+        hidden = bert_forward_pipelined(
+            model.bertmodel, mesh, *inputs[:3],
+            n_microbatches=mesh.n_microbatches, n_virtual=mesh.n_virtual,
+            remat=mesh.remat, generator=generator)
+    outs = model(*inputs, return_features=return_features,
+                 generator=generator, text_features=batch.get("text"),
+                 text_hidden=hidden)
     return tuple(gather_rows(o, mesh) for o in outs)
 
 

@@ -5,7 +5,8 @@
 ``critic_step`` + ``train_step`` from identical weights, feature bank,
 batch and generator seeds, once unsharded on the rank's device and once
 on the mesh (``parallel/mesh.py``: the batch's model inputs split over
-the batch axes, BERT's dense kernels and the MoE experts over ``model``),
+the batch axes, BERT's dense kernels and the MoE experts over ``model``,
+BERT's layers over ``pipe`` as ``parallel/pipeline.py``'s schedule),
 then the largest absolute gap over the two losses, the MI values, the outputs, the new bank's rows and every
 updated parameter (model-sharded ones gathered whole), the maximum over
 the ranks, so every rank returns the same number.
@@ -17,14 +18,22 @@ rank draws its rows of the single-process masks), and Adam in float64
 float64; Adam's ``g / (sqrt(v) + eps)`` amplifies a float32 reduction-order
 difference on a near-zero gradient up to a full step, which float64
 removes). ``faults`` breaks the mesh step for the duration of that step
-(``_faulty``, which patches ``parallel/mesh.py``'s code): ``skip_reduce``
-(a parameter index whose gradient average every rank but rank 0 skips),
-``sum_gradients`` (the average's division left out), ``dropout_from_zero``
-(every rank but rank 0 draws its dropout rows from row 0).
+(``_faulty``, which patches ``parallel/mesh.py``'s and
+``parallel/pipeline.py``'s code): ``skip_reduce`` (a parameter index whose
+gradient average every rank but rank 0 skips), ``sum_gradients`` (the
+average's division left out), ``dropout_from_zero`` (every rank but rank 0
+draws its dropout rows from row 0); on a pipe mesh ``no_pipe_sum`` (BERT's
+gradients not summed over ``pipe``), ``output_sum`` (the last stage's
+cotangent of the shared output summed over ``pipe``) and ``bank_late``
+(stage 0 runs a tick's unit before the tick's bank, so a unit that takes
+the activation banked in its own tick (M = S) reads the bank before it is
+written).
 
 ``split_batch_step`` is the control that sets a limit on the card: the
 unsharded step with the batch's forward in two row blocks, whose
-gradients are summed in the other order. ``run_ranks`` starts the ranks
+gradients are summed in the other order; ``microbatch_step`` is the
+pipeline's: the unsharded step with BERT's stack run on M row blocks one
+after the other. ``run_ranks`` starts the ranks
 of a group as processes (gloo or NCCL) and returns rank 0's result; ``critic_scores_gap`` holds a critic's
 ``[bs, bs]`` scores from data-sharded features against the unsharded
 scores.
@@ -46,9 +55,11 @@ import torch.distributed as dist
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.models.bert import BertConfig
 from mimrl_tpu_torch.models.model import MODEL_INPUTS, build_model
-from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, Mesh, gather_blocks, gather_rows,
-                                           shard_batch, shard_dim,
-                                           shard_params)
+from mimrl_tpu_torch.parallel import pipeline
+from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, PIPE_AXIS, Mesh,
+                                           all_reduce, gather_blocks,
+                                           gather_rows, shard_batch,
+                                           shard_dim, shard_params)
 from mimrl_tpu_torch.train import optim, steps
 from mimrl_tpu_torch.train.optim import (make_main_optimizer,
                                          make_vmi_optimizer, partition_params)
@@ -89,6 +100,8 @@ def one_step(model, cfg: MimrlConfig, batch: Dict[str, np.ndarray],
     dtype = next(model.parameters()).dtype
     if mesh is not None:
         mesh.set_batch(cfg.batch_size)
+        mesh.set_pipeline(cfg.pipe_microbatches, cfg.pipe_virtual,
+                          cfg.pipe_remat)
         shard_params(mesh, model)
     main, bert, vmi = partition_params(model)
     opt_main = make_main_optimizer(cfg, main, bert)
@@ -200,13 +213,61 @@ def split_batch_step(model, cfg: MimrlConfig, batch: Dict[str, np.ndarray],
     blocks' gradients, summed in another order than the mesh's; nothing
     else changes. Its gap to the unsharded step is what splitting the
     batch alone moves."""
-    forward = steps.forward_batch
-    steps.forward_batch = _split_forward(order)
+    return _step_with(_split_forward(order), model, cfg, batch, labels,
+                      bank, n_valid, device, seed, anchors)
+
+
+def _step_with(forward: Callable, *args) -> Dict[str, torch.Tensor]:
+    """``one_step(*args)`` with ``forward`` as ``steps.forward_batch``."""
+    saved = steps.forward_batch
+    steps.forward_batch = forward
     try:
-        return one_step(model, cfg, batch, labels, bank, n_valid, device,
-                        seed, anchors)
+        return one_step(*args)
     finally:
-        steps.forward_batch = forward
+        steps.forward_batch = saved
+
+
+def _micro_forward(n_micro: int):
+    """``forward_batch`` with BERT's stack run on ``n_micro`` row blocks
+    one after the other with the pipeline's draws
+    (``pipeline.bert_forward_microbatched``, the modules placed on a mesh
+    of one rank for its duration) and the model on the whole batch after
+    it."""
+
+    def forward(model, batch, return_features=True, generator=None):
+        inputs = [batch.get(k) for k in MODEL_INPUTS[:5]]
+        mesh = Mesh({})
+        mesh.set_batch(inputs[3].shape[0])
+        for m in model.modules():
+            m.mesh = mesh
+        try:
+            hidden = None
+            if model.raw_text and batch.get("text") is None:
+                hidden = pipeline.bert_forward_microbatched(
+                    model.bertmodel, mesh, *inputs[:3],
+                    n_microbatches=n_micro, generator=generator)
+            return model(*inputs, return_features=return_features,
+                         generator=generator,
+                         text_features=batch.get("text"), text_hidden=hidden)
+        finally:
+            for m in model.modules():
+                m.mesh = None
+
+    return forward
+
+
+def microbatch_step(model, cfg: MimrlConfig, batch: Dict[str, np.ndarray],
+                    labels: np.ndarray, bank: Dict[str, np.ndarray],
+                    n_valid: int, device, seed: int = 0, anchors=None
+                    ) -> Dict[str, torch.Tensor]:
+    """The pipeline's control for the order of summation: ``one_step`` of
+    the unsharded model with BERT's stack run on ``cfg.pipe_microbatches``
+    row blocks one after the other (``_micro_forward``), so each layer's
+    products run on a pipeline unit's rows and its gradient is the sum of
+    the blocks'; the random draws and everything else are the unsharded
+    step's."""
+    return _step_with(_micro_forward(cfg.pipe_microbatches), model, cfg,
+                      batch, labels, bank, n_valid, device, seed, anchors)
 
 
 def max_gap(ref: Dict[str, torch.Tensor], got: Dict[str, torch.Tensor]
@@ -307,16 +368,20 @@ def equality_gap(cfg: MimrlConfig, mesh: Mesh, state: Dict[str, torch.Tensor],
 def _faulty(mesh: Mesh, faults: Dict):
     """The fault controls, in force until the block ends: the gradient
     average that ``train/optim.py`` calls is replaced by one that sums
-    (``sum_gradients``) or that keeps parameter ``skip_reduce``'s own
-    gradient on every rank but rank 0; ``mesh.set_batch`` moves the first
+    (``sum_gradients``), that keeps parameter ``skip_reduce``'s own
+    gradient on every rank but rank 0, or that sums no gradient over
+    ``pipe`` (``no_pipe_sum``); ``mesh.set_batch`` moves the first
     dropout row of every rank but rank 0 to row 0 (``dropout_from_zero``:
     ``row_lo`` is read by the dropouts alone here, the batch's rows are
-    taken by ``shard_batch``)."""
+    taken by ``shard_batch``); the pipeline's output cotangent is summed
+    over ``pipe`` (``output_sum``); each tick's ops run unit first
+    (``bank_late``)."""
     reduce, set_batch = optim.reduce_gradients, mesh.set_batch
+    cotangent, ticks = pipeline._output_cotangent, pipeline.rank_ticks
     skip = faults.get("skip_reduce")
 
-    def faulty_reduce(m, grads):
-        out = reduce(m, grads)
+    def faulty_reduce(m, grads, params=None):
+        out = reduce(m, grads, None if faults.get("no_pipe_sum") else params)
         if faults.get("sum_gradients"):
             out = [g * m.size(BATCH_AXES) for g in out]
         if skip is not None and m.rank != 0:
@@ -328,14 +393,24 @@ def _faulty(mesh: Mesh, faults: Dict):
         if mesh.rank != 0:
             mesh.row_lo = 0
 
-    if skip is not None or faults.get("sum_gradients"):
+    def late_bank(*args):
+        return [ops[::-1] for ops in ticks(*args)]
+
+    if (skip is not None or faults.get("sum_gradients")
+            or faults.get("no_pipe_sum")):
         optim.reduce_gradients = faulty_reduce
     if faults.get("dropout_from_zero"):
         mesh.set_batch = faulty_set_batch
+    if faults.get("output_sum"):
+        pipeline._output_cotangent = (
+            lambda g, m: all_reduce(g, m, (PIPE_AXIS,)))
+    if faults.get("bank_late"):
+        pipeline.rank_ticks = late_bank
     try:
         yield
     finally:
         optim.reduce_gradients = reduce
+        pipeline._output_cotangent, pipeline.rank_ticks = cotangent, ticks
         if "set_batch" in vars(mesh):
             del mesh.set_batch
 

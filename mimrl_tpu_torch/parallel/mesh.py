@@ -55,10 +55,29 @@ offset): a rank draws the single-process mask of the global batch and
 keeps its rows, so a data-parallel step with dropout on equals the
 single-process step; every rank draws from the same generators in the
 same order, so they stay in step.
+
+The ``pipe`` axis (``parallel/pipeline.py``): every rank holds every
+parameter, as in JAX (``mimrl_tpu/parallel/pipeline.py:42-48``), and runs
+only its stage's chunks of BERT's layers on microbatches of its rows. The
+activations move between stages by ``hop`` (the counterpart of
+``lax.ppermute(y, PIPE_AXIS, [(i, (i + 1) % S)])``, an all-reduce of a
+zero ``[S, ...]`` buffer as every collective here), and the last stage's
+output is summed over ``pipe`` so every stage holds it. BERT's gradients
+are then non-zero on their owning stage only: ``shard_params`` marks
+BERT's parameters (``pipe_summed``) and ``reduce_gradients`` sums them over
+``pipe`` in the same all-reduce that averages them over the batch axes;
+the parameters after the stack get the same gradient on every stage and
+are averaged over the batch axes alone. BERT's four dense kernels stay
+whole on a pipe mesh (JAX's ``shard_map`` takes each stage's layers whole
+on every rank of ``model``, ``pipeline.py:200-206``). Inside a microbatch
+(``Mesh.micro``) the dropouts apply the microbatch's rows of the masks
+that the pipeline drew ahead, in the sequential stack's order, and the
+attention's Philox rows are the microbatch's rows of the global batch.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -76,17 +95,30 @@ AXES = (DCN_AXIS, DATA_AXIS, PIPE_AXIS, MODEL_AXIS)
 BATCH_AXES = (DCN_AXIS, DATA_AXIS)
 
 
+@dataclasses.dataclass
+class Microbatch:
+    """The microbatch that a pipeline unit runs: ``index`` of ``count``,
+    and the masks of this rank's rows that the pipeline drew ahead for
+    the dropouts of its layers (``Dropout.draw``), by dropout."""
+
+    index: int
+    count: int
+    masks: Dict[nn.Module, torch.Tensor]
+
+
 class Mesh:
     """The ranks ``0 .. n - 1`` of the default process group laid out as
     a ``(dcn, data, pipe, model)`` array, row-major. ``rank`` is this
-    process's rank. ``connect()`` creates the
-    subgroups of the batch axes and of ``model`` (every rank must call it,
-    in the same order); a mesh that is not connected holds the layout
-    only (the sharding rules read nothing else).
+    process's rank. ``connect()`` creates the subgroups of the batch axes,
+    of ``pipe``, of ``model`` and of the batch axes with ``pipe`` (every
+    rank must call it, in the same order); a mesh that is not connected
+    holds the layout only (the sharding rules read nothing else).
 
     ``set_batch(n)`` fixes the run's global batch size: it is split over
     the batch axes when it divides (``sharded``), else every rank holds
-    it whole."""
+    it whole. ``set_pipeline(M, v, remat)`` fixes the pipeline's schedule
+    (``parallel/pipeline.py``); ``micro`` is the ``Microbatch`` that a
+    pipeline unit runs, None outside one."""
 
     def __init__(self, shape: Dict[str, int], rank: int = 0):
         self.shape = {a: int(shape.get(a, 1)) for a in AXES}
@@ -100,6 +132,8 @@ class Mesh:
         self.backend: Optional[str] = None
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.set_batch(None)
+        self.set_pipeline()
+        self.micro: Optional[Microbatch] = None
 
     def __repr__(self) -> str:
         return ("Mesh(" + " x ".join(f"{a} {self.shape[a]}" for a in AXES)
@@ -133,7 +167,8 @@ class Mesh:
             raise ValueError(f"{self!r} needs a group of {self.n_ranks} "
                              f"ranks, the group has {world}")
         self.backend = dist.get_backend()
-        for axes in (BATCH_AXES, (MODEL_AXIS,)):
+        for axes in (BATCH_AXES, (PIPE_AXIS,), (MODEL_AXIS,),
+                     BATCH_AXES + (PIPE_AXIS,)):
             others = [a for a in AXES if a not in axes]
             seen = set()
             for r in range(self.n_ranks):
@@ -171,6 +206,15 @@ class Mesh:
         self.local_batch = n // n_batch if self.sharded else n
         self.row_lo = (self.index(BATCH_AXES) * self.local_batch
                        if self.sharded else 0)
+
+    def set_pipeline(self, n_microbatches: int = 1, n_virtual: int = 1,
+                     remat: bool = False) -> None:
+        """The run's pipeline schedule (``--pipe_microbatches``,
+        ``--pipe_virtual``, ``--pipe_remat``), read where the model's
+        forward runs BERT over ``pipe``."""
+        self.n_microbatches = int(n_microbatches)
+        self.n_virtual = max(int(n_virtual), 1)
+        self.remat = bool(remat)
 
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, dcn: int = 1,
@@ -311,14 +355,15 @@ def param_specs(mesh: Mesh, model: nn.Module) -> Dict[str, Tuple]:
             for name, (path, shape) in flax_views(model).items()}
 
 
-def _sharded_forward(name: str) -> bool:
+def _sharded_forward(name: str, pipelined: bool = False) -> bool:
     """Parameters whose layer has a sharded forward here: BERT's four
-    dense kernels (fused QKV, attention output, FFN up and down) and the
-    MoE experts."""
+    dense kernels (fused QKV, attention output, FFN up and down), but not
+    on a pipe mesh (``pipelined``), and the MoE experts."""
     parts = name.split(".")
     if "moe_" in name and parts[-1] in ("w1", "b1", "w2", "b2"):
         return True
-    return ("encoder" in parts and "layer" in parts and parts[-1] == "weight"
+    return (not pipelined and "encoder" in parts and "layer" in parts
+            and parts[-1] == "weight"
             and any(name.endswith(s) for s in (
                 "attention.self.query.weight", "attention.self.key.weight",
                 "attention.self.value.weight", "attention.output.dense.weight",
@@ -339,18 +384,25 @@ def shard_params(mesh: Mesh, model: nn.Module) -> List[str]:
     sharded axis (torch's output dimension 0 for a ``Linear`` weight, the
     expert axis for the experts). The other parameters the rule shards
     (the critics' MLPs, ``W_t``, the GRUs, CubeMLP at large widths) are
-    held whole on every rank, which computes the same values. Returns
-    the names held sharded."""
+    held whole on every rank, which computes the same values. On a pipe
+    mesh BERT's parameters are marked for the sum over ``pipe``
+    (``pipe_summed``). Returns the names held sharded."""
+    from mimrl_tpu_torch.models.bert import BertModel
+
     n_model = mesh.shape[MODEL_AXIS]
     m = mesh.coords[MODEL_AXIS]
+    pipelined = mesh.shape[PIPE_AXIS] > 1
     for mod in model.modules():
         mod.mesh = mesh
+        if pipelined and isinstance(mod, BertModel):
+            for p in mod.parameters():
+                p.mimrl_pipe_sum = True
     held = []
     if n_model == 1:
         return held
     owners = dict(model.named_modules())
     for name, spec in param_specs(mesh, model).items():
-        if MODEL_AXIS not in spec or not _sharded_forward(name):
+        if MODEL_AXIS not in spec or not _sharded_forward(name, pipelined):
             continue
         mod_name, _, pname = name.rpartition(".")
         owner = owners[mod_name]
@@ -364,6 +416,12 @@ def shard_params(mesh: Mesh, model: nn.Module) -> List[str]:
         setattr(owner, pname, shard)
         held.append(name)
     return held
+
+
+def pipe_summed(p: torch.Tensor) -> bool:
+    """Whether ``shard_params`` marked a parameter for the sum over
+    ``pipe`` (BERT's, on a pipe mesh)."""
+    return getattr(p, "mimrl_pipe_sum", False)
 
 
 def mesh_of(module: nn.Module) -> Optional[Mesh]:
@@ -417,6 +475,33 @@ def take_block(t: torch.Tensor, mesh: Mesh, dim: int = 0) -> torch.Tensor:
     """This rank's block of a whole tensor (the inverse of
     ``gather_blocks``)."""
     return _block(t, mesh, (MODEL_AXIS,), dim)
+
+
+def _shift(x: torch.Tensor, mesh: Mesh, step: int) -> torch.Tensor:
+    """Rank i's ``x`` on rank ``(i + step) % S`` of ``pipe``: rank i writes
+    slot ``(i + step) % S`` of a zero ``[S, ...]`` buffer, the buffer is
+    summed over ``pipe`` and rank j reads slot j (exact)."""
+    n, i = mesh.size((PIPE_AXIS,)), mesh.index((PIPE_AXIS,))
+    buf = torch.zeros((n,) + tuple(x.shape), dtype=_acc_dtype(x.dtype),
+                      device=x.device)
+    buf[(i + step) % n].copy_(x)
+    with torch.profiler.record_function("mimrl/pipe_hop"):
+        dist.all_reduce(buf, group=mesh.group((PIPE_AXIS,)))
+    return buf[i].to(x.dtype)
+
+
+class _Hop(torch.autograd.Function):
+    """Forward: the value of the previous rank of ``pipe`` (rank i's ``x``
+    on rank ``(i + 1) % S``). Backward: the reverse hop."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _shift(x, mesh, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.mesh, -1), None
 
 
 class _GatherRows(torch.autograd.Function):
@@ -498,6 +583,16 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _GatherRows.apply(x, mesh)
 
 
+def hop(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``lax.ppermute(x, PIPE_AXIS, [(i, (i + 1) % S)])``, differentiable."""
+    return _Hop.apply(x, mesh)
+
+
+def hop_back(g: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The transpose of ``hop``: rank j's ``g`` on rank ``(j - 1) % S``."""
+    return _shift(g, mesh, -1)
+
+
 def gather(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
            dim: int) -> torch.Tensor:
     return _Gather.apply(x, mesh, tuple(axes), dim)
@@ -533,19 +628,37 @@ def gather_columns(y: torch.Tensor, mesh: Mesh, parts: int = 1
             .reshape(*lead, n_model * parts * block))
 
 
-def reduce_gradients(mesh: Optional[Mesh], grads: List[torch.Tensor]
+def reduce_gradients(mesh: Optional[Mesh], grads: List[torch.Tensor],
+                     params: Optional[Sequence[torch.Tensor]] = None
                      ) -> List[torch.Tensor]:
     """Every gradient averaged over the batch axes (the module docstring
     says why the average gives the single-process gradient), in one
-    all-reduce of the flat gradients."""
+    all-reduce of the flat gradients; on a pipe mesh the gradients of the
+    ``params`` that ``pipe_summed`` marks (BERT's, non-zero on their
+    owning stage only) are summed over ``pipe`` in the same all-reduce, a
+    second one over the batch axes and ``pipe``."""
     if mesh is None or not grads:
         return grads
-    flat = torch.cat([g.reshape(-1).to(torch.float32 if g.dtype != torch.float64
-                                       else g.dtype) for g in grads])
-    dist.all_reduce(flat, group=mesh.group(BATCH_AXES))
-    flat = flat / mesh.size(BATCH_AXES)
-    return [f.view(g.shape).to(g.dtype)
-            for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
+    piped = ([False] * len(grads) if params is None
+             else [pipe_summed(p) for p in params])
+    out = list(grads)
+    for axes, summed in ((BATCH_AXES, False),
+                         (BATCH_AXES + (PIPE_AXIS,), True)):
+        picked = [i for i, s in enumerate(piped) if s == summed]
+        if not picked:
+            continue
+        part = [grads[i] for i in picked]
+        flat = torch.cat([g.reshape(-1).to(
+            torch.float32 if g.dtype != torch.float64 else g.dtype)
+            for g in part])
+        if mesh.size(axes) > 1:
+            with torch.profiler.record_function("mimrl/grad_reduce"):
+                dist.all_reduce(flat, group=mesh.group(axes))
+        flat = flat / mesh.size(BATCH_AXES)
+        for i, f, g in zip(picked, flat.split([g.numel() for g in part]),
+                           part):
+            out[i] = f.view(g.shape).to(g.dtype)
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -579,20 +692,14 @@ def _global_scratch(x: torch.Tensor, n: int) -> torch.Tensor:
                                dtype=x.dtype, device=x.device)
 
 
-class _GlobalFusedDropout(torch.autograd.Function):
-    """CUDA: this rank's rows of the mask that torch's fused dropout draws
-    for the global batch (``native_dropout`` over a scratch tensor of the
-    global shape with ``x``'s dtype and strides: the draw depends on the
-    element count, the dtype, the layout and the alignment, not on the
-    values), applied as the fused kernel applies it
-    (``native_dropout_backward``: ``x * mask * scale`` in float32, one
-    rounding). The backward is the fused backward's own kernel on the kept
-    1-byte mask."""
+class _FusedMaskDropout(torch.autograd.Function):
+    """CUDA: a mask of torch's fused dropout applied as the fused kernel
+    applies it (``native_dropout_backward``: ``x * mask * scale`` in
+    float32, one rounding); the backward is the fused backward's own
+    kernel on the 1-byte mask."""
 
     @staticmethod
-    def forward(ctx, x, dropout_p, n, lo):
-        _, mask = torch.native_dropout(_global_scratch(x, n), dropout_p, True)
-        mask = mask[lo:lo + x.shape[0]]
+    def forward(ctx, x, mask, dropout_p):
         ctx.save_for_backward(mask)
         ctx.scale = 1.0 / (1.0 - dropout_p)
         return torch.ops.aten.native_dropout_backward(
@@ -602,7 +709,7 @@ class _GlobalFusedDropout(torch.autograd.Function):
     def backward(ctx, g):
         (mask,) = ctx.saved_tensors
         return (torch.ops.aten.native_dropout_backward(g, mask, ctx.scale),
-                None, None, None)
+                None, None)
 
 
 class Dropout(nn.Dropout):
@@ -613,34 +720,78 @@ class Dropout(nn.Dropout):
     fused kernel on the card). On a split batch (``Mesh.row_lo``) the rank
     draws the global batch's mask as ``F.dropout`` would, in the same
     layout (``_global_scratch``): on the card the fused kernel's
-    (``_GlobalFusedDropout``), on the CPU ``F.dropout``'s noise tensor in
-    ``x``'s dtype, divided by ``1 - p``; both apply it with ``F.dropout``'s
-    arithmetic, bit for bit. ``mesh`` is set by ``shard_params``."""
+    (``native_dropout`` over a scratch tensor of the global shape with
+    ``x``'s dtype and strides: the draw depends on the element count, the
+    dtype, the layout and the alignment, not on the values), on the CPU
+    ``F.dropout``'s noise tensor in ``x``'s dtype, divided by ``1 - p``;
+    both apply it with ``F.dropout``'s arithmetic, bit for bit
+    (``_FusedMaskDropout`` on the card). ``draw`` takes the same draw
+    ahead of the input: inside a pipeline's microbatch (``Mesh.micro``)
+    the dropout applies the microbatch's rows of the mask that the
+    pipeline drew for it. ``mesh`` is set by ``shard_params``."""
 
     mesh: Optional[Mesh] = None
 
+    def _draw(self, scratch: torch.Tensor, lo: int, rows: int
+              ) -> torch.Tensor:
+        """Rows ``[lo, lo + rows)`` of the mask that ``F.dropout`` draws on
+        ``scratch`` (the 1-byte mask on the card, the scaled noise on the
+        CPU)."""
+        if scratch.device.type == "cuda":
+            return torch.native_dropout(scratch, self.p, True)[1][lo:lo + rows]
+        noise = scratch.bernoulli_(1.0 - self.p)
+        return noise[lo:lo + rows].div_(1.0 - self.p)
+
+    def _apply_mask(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if x.device.type == "cuda":
+            return _FusedMaskDropout.apply(x, mask, self.p)
+        return x * mask
+
+    def draw(self, shape: Sequence[int], dtype: torch.dtype, device
+             ) -> Optional[torch.Tensor]:
+        """The mask that ``forward`` would draw now for a dense input of
+        ``shape`` (this rank's rows), or None where it draws none (p 0 or
+        1, eval mode)."""
+        if not self.training or not 0.0 < self.p < 1.0:
+            return None
+        mesh = self.mesh
+        rows = shape[0]
+        n, lo = ((mesh.global_batch, mesh.row_lo)
+                 if mesh is not None and mesh.sharded else (rows, 0))
+        scratch = torch.empty((n,) + tuple(shape[1:]), dtype=dtype,
+                              device=device)
+        return self._draw(scratch, lo, rows)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mesh = self.mesh
-        if (mesh is None or not mesh.sharded or not self.training
-                or self.p == 0.0 or x.numel() == 0):
+        if not self.training or self.p == 0.0 or x.numel() == 0:
+            return F.dropout(x, self.p, self.training)
+        if self.p >= 1.0:
+            return x * torch.zeros((), dtype=x.dtype, device=x.device)
+        micro = None if mesh is None else mesh.micro
+        if micro is not None:
+            rows = x.shape[0]
+            return self._apply_mask(
+                x, micro.masks[self].narrow(0, micro.index * rows, rows))
+        if mesh is None or not mesh.sharded:
             return F.dropout(x, self.p, self.training)
         if x.shape[0] != mesh.local_batch:
             raise ValueError(
                 f"Dropout on a mesh: a leading dimension of {x.shape[0]}, "
                 f"this rank holds {mesh.local_batch} rows")
-        if self.p >= 1.0:
-            return x * torch.zeros((), dtype=x.dtype, device=x.device)
-        lo, n = mesh.row_lo, mesh.global_batch
-        if x.device.type == "cuda":
-            return _GlobalFusedDropout.apply(x, self.p, n, lo)
-        noise = _global_scratch(x, n).bernoulli_(1.0 - self.p)
-        return x * noise[lo:lo + x.shape[0]].div_(1.0 - self.p)
+        scratch = _global_scratch(x, mesh.global_batch)
+        return self._apply_mask(x, self._draw(scratch, mesh.row_lo,
+                                              x.shape[0]))
 
 
 def attention_batch_offset(module: nn.Module) -> int:
     """The global row of this rank's first batch row in the attention's
-    Philox dropout mask (0 without a split batch)."""
+    Philox dropout mask (0 without a split batch), inside microbatch m of
+    a pipeline ``row_lo + m * mb``."""
     mesh = mesh_of(module)
-    if mesh is None or not mesh.sharded:
+    if mesh is None:
         return 0
-    return mesh.row_lo
+    if mesh.micro is None:
+        return mesh.row_lo
+    return mesh.row_lo + mesh.micro.index * (mesh.local_batch
+                                             // mesh.micro.count)

@@ -30,7 +30,8 @@ port of ``mimrl_tpu.train.optim``; ref: Solver.py:119-170).
 - ``fused_optim`` is an execution-order flag of the JAX package; there is
   one code path here.
 - On a mesh (``parallel/mesh.py``) ``ChainOptimizer.reduce`` averages the
-  gradients over the batch axes; ``train/steps.py`` calls it before the
+  gradients over the batch axes (BERT's summed over ``pipe`` first, on a
+  pipe mesh); ``train/steps.py`` calls it before the
   step, so the clip by value sees the whole gradient (clipping a partial
   sum would clip another value) and the non-finite decision is the same
   on every rank. A model-sharded parameter's moments in the flat tensors
@@ -195,9 +196,9 @@ class ChainOptimizer:
 
     def reduce(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
         """The gradients as ``step`` takes them: on a mesh averaged over
-        its batch axes (``parallel/mesh.py::reduce_gradients``), else as
-        they are."""
-        return reduce_gradients(self.mesh, grads)
+        its batch axes, BERT's summed over ``pipe`` first
+        (``parallel/mesh.py::reduce_gradients``), else as they are."""
+        return reduce_gradients(self.mesh, grads, self.params)
 
     @torch.no_grad()
     def step(self, grads: List[torch.Tensor]) -> None:

@@ -70,10 +70,11 @@ The mesh (ref: ``mimrl_tpu/train/solver.py:169-209``,
 rank (``cli/main.py`` starts one rank per visible card, or joins
 torchrun's group under ``--distributed``), a mesh request
 (``--mesh_data``, default -1 = every rank, ``--mesh_model``,
-``--mesh_dcn``) builds the ``(dcn, data, pipe, model)`` mesh over the
-ranks. Each rank holds its rows of every batch's model inputs (the same
-shuffle on every rank: the loaders draw from ``seed + passes``), the
-global labels and sample mask, and the whole host state: outputs and
+``--mesh_pipe``, ``--mesh_dcn``) builds the ``(dcn, data, pipe, model)``
+mesh over the ranks. Each rank holds its rows of every batch's model
+inputs (the same shuffle on every rank: the loaders draw from ``seed +
+passes``), the global labels and sample mask, and the whole host state:
+outputs and
 features are gathered, so scores, model selection, the bank and the
 checkpoint cadence are the same on every rank. Rank 0 alone writes the
 log, the scalars, the predictions and the slots; a slot holds whole
@@ -84,14 +85,16 @@ stay whole for now, so it saves no memory yet (a warning says so). The
 ``--epoch_scan``
 steps are captured with their collectives under NCCL; gloo's collectives
 cannot be captured, so on a gloo group they run eagerly
-(``train/graphs.py``). ``--epoch_group`` groups on a ``dcn x data`` mesh;
-a ``model`` axis runs per epoch (``_group_mesh_ok``). A mesh request with
+(``train/graphs.py``). On a ``pipe`` axis (``--mesh_pipe``,
+``--pipe_microbatches``, ``--pipe_virtual``, ``--pipe_remat``) BERT's
+layers run as ``parallel/pipeline.py``'s schedule; every rank holds every
+parameter, and the steps run eagerly under either backend.
+``--epoch_group`` groups on a ``dcn x data`` mesh; a ``pipe`` or
+``model`` axis runs per epoch (``_group_mesh_ok``). A mesh request with
 one rank logs JAX's warning and runs unsharded.
 
 Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: ``--mesh_pipe`` > 1 (the pipeline schedules of
-``mimrl_tpu/parallel/pipeline.py``) and ``--ckpt_backend orbax`` (this
-package writes ``.pt`` slots).
+ROADMAP.md: ``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
 """
 
 from __future__ import annotations
@@ -127,6 +130,7 @@ from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
 from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, MODEL_AXIS, PIPE_AXIS,
                                            Mesh, make_mesh, shard_batch,
                                            shard_params)
+from mimrl_tpu_torch.parallel.pipeline import check_schedule
 from mimrl_tpu_torch.train import steps
 from mimrl_tpu_torch.train.custom import load_custom_loss
 from mimrl_tpu_torch.train.graphs import StepGraphs
@@ -139,8 +143,6 @@ MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
 
 def _refuse_unported(opt: MimrlConfig) -> None:
     unported = {
-        "--mesh_pipe > 1 (the pipeline schedules of parallel/pipeline.py)":
-            opt.mesh_pipe > 1,
         "--ckpt_backend orbax (this package writes .pt slots; orbax and "
         "tensorstore are not among its dependencies)":
             opt.ckpt_backend == "orbax",
@@ -332,10 +334,12 @@ class Solver:
         torch.manual_seed(opt.seed)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(opt.seed)
-        # gloo's collectives cannot be captured in a CUDA graph
+        # gloo's collectives cannot be captured in a CUDA graph, and the
+        # pipeline's steps run eagerly
         self.graphs = StepGraphs(self.device, [self.generator],
-                                 enabled=graphs and (mesh is None
-                                                     or mesh.capturable))
+                                 enabled=graphs and (mesh is None or (
+                                     mesh.capturable
+                                     and mesh.shape[PIPE_AXIS] == 1)))
         seq = (mesh is not None and opt.seq_shard
                and mesh.shape[MODEL_AXIS] > 1)
         model_opt = opt
@@ -353,6 +357,12 @@ class Solver:
         self.model_blocks: List[str] = []
         if mesh is not None:
             mesh.set_batch(opt.batch_size)
+            mesh.set_pipeline(opt.pipe_microbatches, opt.pipe_virtual,
+                              opt.pipe_remat)
+            if mesh.shape[PIPE_AXIS] > 1 and self.raw_text:
+                check_schedule(opt.bert_layers, mesh.shape[PIPE_AXIS],
+                               opt.pipe_microbatches, opt.pipe_virtual,
+                               opt.batch_size, mesh.size(BATCH_AXES))
             self.model_blocks = shard_params(mesh, self.model)
             if seq:
                 log_message("WARNING: --seq_shard keeps BERT's activations "
@@ -361,11 +371,16 @@ class Solver:
             rows = (f"{mesh.local_batch} rows of {opt.batch_size} per rank"
                     if mesh.sharded else f"all {opt.batch_size} rows on "
                     "every rank")
+            pipe = ("off" if mesh.shape[PIPE_AXIS] == 1 else
+                    f"{mesh.shape[PIPE_AXIS]} stages x "
+                    f"{opt.pipe_microbatches} microbatches, virtual "
+                    f"{mesh.n_virtual}, remat "
+                    f"{'on' if opt.pipe_remat else 'off'}")
             log_message(f"Mesh: {mesh!r}, {mesh.n_ranks} ranks; batch: "
                         f"{rows}; {len(self.model_blocks)} parameters held as "
                         f"blocks over model; sequence sharding "
-                        f"{'on' if seq else 'off'}; attention "
-                        f"{model_opt.flash_attn}; step graphs "
+                        f"{'on' if seq else 'off'}; pipeline {pipe}; "
+                        f"attention {model_opt.flash_attn}; step graphs "
                         f"{'on' if self.graphs.capture else 'off'}")
         if opt.print_params:
             for name, _ in self.model.named_parameters():

@@ -5,7 +5,10 @@
 the 8 virtual CPU devices, ``param_sharding_rule``'s decision on every
 parameter of the tiny model (CubeMLP and MoE fusions) against JAX's rule
 on the flax tree (through ``models/convert.py``'s map), and
-``shard_params``'s blocks.
+``shard_params``'s blocks; for the pipeline, BERT whole and marked for the
+sum over ``pipe``, the chunks against JAX's ``stack_layer_params`` order,
+every stage's ticks (each unit once, a bank read one round after it was
+written), and JAX's three ``ValueError``s.
 
 ``test_mesh_steps_and_cli`` starts gloo groups of CPU ranks, one group per
 mesh shape, and runs ``parallel/check.py::equality_gap`` (one critic_step
@@ -26,6 +29,25 @@ weights, bank, batch and seeds) in each, at tiny shapes as
 The three fault controls of the data group (a rank skips one parameter's
 gradient average; the average's division left out; a rank draws its
 dropout rows from row 0) must miss 1e-5 by more than tenfold.
+
+``test_pipeline_steps`` does the same for the pipeline
+(``parallel/pipeline.py``), at ``tests/test_pipeline.py``'s tiny BERT
+(4 layers of width 16, bs 8, T 12) and at the steps' shapes above:
+
+| what | against | limit |
+| pipelined forward, dropout off: (data 1, pipe 2, M 2), (data 2, pipe 2, M 4, v 2), (data 1, pipe 4, M 4, remat) | the port's sequential BertModel | 2e-5 |
+| the same forward | JAX's bert_forward_pipelined on make_mesh(data, 1, pipe) | 2e-5 |
+| the same forwards in training mode, dropout on | the sequential BertModel | bit for bit |
+| gradients of (data 2, pipe 2, M 4, v 2, remat) | the sequential stack | 5e-4 / 5e-3 (JAX's) |
+| data 2 x pipe 2 x model 2, M 2, v 2, remat, SGD, dropout on | unsharded | 1e-5 |
+| Adam in float64 on that mesh (GPipe, M 2) | unsharded | 1e-6 |
+
+Its three fault controls (BERT's gradients not summed over pipe; the
+output's cotangent summed over pipe; stage 0's bank read before it is
+written, M = S) must miss 1e-5 by more than tenfold. BERT runs at the main
+learning rate there, so the SGD update shows BERT's gradient. Then
+``cli.main --distributed --device cpu --mesh_pipe 2 --pipe_microbatches
+2`` over two ranks trains one epoch as below.
 
 Then ``cli.main --distributed --device cpu`` under a two-rank torchrun
 environment trains one epoch of test_torch_solver.py's run: rank 0 alone
@@ -177,6 +199,49 @@ def test_mesh_rules():
                                    atol=0)
     assert all(pmesh.mesh_of(m) is pm for m in model.modules())
 
+    # the pipe axis: BERT's layers stay whole on model and are marked for
+    # the sum over pipe; the chunks are JAX's; the schedules' ticks; JAX's
+    # three ValueErrors
+    from mimrl_tpu.parallel.pipeline import stack_layer_params
+    from mimrl_tpu_torch.parallel import pipeline
+
+    model = build_model(MimrlConfig(**_cfg_kw(**MOE)), VOCAB, D_A, D_V, "cpu")
+    held = pmesh.shard_params(pmesh.make_mesh(1, 2, 2, n_ranks=4, rank=3),
+                              model)
+    assert held and all("moe_" in name for name in held), held
+    for name, p in model.named_parameters():
+        assert pmesh.pipe_summed(p) == name.startswith("bertmodel."), name
+    for L, S, v in ((4, 2, 1), (4, 2, 2), (4, 4, 1), (12, 2, 2), (12, 3, 1),
+                    (12, 2, 3)):
+        tree = {f"layer_{i}": {"w": np.full((1,), i)} for i in range(L)}
+        want = np.asarray(stack_layer_params(tree, L, S * v)["w"])
+        np.testing.assert_array_equal(
+            pipeline.chunk_layers(L, S, v), want.reshape(v, S, L // (S * v)))
+        for M in (S, S + 1, 2 * S):
+            for stage in range(S):
+                ticks = pipeline.rank_ticks(S, M, v, stage)
+                assert len(ticks) == v * M + S - 1
+                # each unit once, in order, at tick unit + stage
+                units = [(t - stage,) + op[1:3] for t, ops in
+                         enumerate(ticks) for op in ops if op[0] == "unit"]
+                assert units == [(u, u % M, u // M) for u in range(v * M)]
+                banked = {}
+                for t, ops in enumerate(ticks):
+                    for op in ops:
+                        if op[0] == "bank":
+                            banked[op[1]] = t - S  # the unit it keeps
+                        elif stage == 0 and op[2] > 0:
+                            # the previous round's unit of this microbatch
+                            assert banked[op[1]] == t - M, (S, M, v, t)
+    with pytest.raises(ValueError, match="not divisible by pipe"):
+        pipeline.check_schedule(3, 2, 2, 1, 8, 2)
+    with pytest.raises(ValueError, match="pipe_microbatches"):
+        pipeline.check_schedule(4, 2, 3, 1, 8, 2)
+    with pytest.raises(ValueError, match="interleaved schedule needs "
+                       "pipe_microbatches>=2"):
+        pipeline.check_schedule(4, 2, 1, 2, 8, 2)
+    pipeline.check_schedule(4, 2, 2, 2, 8, 2)
+
 
 # ---------------------------------------------------------------------- #
 
@@ -229,6 +294,42 @@ def _cli_rank(rank, argv, env, out_dir):
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump({"scores": scores, "writes": writes,
                    "handlers": handlers}, f)
+
+
+def _cli_fixture(tmp_path) -> str:
+    """test_torch_solver.py's run's data under ``tmp_path/cli``."""
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from test_torch_solver import N_TEST, N_TRAIN, N_VALID as NV
+
+    root = str(tmp_path / "cli")
+    make_dec_fixture(f"{root}/data", "mosi", n_per_split=(N_TRAIN, NV, N_TEST),
+                     d_audio=5, d_video=20, max_len=15, seed=2)
+    return root
+
+
+def _distributed(tmp_path, root, tag, *flags):
+    """``cli.main --distributed`` of test_torch_solver.py's run over two
+    torchrun-style ranks: each rank's record (``_cli_rank``)."""
+    import torch.multiprocessing as mp
+
+    from mimrl_tpu_torch.cli.main import free_port
+    from test_torch_solver import _argv
+
+    env = dict(WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(free_port()))
+    out = tmp_path / tag
+    out.mkdir()
+    mp.start_processes(_cli_rank, args=(
+        _argv(root, "--task_name", tag, "--distributed", *flags), env,
+        str(out)), nprocs=2, start_method="spawn")
+    return [json.load(open(out / f"rank{r}.json")) for r in (0, 1)]
+
+
+def _close(got, want):
+    """Scores within 1e-3 relative (or absolute)."""
+    for g, w in zip(got, want):
+        for k in w:
+            assert g[k] == pytest.approx(w[k], rel=1e-3, abs=1e-3), k
 
 
 def _jax_params(**fusion_kw):
@@ -312,9 +413,8 @@ def _jax_mesh_step(anchors_keys):
 def test_mesh_steps_and_cli(tmp_path):
     import jax
 
-    from mimrl_tpu_torch.cli.main import free_port, main
+    from mimrl_tpu_torch.cli.main import main
     from mimrl_tpu_torch.core.checkpoint import CheckpointManager
-    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
     from mimrl_tpu_torch.eval.predict import Predictor
     from mimrl_tpu_torch.models.convert import state_dict_from_jax
     from test_torch_steps import _jax_anchors
@@ -376,27 +476,14 @@ def test_mesh_steps_and_cli(tmp_path):
                                    want.numpy(), err_msg=name, **TOL)
 
     # cli.main --distributed --device cpu over two gloo ranks
-    import torch.multiprocessing as mp
-    from test_torch_solver import N_TEST, N_TRAIN, N_VALID as NV, _argv
+    from test_torch_solver import _argv
 
-    root = str(tmp_path / "cli")
-    make_dec_fixture(f"{root}/data", "mosi", n_per_split=(N_TRAIN, NV, N_TEST),
-                     d_audio=5, d_video=20, max_len=15, seed=2)
+    root = _cli_fixture(tmp_path)
 
     def distributed(tag, *flags):
-        env = dict(WORLD_SIZE="2", MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(free_port()))
-        out = tmp_path / tag
-        out.mkdir()
-        mp.start_processes(_cli_rank, args=(
-            _argv(root, "--task_name", tag, "--distributed", *flags), env,
-            str(out)), nprocs=2, start_method="spawn")
-        return [json.load(open(out / f"rank{r}.json")) for r in (0, 1)]
+        return _distributed(tmp_path, root, tag, *flags)
 
-    def close(got, want):
-        for g, w in zip(got, want):
-            for k in w:
-                assert g[k] == pytest.approx(w[k], rel=1e-3, abs=1e-3), k
+    close = _close
 
     # one epoch on data 2 against the single-process epoch
     single = main(_argv(root, "--task_name", "single", "--epochs_num", "1"))
@@ -432,3 +519,194 @@ def test_mesh_steps_and_cli(tmp_path):
                          "--resume", f"{root}/runs/tp"))
     assert all(np.isfinite(s["mae"]) for s in resumed)
     assert "Resumed from" in open(f"{root}/runs/resumed/Running.log").read()
+
+
+# ---------------------------------------------------------------------- #
+# The pipeline (parallel/pipeline.py)
+
+# tests/test_pipeline.py's tiny BERT and data
+PIPE_BERT = dict(vocab_size=64, hidden_size=16, num_hidden_layers=4,
+                 num_attention_heads=2, intermediate_size=32,
+                 max_position_embeddings=16)
+PIPE_BS, PIPE_T = 8, 12
+# {(data, pipe): [(microbatches, virtual, remat), ...]}
+PIPE_FORWARDS = {(1, 2): [(2, 1, False)], (2, 2): [(4, 2, False)],
+                 (1, 4): [(4, 1, True)]}
+PIPE_GRADS = (4, 2, True)  # on (2, 2), JAX's test_interleaved_grads_...
+PIPE_GRAD_TOL = dict(atol=5e-4, rtol=5e-3)
+PIPE_STEP = dict(mesh_data=2, mesh_pipe=2, mesh_model=2, pipe_microbatches=2,
+                 bert_lr_rate=1.0, **DROP)
+PIPE_FAULTS = {"no_pipe_sum": {"no_pipe_sum": True},
+               "output_sum": {"output_sum": True},
+               "bank_late": {"bank_late": True}}
+
+
+def _pipe_data():
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, PIPE_BERT["vocab_size"], (PIPE_BS, PIPE_T))
+    types = np.zeros((PIPE_BS, PIPE_T), np.int64)
+    mask = (np.arange(PIPE_T)[None, :]
+            < rng.integers(4, PIPE_T + 1, (PIPE_BS, 1))).astype(np.int64)
+    cot = np.random.default_rng(1).normal(
+        size=(PIPE_BS, PIPE_T, PIPE_BERT["hidden_size"])).astype(np.float32)
+    return ids, types, mask, cot
+
+
+def _pipe_forwards(rank, device, shape, state):
+    """One mesh shape's pipelined forwards (and on (2, 2) the gradients,
+    on (1, 2) the hop): per schedule the eval-mode output of the global
+    batch and its gap to the sequential stack, the gap of the
+    training-mode output with dropout on."""
+    from mimrl_tpu_torch.models.bert import BertConfig, BertModel
+    from mimrl_tpu_torch.parallel.pipeline import bert_forward_pipelined
+
+    ids, types, mask, cot = (torch.from_numpy(a) for a in _pipe_data())
+    mesh = pmesh.make_mesh(shape[0], 1, shape[1])
+    out = {}
+
+    def bert(train):
+        model = BertModel(BertConfig(**PIPE_BERT, flash_attn="off"))
+        model.load_state_dict(state)
+        return model.train(train)
+
+    def pipelined(model, schedule, seed):
+        M, v, remat = schedule
+        mesh.set_batch(PIPE_BS)
+        pmesh.shard_params(mesh, model)
+        rows = pmesh.shard_batch(mesh, [ids, types, mask])
+        torch.manual_seed(seed)
+        return bert_forward_pipelined(
+            model, mesh, *rows, n_microbatches=M, n_virtual=v, remat=remat,
+            generator=torch.Generator().manual_seed(seed))
+
+    for schedule in PIPE_FORWARDS[shape]:
+        with torch.no_grad():
+            want = bert(False)(ids, types, mask)
+            got = pmesh.gather_rows(pipelined(bert(False), schedule, 0), mesh)
+            seq = bert(True)
+            torch.manual_seed(3)
+            drop = seq(ids, types, mask, torch.Generator().manual_seed(3))
+            got_drop = pmesh.gather_rows(pipelined(bert(True), schedule, 3),
+                                         mesh)
+        out[schedule] = dict(got=got.numpy(),
+                             gap=float((got - want).abs().max()),
+                             dropout_equal=torch.equal(got_drop, drop))
+    if shape == (2, 2):
+        seq = bert(False)
+        want = torch.autograd.grad((seq(ids, types, mask) * cot).sum(),
+                                   list(seq.parameters()))
+        model = bert(False)
+        params = list(model.parameters())
+        y = pipelined(model, PIPE_GRADS, 0)
+        grads = torch.autograd.grad(
+            (y * pmesh.shard_batch(mesh, cot)).sum(), params,
+            allow_unused=True)
+        grads = pmesh.reduce_gradients(mesh, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(params, grads)], params)
+        n = mesh.size(pmesh.BATCH_AXES)  # the average of the rows' sums
+        out["grads"] = [(name, (g * n).numpy(), w.numpy()) for
+                        (name, _), g, w in zip(model.named_parameters(),
+                                               grads, want)]
+    if shape == (1, 2):
+        x = torch.full((3,), rank + 1.0, requires_grad=True)
+        y = pmesh.hop(x, mesh)
+        y.backward(torch.full((3,), 10.0 * (rank + 1)))
+        out["hop"] = (y.detach().tolist(), x.grad.tolist())
+    return out
+
+
+def _jax_pipelined(params, schedules):
+    """JAX's ``bert_forward_pipelined`` of tests/test_pipeline.py's tiny
+    BERT, eval mode, per (data, pipe, M, v, remat)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mimrl_tpu.models.bert import BertConfig as JaxBertConfig
+    from mimrl_tpu.parallel.mesh import make_mesh
+    from mimrl_tpu.parallel.pipeline import bert_forward_pipelined
+
+    cfg = JaxBertConfig(**PIPE_BERT)
+    ids, types, mask = (jnp.asarray(a, jnp.int32) for a in _pipe_data()[:3])
+    out = {}
+    for (data, pipe), (M, v, remat) in schedules:
+        mesh = make_mesh(data, 1, pipe)
+        out[(data, pipe), (M, v, remat)] = np.asarray(jax.jit(
+            lambda p: bert_forward_pipelined(
+                p, cfg, mesh, ids, types, mask, n_microbatches=M,
+                n_virtual=v, remat=remat, deterministic=True))(params))
+    return out
+
+
+def test_pipeline_steps(tmp_path):
+    import jax
+
+    from mimrl_tpu.models.bert import BertConfig as JaxBertConfig
+    from mimrl_tpu.models.bert import BertModel as JaxBertModel
+    from mimrl_tpu_torch.cli.main import main
+    from mimrl_tpu_torch.eval.predict import Predictor
+    from mimrl_tpu_torch.models.bert import BertConfig, BertModel
+    from mimrl_tpu_torch.models.convert import state_dict_from_jax
+
+    # the tiny BERT's weights from JAX's init, in the port's names
+    ids, types, mask, _ = _pipe_data()
+    jparams = JaxBertModel(JaxBertConfig(**PIPE_BERT)).init(
+        jax.random.PRNGKey(0), ids.astype(np.int32), types.astype(np.int32),
+        mask.astype(np.int32))["params"]
+    port = torch.nn.ModuleDict({"bertmodel": BertModel(BertConfig(
+        **PIPE_BERT))})
+    state = {k[len("bertmodel."):]: v for k, v in state_dict_from_jax(
+        {"bertmodel": jax.tree_util.tree_map(np.asarray, jparams)},
+        port).items()}
+    store = str(tmp_path)
+
+    got = {shape: check.run_ranks(shape[0] * shape[1], _pipe_forwards,
+                                  (shape, state), store_dir=store)
+           for shape in PIPE_FORWARDS}
+    jax_out = _jax_pipelined(jparams, [(shape, sch) for shape, schedules in
+                                       PIPE_FORWARDS.items()
+                                       for sch in schedules])
+    for shape, schedules in PIPE_FORWARDS.items():
+        for sch in schedules:
+            r = got[shape][sch]
+            assert r["gap"] <= 2e-5, (shape, sch, r["gap"])
+            np.testing.assert_allclose(r["got"], jax_out[shape, sch],
+                                       atol=2e-5, rtol=2e-5)
+            assert r["dropout_equal"], (shape, sch)
+    for name, g, w in got[(2, 2)]["grads"]:
+        np.testing.assert_allclose(g, w, err_msg=name, **PIPE_GRAD_TOL)
+    # rank 0 takes rank 1's value, and rank 1's gradient back
+    assert got[(1, 2)]["hop"] == ([2.0] * 3, [20.0] * 3)
+
+    # one critic_step + train_step on data 2 x pipe 2 x model 2
+    step_state = {"cubemlp": _port_state(**PIPE_STEP)}
+    cases = [("sgd", dict(PIPE_STEP, pipe_virtual=2, pipe_remat=True), {}),
+             ("adam_f64", dict(PIPE_STEP, optm="Adam"), dict(float64=True))]
+    cases += [(name, dict(PIPE_STEP, pipe_virtual=2), dict(faults=spec))
+              for name, spec in PIPE_FAULTS.items()]
+    gaps = {name: r["gap"] for name, r in check.run_ranks(
+        8, _group, (dict(data=2, pipe=2, model=2), cases, step_state,
+                    {BS: _data()}), store_dir=store).items()}
+    assert gaps["sgd"] <= LIMIT, gaps
+    assert gaps["adam_f64"] <= LIMIT_F64, gaps
+    for name in PIPE_FAULTS:
+        assert gaps[name] > 10 * LIMIT, (name, gaps)
+
+    # cli.main --distributed --device cpu --mesh_pipe 2 over two gloo ranks
+    from test_torch_solver import _argv
+
+    root = _cli_fixture(tmp_path)
+    single = main(_argv(root, "--task_name", "single", "--epochs_num", "1"))
+    ranks = _distributed(tmp_path, root, "pipe", "--mesh_data", "1",
+                         "--mesh_pipe", "2", "--pipe_microbatches", "2",
+                         "--epochs_num", "1")
+    assert ranks[1]["writes"] == [] and ranks[1]["handlers"] == 0
+    assert any(w.endswith("latest_model.pt.tmp") for w in ranks[0]["writes"])
+    for r in ranks:
+        _close(r["scores"], single)
+    log = open(f"{root}/runs/pipe/Running.log").read()
+    assert "Mesh: Mesh(dcn 1 x data 1 x pipe 2 x model 1, rank 0" in log
+    assert "pipeline 2 stages x 2 microbatches, virtual 1, remat off" in log
+    served = Predictor(f"{root}/runs/pipe", device="cpu").evaluate_split(
+        "test")
+    assert np.isfinite(served["mae"])

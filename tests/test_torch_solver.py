@@ -8,9 +8,9 @@ the run wrote, and its ``latest`` slot holds the whole training state.
 ``--custom_loss``, ``--check_gradient`` and ``--profile_dir`` train
 together (``test_hooks_train_on_the_cpu``). ``--epoch_group 2`` equals
 the per-epoch ``--epoch_scan`` run bit for bit, and the parity harness
-gives JAX's report (``test_epoch_group_equals_per_epoch``). Flags whose
-path is not ported (``--mesh_pipe``) raise; the two kernel flags
-(``--use_pallas``, ``--quant``) train and serve through the plain versions.
+gives JAX's report (``test_epoch_group_equals_per_epoch``). The two
+kernel flags (``--use_pallas``, ``--quant``) train and serve through the
+plain versions. (``--mesh_pipe`` trains in test_torch_parallel.py.)
 
 The schedule rungs (``test_rungs``): each stage-1 mode's epoch function,
 then ``train_epoch`` and ``eval_epoch``, against the JAX package's epoch
@@ -156,13 +156,6 @@ def test_two_runs_of_one_seed_agree(run):
     other = main(_argv(root, "--task_name", "other", "--seed", "1",
                        "--no_save_models"))
     assert other[0]["mae"] != pytest.approx(scores[0]["mae"], rel=1e-6)
-
-
-@pytest.mark.parametrize("flags", [["--mesh_pipe", "2"]])
-def test_unported_flags_raise(run, flags):
-    root = run[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Solver(parse_args(_argv(root, "--task_name", "refused", *flags)))
 
 
 GROUP_RUNS = {  # name -> (dataset flags or None, other flags)
