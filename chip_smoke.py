@@ -94,7 +94,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            pass counter left at 0 must fail that gate, and every
            ``train_step`` of the resumed epoch launches 12 + 12 attention
            kernels. Slot bytes, save, read and ``_resume`` ms, peak memory
-           of a save.
+           of a save. Then a ``mimrl_tpu`` msgpack ``latest``: the layout
+           of ``tests/fixtures/mimrl_tpu_slot`` filled from a seed, written
+           in flax's format and resumed on the card and on the CPU; the
+           next epoch's steps (stage 2's train steps, then a critic step;
+           the same host-drawn kNN anchors) on the card within
+           JAX_SLOT_TOL of the CPU's losses and MI values, and a resume
+           that takes optax's nu as mu must miss that tenfold.
 7. rungs   the canonical recipe for 3 epochs (milestone at epoch 2) on each
            ``--epoch_scan`` rung: a fresh forward per critic step,
            ``--fast_stage1`` and ``--stage1_cached``, then the flagged recipe
@@ -137,7 +143,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            kernels at its new shapes are held against their plain versions
            and timed beside their bounds right after the kernel phase
            (float32 attention at bs 32 and 64, the axis MLP at T 50, int8
-           at M 3200, bit for bit).
+           at M 3200, bit for bit). The loaders must pad through
+           ``native/`` (its calls counted), and at MOSI's 1284/229/686
+           split the host library (padding and a vocab.txt WordPiece) is
+           held against the numpy forms bit for bit, with the host ms of
+           each.
 
 9. fusions the canonical recipe in float32 (README quick start) with
            ``--fusion transformer``, ``tfn`` (``--bound_type club``) and
@@ -221,25 +231,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            ``recipes/multichip.sh`` runs them: ``--mesh_data 2`` (under
            ``--flash_attn auto``, i.e. plain attention as in JAX, under
            ``on``, and under ``on --use_pallas --quant int8``),
-           ``--mesh_data 1 --mesh_model 2 --seq_shard``, and ``--fusion moe
-           --mesh_model 2`` (``--seq_shard`` keeps the activations whole
-           for now). Each, at 2 BERT layers: one SGD critic_step +
+           ``--mesh_data 1 --mesh_model 2 --seq_shard`` (sequence parallel
+           BERT), and ``--fusion moe --mesh_model 2``. Each, at 2 BERT
+           layers: one SGD critic_step +
            train_step on the
            mesh against the unsharded step from the same weights, bank,
            batch and seeds (``parallel/check.py``), forward values and
            each parameter's gradient within MESH_GAP_FACTOR times the
            order-only control (the unsharded step with its forward in two
-           row blocks; the updates stated beside them),
+           row blocks; the updates stated beside them; for the seq_shard
+           case, float32 then bf16, the larger of that and its arithmetic on
+           one rank, the second products' input axis in two blocks summed
+           in float32, ``check.ksplit_step``; ``_PartialSums``, its bf16
+           partial sums, against float32 F.linear),
            every kernel launch of the mesh step held against its plain
            version, launches per rank exact; on the data case three fault
            controls (a rank skips one parameter's gradient average; the
            average's division left out; a rank draws its dropout rows from
-           row 0) must miss that gate tenfold. Then a 2-epoch
+           row 0) and on the seq_shard case one (the reduce-scatter without
+           its sum) must miss that gate tenfold. Then a 2-epoch
            ``--epoch_scan`` run per case at 1 BERT layer (the data case
            with all four kernels): finite scores
            equal on both ranks, per rank the epoch s, one eager train
            step's ms and the profiler's collective rows, the launches and
-           peak memory. The pipe case (``--mesh_data 1 --mesh_pipe 2
+           peak memory; the seq_shard case also one eager train_step at 12
+           layers without and with ``--seq_shard`` per rank: ms and peak
+           memory, the peak lower with it. The pipe case (``--mesh_data 1 --mesh_pipe 2
            --pipe_microbatches 4 --flash_attn on``: GPipe, ``--pipe_virtual
            2 --pipe_remat``, GPipe with ``--use_pallas --quant int8``):
            the same gate at 4 BERT layers against the sequential stack on
@@ -249,12 +266,28 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            not summed over pipe; the output's cotangent summed over pipe);
            then one eager train_step per schedule at 12 layers: ms, busy
            ms, the hops' and gradient sums' rows, ticks computed and idle,
-           launches, peak memory. Two cards or more: one rank per card
+           launches, peak memory. Busy ms per rank: the union of the device
+           records and the rank's own records by correlation (labelled
+           ``_shared`` on a shared card). Two cards or more: one rank per card
            over NCCL. One card: both ranks share it over gloo (eager: gloo
            cannot be captured; correctness only, no measure of scaling),
            and a one-rank NCCL group runs the flagged recipe 2 epochs (1
            BERT layer) with
-           its step graphs capturing the NCCL gradient average.
+           its step graphs capturing the NCCL gradient average. On four
+           cards (``--mesh``) the seq_shard memory reading at
+           ``--mesh_model 4`` over NCCL, and the four-card pipelined CLI
+           run beside one card's run of the same recipe as it is, with
+           its rows reordered, with BERT on microbatches and with both: the
+           MAE spread of the order alone against the four-card gap.
+15. decompose ``tools/decompose.py`` on the card at the canonical bf16
+           shape, bf16 with ``BENCH_QUANT=int8 --use_pallas`` (all four
+           kernels) and float32 at bs 64, T 150 (the manifest's shape):
+           every piece eager and the four replayable steps replayed, busy
+           ms, launches of all four kernels. The float32 attention kernels
+           at its third shape, ``[64, 12, 150, 64]``, are held against
+           their plain versions and timed beside the bound and SDPA right
+           after the kernel phase (late in a run the profiler has returned
+           sessions without kernel records).
 
 Output: one JSON object per line; then the ``kernels`` line, the card's
 name and power limit from nvidia-smi, and last
@@ -273,7 +306,15 @@ import sys
 import tempfile
 import time
 
-N_HEADS, HEAD_DIM, BATCH, TIME_LEN = 12, 64, 128, 100
+# the canonical recipe's shapes and flags (3 train batches; 1 valid and 1
+# test batch) and the timers, shared with tools/step_time.py and
+# tools/decompose.py
+from mimrl_tpu_torch.tools.step_time import (BATCH, CANONICAL_MOSI,
+                                             CANONICAL_TRAIN, N_TRAIN,
+                                             TIME_LEN, cuda_ms,
+                                             device_busy_ms)
+
+N_HEADS, HEAD_DIM = 12, 64
 SERVE_SHAPE = (BATCH, N_HEADS, TIME_LEN, HEAD_DIM)
 # timed as well: the AVEC2019 operating point of the JAX package (T 150)
 AVEC_SHAPE = (BATCH, N_HEADS, 150, HEAD_DIM)
@@ -337,7 +378,6 @@ CONTROL_FAULTS = (2.0 ** -4, 2.0 ** -6, 2.0 ** -8)
 # them add up through the chain rule.
 TRAIN_F32_GRAD_TOL = 1e-4
 GRAD_FLOOR = 1e-4
-N_TRAIN = 3 * BATCH  # 3 train batches; 1 valid and 1 test batch
 QUANT_FLAGS = ["--use_pallas", "--quant", "int8"]
 # the axis-MLP kernel vs its plain version (einsums), relative to the
 # largest magnitude of the plain result: both float32; they differ by
@@ -426,8 +466,12 @@ MESH_CASES = {
              (("auto", []), ("flash", ["--flash_attn", "on"]),
               ("flagged", ["--flash_attn", "on", "--use_pallas", "--quant",
                            "int8"]))),
+    # float32 first (its fault control holds there), then bf16, where any
+    # reordering of a product's sums (check.ksplit_step) moves a step by a
+    # few bf16 last places (2-3% forward) and the row split moves none
     "seq_shard": (["--mesh_data", "1", "--mesh_model", "2", "--seq_shard"],
-                  (("plain", []),)),
+                  (("float32", ["--compute_dtype", "float32"]),
+                   ("bf16", []))),
     "moe": (["--mesh_data", "1", "--mesh_model", "2", "--fusion", "moe"],
             (("plain", []),)),
     # the pipeline (parallel/pipeline.py) over two stages, as
@@ -475,7 +519,17 @@ MESH_FAULTS = {"skip_reduce": {"skip_reduce": 0},
 # cotangent of the shared output summed over pipe (2x BERT's gradient)
 PIPE_FAULTS = {"no_pipe_sum": {"no_pipe_sum": True},
                "output_sum": {"output_sum": True}}
-CASE_FAULTS = {"data": MESH_FAULTS, "pipe": PIPE_FAULTS}
+# the seq_shard case's: the row-parallel products' reduce-scatter without
+# its sum (each rank keeps its slice of its own partial sums)
+SEQ_FAULTS = {"scatter_no_sum": {"scatter_no_sum": True}}
+# --seq_shard's row-parallel partial sums (bf16 inputs, float32 sums)
+# against the float32 product of the same values, relative to the largest
+# magnitude: the sums differ only in their order; the gradients are the
+# unsharded product's bf16 backward (2^-9 of rounding, plus the order)
+PARTIAL_SUMS_TOL = 1e-4
+PARTIAL_SUMS_GRAD_TOL = 2.0 ** -8
+CASE_FAULTS = {"data": MESH_FAULTS, "pipe": PIPE_FAULTS,
+               "seq_shard": SEQ_FAULTS}
 # the readings: 2 epochs on --epoch_scan (train_phase's split), per rank,
 # at 1 BERT layer (full width): gloo moves every collective through host
 # memory (12.6 s an eager step of the model axis at full depth with two
@@ -490,30 +544,6 @@ MESH_GROUPS = (("data", "seq_shard", "moe", "pipe"),)
 # the pipe case's readings: one eager train_step at 12 BERT layers per
 # rank, GPipe, then the interleaved schedule with remat on the same model
 PIPE_READ_SCHEDULES = (("gpipe", 1, False), ("interleaved", 2, True))
-
-CANONICAL_MOSI = [
-    "--dataset", "mosi_Dec", "--log_scale", "0-0-0", "--normalize", "0-1-1",
-    "--batch_size", str(BATCH), "--d_common", "128", "--encoders", "gru",
-    "--activate", "gelu", "--time_len", str(TIME_LEN),
-    "--d_hiddens", "50-3-128=10-3-128", "--d_outs", "50-3-128=10-3-128",
-    "--dropout_mlp", "0.0-0.0-0.0", "--dropout", "0.1-0.1-0.1-0.1", "--bias",
-    "--res_project", "1-1", "--features_compose_t", "mean",
-    "--features_compose_k", "mean", "--num_class", "1",
-    "--compute_dtype", "bfloat16",
-]
-CANONICAL_TRAIN = [
-    "--critic_type", "separate", "--baseline_type", "constant",
-    "--bound_type", "infonce",
-    "--loss_mi_coefficient1", "1-1-1-1-1-1-1-1-1-1-1",
-    "--loss_mi_coefficient2", "0.01-0.01-0.01-0.01-0.01-0.01-0.01-0.01",
-    "--k_neighbor", "2", "--radius", "1.0", "--cmi_last_acticate", "sigmoid",
-    "--stage1_n", "2", "--seed", "0", "--loss", "MAE",
-    "--gradient_clip", "1.5", "--epochs_num", "2", "--optm", "Adam",
-    "--learning_rate", "4e-3", "--bert_freeze", "no",
-    "--bert_lr_rate", "0.01", "--lr_decrease", "multi_step",
-    "--lr_decrease_iter", "9-60", "--lr_decrease_rate", "0.1",
-]
-
 
 def emit(**record) -> None:
     print(json.dumps(record), flush=True)
@@ -616,29 +646,6 @@ def add(*cs):
     return tuple(sum(xs) for xs in zip(*cs))
 
 
-def cuda_ms(fn, warmup: int = 5, reps: int = 25, inner: int = 1) -> float:
-    """Median device time of fn() in ms, CUDA events around each run of
-    ``inner`` calls. A kernel shorter than its wrapper's time on the host
-    is timed with ``inner`` > 1: the launches queue up behind the first and
-    the events see the device's time per call, not the host's."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
-
-
 def profiler_ms(fn, kernel_name=None, reps: int = 10):
     """Median device time in ms of the kernel whose name contains
     ``kernel_name`` over ``reps`` calls of fn(), from ``torch.profiler``'s
@@ -666,31 +673,6 @@ def profiler_ms(fn, kernel_name=None, reps: int = 10):
         return None
     return 1e-3 * (statistics.median(times) if isinstance(kernel_name, str)
                    else sum(times) / reps)
-
-
-def device_busy_ms(prof) -> tuple:
-    """(union, sum) of a profile's device records in ms: the time the
-    device was busy at all (kernels on concurrent streams, as the A/V
-    pair's, counted once) and the sum of the records' own times."""
-    import torch
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    union, start, end = 0.0, None, None
-    for s, e in spans:
-        if end is None or s > end:
-            union += 0.0 if end is None else end - start
-            start, end = s, e
-        else:
-            end = max(end, e)
-    union += 0.0 if end is None else end - start
-    total = sum(getattr(e, "self_device_time_total",
-                        getattr(e, "self_cuda_time_total", 0.0))
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return union / 1e3, total / 1e3
 
 
 def profiler_names(fn) -> list:
@@ -3166,6 +3148,72 @@ def profiled_ms(fn, kernel_name, tries=None):
     return ms
 
 
+def float32_attention_shape(bs: int, t: int) -> dict:
+    """The float32 attention kernels at ``[bs, 12, t, 64]`` with dropout
+    against their plain versions, on the tensor-core instances (required),
+    timed by queued CUDA events and the profiler beside the SIMT
+    instances, SDPA and the bound. Returns {kernel name: record}."""
+    import torch
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    dtype = torch.float32
+    q, k, v, bias = attention_inputs(bs, N_HEADS, t, HEAD_DIM, dtype,
+                                     seed=bs + t - TIME_LEN)
+    seed = torch.tensor([bs], device="cuda")
+    d_out = torch.randn_like(q)
+    shape = [bs, N_HEADS, t, HEAD_DIM]
+    for kernel, backward in (("flash_attention_fwd", False),
+                             ("flash_attention_bwd", True)):
+        instance = fa._instance(dtype, t, HEAD_DIM, backward)
+        if backward:
+            err = max(rel_err(g, w) for g, w in zip(
+                fa.flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P),
+                fa.flash_attention_bwd_plain(q, k, v, bias, seed, d_out,
+                                             DROPOUT_P)))
+            qq, kk, vv = (x.detach().clone().requires_grad_()
+                          for x in (q, k, v))
+            sdpa = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias)
+            times = timings(
+                lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out, 0.0),
+                lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out,
+                                               DROPOUT_P),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, bias, seed,
+                                                     d_out, 0.0),
+                lambda: torch.autograd.grad(sdpa, (qq, kk, vv), d_out,
+                                            retain_graph=True),
+                kernel_symbol("bwd", instance, "float32"),
+                *simt_timed(q, k, v, bias, seed, d_out))
+            del sdpa, qq, kk, vv
+            tol = BWD_TOL["float32"]
+        else:
+            err = rel_err(fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                          fa.flash_attention_plain(q, k, v, bias, seed,
+                                                   DROPOUT_P))
+            times = timings(
+                lambda: fa.flash_attention(q, k, v, bias),
+                lambda: fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
+                lambda: fa.flash_attention_plain(q, k, v, bias),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       attn_mask=bias),
+                kernel_symbol("fwd", instance, "float32"),
+                *simt_timed(q, k, v, bias, seed))
+            tol = KERNEL_TOL["float32"]
+        require(err <= tol, f"{kernel} {shape} float32 with dropout: "
+                f"relative error {err} > {tol}")
+        require(instance == "tensor_core",
+                f"{kernel} {shape} float32: instance {instance}")
+        bound, by, fp32_pipes = attention_bound(q, bias, backward=backward)
+        out[kernel] = dict(shape=shape, dtype="float32", instance=instance,
+                           max_rel_err_dropout=err, bound_ms=bound,
+                           bound_by=by, bound_ms_fp32_pipes=fp32_pipes,
+                           **times)
+    del q, k, v, bias, d_out
+    return out
+
+
 def family_kernel_shapes() -> dict:
     """The kernels at the slice's new shapes against their plain versions,
     timed (queued CUDA events and the profiler) beside the bound and the
@@ -3178,67 +3226,15 @@ def family_kernel_shapes() -> dict:
     import math
 
     import torch
-    import torch.nn.functional as F
 
     from mimrl_tpu_torch.ops import cubemlp_kernel as ck
-    from mimrl_tpu_torch.ops import flash_attention as fa
     from mimrl_tpu_torch.ops.int8_matmul import (int8_matmul,
                                                  int8_matmul_plain, plan)
 
     out = {name: [] for name in KERNEL_NAMES}
-    dtype = torch.float32
     for bs in (32, 64):
-        q, k, v, bias = attention_inputs(bs, N_HEADS, TIME_LEN, HEAD_DIM,
-                                         dtype, seed=bs)
-        seed = torch.tensor([bs], device="cuda")
-        d_out = torch.randn_like(q)
-        shape = [bs, N_HEADS, TIME_LEN, HEAD_DIM]
-        for kernel, backward in (("flash_attention_fwd", False),
-                                 ("flash_attention_bwd", True)):
-            instance = fa._instance(dtype, TIME_LEN, HEAD_DIM, backward)
-            if backward:
-                err = max(rel_err(g, w) for g, w in zip(
-                    fa.flash_attention_bwd(q, k, v, bias, seed, d_out, DROPOUT_P),
-                    fa.flash_attention_bwd_plain(q, k, v, bias, seed, d_out,
-                                                 DROPOUT_P)))
-                qq, kk, vv = (x.detach().clone().requires_grad_()
-                              for x in (q, k, v))
-                sdpa = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=bias)
-                times = timings(
-                    lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out, 0.0),
-                    lambda: fa.flash_attention_bwd(q, k, v, bias, seed, d_out,
-                                                   DROPOUT_P),
-                    lambda: fa.flash_attention_bwd_plain(q, k, v, bias, seed,
-                                                         d_out, 0.0),
-                    lambda: torch.autograd.grad(sdpa, (qq, kk, vv), d_out,
-                                                retain_graph=True),
-                    kernel_symbol("bwd", instance, "float32"),
-                    *simt_timed(q, k, v, bias, seed, d_out))
-                del sdpa, qq, kk, vv
-                tol = BWD_TOL["float32"]
-            else:
-                err = rel_err(fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
-                              fa.flash_attention_plain(q, k, v, bias, seed,
-                                                       DROPOUT_P))
-                times = timings(
-                    lambda: fa.flash_attention(q, k, v, bias),
-                    lambda: fa.flash_attention(q, k, v, bias, seed, DROPOUT_P),
-                    lambda: fa.flash_attention_plain(q, k, v, bias),
-                    lambda: F.scaled_dot_product_attention(q, k, v,
-                                                           attn_mask=bias),
-                    kernel_symbol("fwd", instance, "float32"),
-                    *simt_timed(q, k, v, bias, seed))
-                tol = KERNEL_TOL["float32"]
-            require(err <= tol, f"{kernel} {shape} float32 with dropout: "
-                    f"relative error {err} > {tol}")
-            require(instance == "tensor_core",
-                    f"{kernel} {shape} float32: instance {instance}")
-            bound, by, fp32_pipes = attention_bound(q, bias, backward=backward)
-            out[kernel].append(dict(shape=shape, dtype="float32",
-                                    instance=instance, max_rel_err_dropout=err,
-                                    bound_ms=bound, bound_by=by,
-                                    bound_ms_fp32_pipes=fp32_pipes, **times))
-        del q, k, v, bias, d_out
+        for name, rec in float32_attention_shape(bs, TIME_LEN).items():
+            out[name].append(rec)
 
     sms = ck._sm_count(torch.device("cuda", 0))
     for shape, axis, d_hidden, d_out_ in FAMILY_AXIS_MLP_SHAPES:
@@ -4873,7 +4869,9 @@ def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
     mesh check.microbatch_step; both are kept for a variant that differs
     in its pipeline's schedule alone), every kernel launch of the mesh
     step held against its plain version; then the fault controls on the
-    first variant. Returns (rank 0) the readings."""
+    first variant. The seq_shard case's control is the larger of the row
+    split's and ``check.ksplit_step``'s gaps (its arithmetic on one
+    rank), each stated. Returns (rank 0) the readings."""
     import torch
     import torch.distributed as dist
 
@@ -4913,6 +4911,16 @@ def mesh_gate_rank(rank, device, data, case_flags, variants, faults):
                          else check.split_batch_step)
                 control = check.relative_gaps(ref, split(build(), *args),
                                               start)
+            if rank == 0 and cfg.seq_shard:
+                # --seq_shard's order-only control: the row split or the
+                # sequence-parallel arithmetic on one rank (the second
+                # products' input axis in two blocks summed in float32),
+                # whichever moves more
+                ksplit = check.relative_gaps(
+                    ref, check.ksplit_step(build(), *args), start)
+                control = dict({k: max(v, ksplit[k])
+                                for k, v in control.items()},
+                               split=control, ksplit=ksplit)
             refs[key] = (ref, control)
         ref, control = refs[key]
         errors, axis_errors, int8_seen = {"fwd": [], "bwd": []}, [], []
@@ -5012,7 +5020,7 @@ def mesh_read_rank(rank, device, argv):
     busy, _ = device_busy_ms(prof)
     mine = dict(rank=rank, scores=scores, epoch_s=epochs,
                 ms_per_train_batch=[1e3 * dt / n_steps for dt in epochs],
-                eager_step_ms=step_ms, eager_step_busy_ms=busy,
+                eager_step_ms=step_ms, **busy_readings(prof, busy),
                 collective_rows=rows, launches=launches, peak_gb=peak_gb,
                 graphs=solver.graphs.stats(),
                 mesh=repr(solver.mesh))
@@ -5082,7 +5090,7 @@ def pipe_read_rank(rank, device, argv):
         mine.append(dict(
             rank=rank, schedule=name, virtual=virtual, remat=remat,
             microbatches=mesh.n_microbatches, eager_step_ms=step_ms,
-            eager_step_busy_ms=busy, rows=rows, launches=launches,
+            **busy_readings(prof, busy), rows=rows, launches=launches,
             peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
             ticks=len(ticks), ticks_computed=computed,
             ticks_idle=len(ticks) - computed, solver_init_s=init_s,
@@ -5169,6 +5177,10 @@ def mesh_group_rank(rank, device, data, root, cases):
                 "--task_name", f"mesh_{case}"))
         out[case] = dict(gate=gate, readings=readings, gate_s=gate_s,
                          readings_s=time.perf_counter() - t0)
+        if case == "seq_shard":
+            t0 = time.perf_counter()
+            out[case]["memory"] = seq_memory_rank(rank, device, data, root, 2)
+            out[case]["memory_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5216,6 +5228,47 @@ def mesh_dropout_check() -> dict:
     return out
 
 
+def partial_sums_check() -> dict:
+    """``models/bert.py::_PartialSums`` (the row-parallel products' bf16
+    partial sums, returned in float32, under ``--seq_shard`` at model 2)
+    against ``F.linear`` in float32 of the same bf16 values, at the
+    attention output dense's and the FFN down-projection's shapes: the
+    sums within PARTIAL_SUMS_TOL, both gradients within bf16's rounding
+    (PARTIAL_SUMS_GRAD_TOL), each relative to the largest magnitude."""
+    import torch
+    import torch.nn.functional as F
+
+    from mimrl_tpu_torch.models import bert
+
+    out = {}
+    for name, k in (("attention_output", 384), ("ffn_down", 1536)):
+        g = torch.Generator("cuda").manual_seed(k)
+        h = torch.randn(BATCH, TIME_LEN, k, device="cuda", generator=g)
+        h = h.bfloat16().requires_grad_()
+        w = (0.02 * torch.randn(768, k, device="cuda", generator=g)
+             ).requires_grad_()
+        dy = torch.randn(BATCH, TIME_LEN, 768, device="cuda", generator=g)
+        y = bert._PartialSums.apply(h, w)
+        hf = h.detach().float().requires_grad_()
+        wf = w.detach().bfloat16().float().requires_grad_()
+        yf = F.linear(hf, wf)
+
+        def rel(got, want):
+            return float((got.float() - want).abs().max()
+                         / want.abs().max())
+
+        got_g = torch.autograd.grad(y, (h, w), dy)
+        want_g = torch.autograd.grad(yf, (hf, wf), dy.bfloat16().float())
+        r = dict(value=rel(y, yf), grad_h=rel(got_g[0], want_g[0]),
+                 grad_w=rel(got_g[1], want_g[1]), dtype=str(y.dtype))
+        require(y.dtype == torch.float32
+                and r["value"] <= PARTIAL_SUMS_TOL
+                and max(r["grad_h"], r["grad_w"]) <= PARTIAL_SUMS_GRAD_TOL,
+                f"_PartialSums {name}: {r} against float32 F.linear")
+        out[name] = r
+    return out
+
+
 def mesh_phase(root: str):
     """The mesh's dropout against ``F.dropout``; the four cases of the
     mesh (``parallel/mesh.py``, ``parallel/pipeline.py``) at full width:
@@ -5244,6 +5297,8 @@ def mesh_phase(root: str):
          "one rank per card over NCCL")
     emit(phase="mesh", step="dropout", keep_rates=mesh_dropout_check(),
          card=card())
+    emit(phase="mesh", step="partial_sums", gaps=partial_sums_check(),
+         tol=PARTIAL_SUMS_TOL, grad_tol=PARTIAL_SUMS_GRAD_TOL, card=card())
     flagged = add(step_launches("train", True, "int8", 6, layers=1),
                   step_launches("critic", True, "int8", 6, layers=1),
                   step_launches("eval", True, "int8", 4, layers=1))
@@ -5337,6 +5392,10 @@ def mesh_phase(root: str):
                      card=card(), seconds=results[case]["readings_s"], **r)
             require(ranks[0]["scores"] == ranks[1]["scores"],
                     f"mesh {case}: the ranks' scores differ")
+            if case == "seq_shard":
+                seq_memory_emit(results[case]["memory"], backend, 2)
+                emit(phase="mesh", step="seq_memory_seconds",
+                     seconds=results[case]["memory_s"])
             if case == "data":
                 for r in ranks:
                     require(tuple(r["launches"]) == flagged,
@@ -5351,6 +5410,425 @@ def mesh_phase(root: str):
         emit(phase="mesh", step="one_rank_nccl", card=card(), **one)
         launches = add(launches, tuple(one["launches"]))
     return launches
+
+
+# ---------------------------------------------------------------------- #
+# The step-cost split (tools/decompose.py), a mimrl_tpu slot resumed, the
+# host library (native/), sequence parallelism's memory, per-rank busy
+
+DECOMPOSE_SHAPES = (  # (label, the BENCH_* shape, --use_pallas)
+    ("bf16", dict(bs=BATCH, time_len=TIME_LEN, bert_layers=12,
+                  dtype="bfloat16", quant="none"), False),
+    ("bf16_int8_pallas", dict(bs=BATCH, time_len=TIME_LEN, bert_layers=12,
+                              dtype="bfloat16", quant="int8"), True),
+    # recipes/run2_manifest.json's mosi_Dec shape (float32 by default)
+    ("f32_bs64_t150", dict(bs=64, time_len=150, bert_layers=12,
+                           dtype="float32", quant="none"), False),
+)
+DECOMPOSE_STEPS = 3  # timed calls per piece, after one warm-up call
+# tests/fixtures/mimrl_tpu_slot: the layout of a mimrl_tpu `latest` (2
+# epochs of the config beside it on this DeclareLab split), filled from a
+# seed here; tests/test_torch_checkpoint.py holds it against a slot that
+# the JAX package writes
+JAX_SLOT_SPLIT = (6, 5, 11)
+JAX_SLOT_TOL = 1e-4  # card against CPU, relative to 1 + |value| (float32)
+SEQ_READ_LAYERS = 12  # the --seq_shard memory reading: the canonical depth
+
+
+def decompose_phase() -> tuple:
+    """``tools/decompose.py`` at DECOMPOSE_SHAPES on the card: JAX's text
+    lines and one record per shape (every piece eager and, for the four
+    steps the rungs replay, replayed; busy ms), the counts of all four
+    kernels. Returns the launches of the decompose runs."""
+    import math
+
+    import torch
+
+    from mimrl_tpu_torch.tools import decompose
+
+    zero_counts()
+    for label, shape, pallas in DECOMPOSE_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        before, t0 = counts(), time.perf_counter()
+        result = decompose.decompose(shape, DECOMPOSE_STEPS, 1, 1, pallas)
+        print(decompose.report(result), flush=True)
+        bad = [k for k, r in result["pieces"].items()
+               if not (math.isfinite(r["ms"]) and r["ms"] > 0)]
+        require(not bad, f"decompose {label}: pieces {bad} not timed")
+        emit(phase="decompose", step=label, card=card(),
+             seconds=time.perf_counter() - t0,
+             launches=sub(counts(), before), **result)
+    launches = counts()
+    attention_instances("decompose", launches)
+    int8_instances("decompose", launches)
+    axis_mlp_instances("decompose", launches)
+    require(all(c > 0 for c in launches),
+            f"decompose: a kernel was never launched: {launches}")
+    return launches
+
+
+def jax_slot_resume(root: str, device=None) -> dict:
+    """``--resume`` of a ``mimrl_tpu`` msgpack ``latest`` on the card and
+    on the CPU in this call: the fixture's layout filled from a seed and
+    written in flax's format (``core/flax_msgpack.py``), resumed by a
+    Solver on each device; then the epoch after it at step level, stage 2
+    (train steps with MI) and a stage-1 critic step, with the same kNN
+    anchors drawn on the host for both (the config's dropout is off); the
+    card's losses and MI values within JAX_SLOT_TOL of the CPU's, and a
+    resume that takes optax's nu as mu (on the card) must miss that limit
+    tenfold. ``device``: the card (None) or, to rehearse, the CPU."""
+    import json
+    import math
+    import os
+
+    import numpy as np
+    import torch
+
+    from mimrl_tpu_torch.core import flax_msgpack
+    from mimrl_tpu_torch.core.config import MimrlConfig
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.models import convert
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "mimrl_tpu_slot")
+    base = f"{root}/jax_slot"
+    data, run = f"{base}/data", f"{base}/run"
+    os.makedirs(run, exist_ok=True)
+    make_dec_fixture(data, "mosi", n_per_split=JAX_SLOT_SPLIT, max_len=15,
+                     seed=3)
+    with open(f"{fixture}/skeleton.json") as f:
+        slot = flax_msgpack.seeded_tree(json.load(f), 0)
+    flax_msgpack.write(f"{run}/latest_model.msgpack", slot)
+    with open(f"{fixture}/config.json") as f:
+        cfg_json = f.read()
+    with open(f"{run}/config.json", "w") as f:
+        f.write(cfg_json)
+    cfg = MimrlConfig.from_json(cfg_json).replace(
+        data_dir=data, task_dir=base, resume=run)
+
+    def resumed(device, name):
+        solver = Solver(cfg.replace(task_name=name), device=device)
+        solver.writer.close()
+        return solver
+
+    cpu = resumed("cpu", "cpu")
+    batches = list(cpu.train_loader)
+    bs, k = cfg.batch_size, cfg.k_neighbor
+    valid = int(cpu.bank.valid.sum())
+    rng = np.random.default_rng(7)
+    anchors = [{name: torch.from_numpy(rng.choice(valid, bs // k,
+                                                  replace=False))
+                for name in ("ac_t", "ta_c", "vc_t", "tv_c", "tc_a", "tc_v")}
+               for _ in range(len(batches) + 1)]
+
+    def epoch(solver):
+        """Stage 2 then stage 1 from the resumed state: the train steps'
+        losses and MI values, then the first critic step's (the later
+        ones read critics that Adam moved on rounding noise: the seeded
+        moments are small, and some critic gradients are zero in exact
+        arithmetic)."""
+        dev = solver.device
+        out = []
+        solver.new_bank.zero_()
+        for i, b in enumerate(batches):
+            mb, labels, _ = solver._prep(b)
+            knn = {n: a.to(dev) for n, a in anchors[i].items()}
+            loss, mis, _ = steps.train_step(
+                solver.model, solver.opt_main, solver.opt, mb, labels,
+                solver.bank, solver.new_bank, i * bs, None, True, knn)
+            out += [loss.item()] + mis.tolist()
+        mb, labels, _ = solver._prep(batches[0])
+        knn = {n: a.to(dev) for n, a in anchors[len(batches)].items()}
+        loss, mis = steps.critic_step(solver.model, solver.opt_vmi,
+                                      solver.opt, mb, labels, solver.bank,
+                                      None, knn)
+        return np.asarray(out + [loss.item()] + mis.tolist())
+
+    def gap(got, want):
+        g = np.abs(got - want) / (1.0 + np.abs(want))
+        return float(g.max()) if np.isfinite(g).all() else math.inf
+
+    want = epoch(cpu)
+    card_solver = resumed(device, "card")
+    state = dict(start_epoch=card_solver.start_epoch,
+                 loader_passes=card_solver.train_loader.passes,
+                 count_main=card_solver.opt_main.count.item(),
+                 count_vmi=card_solver.opt_vmi.count.item(),
+                 mu_dtype=str(card_solver.opt_main.mu.dtype))
+    got = epoch(card_solver)
+    del card_solver
+    moment_trees = convert._moment_trees
+
+    def nu_as_mu(opt_state, what):
+        count, mu, _ = moment_trees(opt_state, what)
+        return count, mu, _widened(mu)
+
+    with patched([(convert, "_moment_trees", nu_as_mu)]):
+        faulty = resumed(device, "nu_as_mu")
+    fault = epoch(faulty)
+    del faulty, cpu
+    log = open(f"{base}/card/Running.log").read()
+    record = dict(phase="resume", step="mimrl_tpu_slot", card=card(),
+                  slot_bytes=os.path.getsize(f"{run}/latest_model.msgpack"),
+                  values=len(want), gap=gap(got, want),
+                  gap_per_value=(np.abs(got - want)
+                                 / (1.0 + np.abs(want))).tolist(),
+                  fault_gap=gap(fault, want), limit=JAX_SLOT_TOL,
+                  log=[ln for ln in log.splitlines()
+                       if "mimrl_tpu slot" in ln], **state)
+    emit(**record)
+    require(record["gap"] <= JAX_SLOT_TOL,
+            f"mimrl_tpu slot resumed: card against CPU {record['gap']}")
+    require(record["fault_gap"] >= 10 * JAX_SLOT_TOL,
+            f"the nu-as-mu fault moved the epoch by {record['fault_gap']} "
+            "only")
+    return record
+
+
+def _widened(tree):
+    """A slot subtree with bfloat16 leaves as float32 tensors."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _widened(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float()
+    return tree
+
+
+def native_check(root: str) -> dict:
+    """The host library (``native/collate.cpp``, built with g++ at first
+    use) against the numpy forms at MOSI's split: each split's padded
+    audio and video and its token ids (a vocab.txt tokenizer, so the
+    WordPiece encoder runs in C++) bit for bit, and the host ms of each."""
+    import os
+
+    import numpy as np
+
+    from mimrl_tpu_torch import native
+    from mimrl_tpu_torch.data import pipeline
+    from mimrl_tpu_torch.data.declab import load_dec_dataset
+    from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.data.tokenizer import (SPECIAL_TOKENS,
+                                                WordPieceTokenizer)
+
+    data = f"{root}/native_mosi"
+    make_dec_fixture(data, "mosi", n_per_split=MOSI_SPLIT, d_audio=5,
+                     d_video=20, max_len=TIME_LEN + 1, seed=4)
+    splits = {m: load_dec_dataset("mosi_Dec", m, data)
+              for m in ("train", "valid", "test")}
+    words = sorted({w.lower() for ds in splits.values()
+                    for ws in ds.text_words for w in ws})
+    # half the words whole, the rest as a first letter and a suffix piece
+    pieces = words[::2] + sorted({w[0] for w in words[1::2]}
+                                 | {"##" + w[1:] for w in words[1::2] if w[1:]})
+    vocab = os.path.join(data, "vocab.txt")
+    with open(vocab, "w") as f:
+        f.write("\n".join(SPECIAL_TOKENS + pieces) + "\n")
+    tok = WordPieceTokenizer.from_vocab_file(vocab)
+    out = {}
+    for mode, ds in splits.items():
+        before = dict(native.calls)
+        t0 = time.perf_counter()
+        pipe = pipeline.BatchPipeline(ds, BATCH, TIME_LEN, tokenizer=tok)
+        native_ms = 1e3 * (time.perf_counter() - t0)
+        calls = {k: native.calls[k] - before[k] for k in before}
+        texts = [" ".join(w[:TIME_LEN]) for w in ds.text_words]
+        t0 = time.perf_counter()
+        plain = (pipeline._pad_stack_plain(ds.audio, TIME_LEN),
+                 pipeline._pad_stack_plain(ds.video, TIME_LEN),
+                 *tok.batch_encode_plain(texts, TIME_LEN))
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        got = (pipe._audio, pipe._video, *pipe._tokens)
+        equal = all(np.array_equal(g, w) and g.dtype == w.dtype
+                    for g, w in zip(got, plain))
+        unk = float((got[2] == tok.unk_id).mean())
+        out[mode] = dict(samples=len(ds), native_ms=native_ms,
+                         plain_ms=plain_ms, calls=calls, bit_equal=equal,
+                         unk_share=unk)
+        require(equal, f"native {mode}: differs from the numpy forms")
+        require(calls["pad_stack"] == 2 and calls["tokenizer"] == 1,
+                f"native {mode}: the loader did not take the library "
+                f"({calls})")
+    emit(phase="families", step="native", library=str(native.library_path()),
+         vocab_tokens=len(SPECIAL_TOKENS) + len(pieces), **out)
+    return out
+
+
+def busy_readings(prof, union_ms: float) -> dict:
+    """A rank's busy readings of one profiled step: the union of every
+    device record (``eager_step_busy_ms``) and this rank's own records by
+    correlation (``eager_step_own``: ``own_device_ms``); on a card that two
+    ranks share both keys end in ``_shared``: a record's span there also
+    holds the time the card ran the other rank's work."""
+    import torch
+
+    tag = "_shared" if torch.cuda.device_count() < 2 else ""
+    return {f"eager_step_busy_ms{tag}": union_ms,
+            f"eager_step_own{tag}": own_device_ms(prof)}
+
+
+def own_device_ms(prof) -> dict:
+    """This process's device time in a profile, by the records' correlation
+    to the CUDA runtime calls it made (kineto's correlation ids): the
+    union of its kernels' spans and that of its copies and memsets, and
+    the device records it could not tie to a call of its own. On one card
+    shared by two ranks a record's span also holds the time the card gave
+    the other process, so these are labelled shared there."""
+    import torch
+
+    events = list(prof.profiler.kineto_results.events())
+    cpu = torch.autograd.DeviceType.CPU
+    calls = {e.correlation_id() for e in events
+             if e.device_type() == cpu and e.correlation_id()}
+    kernels, copies, loose = [], [], 0
+    for e in events:
+        if e.device_type() == cpu:
+            continue
+        ids = {e.correlation_id(), e.linked_correlation_id()} - {0}
+        if not ids & calls:
+            loose += 1
+            continue
+        span = (e.start_ns(), e.start_ns() + e.duration_ns())
+        name = e.name().lower()
+        (copies if "memcpy" in name or "memset" in name else kernels).append(
+            span)
+
+    def union_ms(spans):
+        total, end = 0, None
+        for a, b in sorted(spans):
+            if end is None or a > end:
+                total += b - a
+                end = b
+            elif b > end:
+                total += b - end
+                end = b
+        return total / 1e6
+
+    return dict(kernels_ms=union_ms(kernels), copies_ms=union_ms(copies),
+                kernel_records=len(kernels), copy_records=len(copies),
+                uncorrelated_records=loose)
+
+
+def seq_memory_rank(rank, device, data, root, n_model):
+    """One rank of the ``--seq_shard`` memory reading: on ``data 1 x model
+    n_model``, without and then with ``--seq_shard``, the canonical bf16
+    recipe at SEQ_READ_LAYERS BERT layers, one eager train_step to warm
+    up and one timed: its ms and the peak memory it allocated, and the
+    memory held before it (parameters, moments, banks). Returns (rank 0)
+    every rank's readings."""
+    import torch
+    import torch.distributed as dist
+
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.solver import Solver
+
+    mine = []
+    for seq in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        argv = mesh_argv(data, "--mesh_data", "1", "--mesh_model",
+                         str(n_model), "--bert_layers", str(SEQ_READ_LAYERS),
+                         "--task_dir", f"{root}/runs", "--task_name",
+                         f"seq_memory_{int(seq)}", "--no_save_models",
+                         *(["--seq_shard"] if seq else []))
+        solver = Solver(parse_args(argv), device=device)
+        mb, labels, _ = solver._prep(next(iter(solver.train_loader)))
+
+        def step():
+            steps.train_step(solver.model, solver.opt_main, solver.opt, mb,
+                             labels, solver.bank, solver.new_bank, 0,
+                             solver.generator, True)
+            torch.cuda.synchronize(device)
+
+        step()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        t0 = time.perf_counter()
+        step()
+        mine.append(dict(
+            rank=rank, seq_shard=seq, mesh=repr(solver.mesh),
+            step_ms=1e3 * (time.perf_counter() - t0),
+            peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+            held_gb=held / 1e9, blocks=len(solver.model_blocks)))
+        del solver, mb, labels
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def whole_by_choice(n_model: int) -> dict:
+    """The parameters that JAX's ``param_sharding_rule`` would split over
+    ``model`` and the port holds whole on every rank on purpose (the
+    critics' MLPs, ``W_t``, the GRUs, CubeMLP: ``shard_params`` splits
+    only BERT's four dense kernels and the experts), at the canonical
+    recipe: their float32 bytes, and what splitting them with Adam's
+    moments (bf16 mu, float32 nu) would save a rank."""
+    from mimrl_tpu_torch.core.config import parse_args
+    from mimrl_tpu_torch.models.model import build_model
+    from mimrl_tpu_torch.parallel.mesh import (MODEL_AXIS, Mesh,
+                                               _sharded_forward, param_specs)
+
+    model = build_model(parse_args(CANONICAL_MOSI + CANONICAL_TRAIN),
+                        MESH_VOCAB, 5, 20, "meta")
+    params = dict(model.named_parameters())
+    whole = sum(params[n].numel() for n, spec in param_specs(
+        Mesh({MODEL_AXIS: n_model}), model).items()
+                if MODEL_AXIS in spec and not _sharded_forward(n))
+    return dict(model=n_model, whole_param_bytes=4 * whole,
+                saved_per_rank_bytes=(4 + 2 + 4) * whole * (1 - 1 / n_model))
+
+
+def seq_memory_emit(ranks, backend: str, n_model: int) -> None:
+    """The ``--seq_shard`` memory readings, per rank; the peak with it
+    must be lower than without it on every rank."""
+    emit(phase="mesh", step="held_whole", **whole_by_choice(n_model))
+    for per_rank in ranks:
+        off, on = per_rank
+        emit(phase="mesh", step="seq_memory", backend=backend,
+             model=n_model, card=card(), rank=off["rank"],
+             peak_gb=dict(whole=off["peak_gb"], seq_shard=on["peak_gb"]),
+             saved_gb=off["peak_gb"] - on["peak_gb"],
+             held_gb=dict(whole=off["held_gb"], seq_shard=on["held_gb"]),
+             step_ms=dict(whole=off["step_ms"], seq_shard=on["step_ms"]),
+             blocks=dict(whole=off["blocks"], seq_shard=on["blocks"]),
+             mesh=on["mesh"])
+        require(on["peak_gb"] < off["peak_gb"],
+                f"--seq_shard rank {off['rank']}: peak {on['peak_gb']} GB, "
+                f"not below {off['peak_gb']} GB without it")
+
+
+def order_controls(argv, root: str, device: str = "cuda:0") -> dict:
+    """The one-card canonical run of ``argv`` four times: as it is, with
+    every forward's rows in two blocks summed in the other order
+    (``check._split_forward``: the data axis's order), with BERT's stack
+    on the pipeline's microbatches (``check._micro_forward``: the pipe
+    axis's order), and with both (a ``data 2 x pipe 2`` rank's order),
+    through both epochs; each run's scores."""
+    from mimrl_tpu_torch.cli.main import main as cli_main
+    from mimrl_tpu_torch.parallel import check
+    from mimrl_tpu_torch.train import steps
+
+    out = {}
+    for name, forward in (("plain", None),
+                          ("rows_reordered", check._split_forward((1, 0))),
+                          ("microbatched", check._micro_forward(PIPE_MICRO)),
+                          ("both", check._split_forward((1, 0), PIPE_MICRO))):
+        patches = [] if forward is None else [(steps, "forward_batch",
+                                               forward)]
+        t0 = time.perf_counter()
+        with patched(patches):
+            out[name] = cli_main(argv + ["--mesh_data", "1", "--task_name",
+                                         f"control_{name}"], device=device)
+        emit(phase="mesh", step="order_control", run=name, card=card(),
+             wall_s=time.perf_counter() - t0, scores=out[name])
+    return out
 
 
 def mesh_main(cases) -> None:
@@ -5384,24 +5862,43 @@ def mesh_main(cases) -> None:
              launches=launches)
         if torch.cuda.device_count() < 4:
             return
+        from mimrl_tpu_torch.parallel.check import run_ranks
+
+        t0 = time.perf_counter()
+        seq_memory_emit(run_ranks(4, seq_memory_rank, (data, root, 4),
+                                  backend="nccl",
+                                  devices=[f"cuda:{i}" for i in range(4)],
+                                  store_dir=root), "nccl", 4)
+        emit(phase="mesh", step="seq_memory_seconds",
+             seconds=time.perf_counter() - t0)
         argv = mesh_argv(data, "--flash_attn", "on", "--bert_layers", "4",
                          "--epochs_num", "2", "--no_save_models",
                          "--save_latest_every", "0", "--task_dir",
                          f"{root}/runs")
-        for name, flags, device in (
-                ("one_card", ["--mesh_data", "1"], "cuda:0"),
-                ("data2_pipe2", ["--mesh_data", "2", "--mesh_pipe", "2",
-                                 "--pipe_microbatches", str(PIPE_MICRO)],
-                 None)):
-            t0 = time.perf_counter()
-            scores = cli_main(argv + flags + ["--task_name", name],
-                              device=device)
-            log = open(f"{root}/runs/{name}/Running.log").read()
-            require(all(math.isfinite(v) for r in scores for v in r.values()),
-                    f"cli {name}: scores {scores}")
-            emit(phase="mesh", step="cli", run=name, card=card(),
-                 wall_s=time.perf_counter() - t0, scores=scores,
-                 mesh=[ln for ln in log.splitlines() if "Mesh:" in ln])
+        # the spread that the reduction order alone moves on one card
+        controls = order_controls(argv, root)
+        t0 = time.perf_counter()
+        name = "data2_pipe2"
+        scores = cli_main(argv + ["--mesh_data", "2", "--mesh_pipe", "2",
+                                  "--pipe_microbatches", str(PIPE_MICRO),
+                                  "--task_name", name])
+        log = open(f"{root}/runs/{name}/Running.log").read()
+        require(all(math.isfinite(v) for r in scores for v in r.values()),
+                f"cli {name}: scores {scores}")
+        emit(phase="mesh", step="cli", run=name, card=card(),
+             wall_s=time.perf_counter() - t0, scores=scores,
+             mesh=[ln for ln in log.splitlines() if "Mesh:" in ln])
+        # MAE of the best valid, the best test and the test at the best
+        # valid epoch (cli.main's three scores)
+        plain = controls["plain"]
+        spread = [max(abs(c[i]["mae"] - plain[i]["mae"])
+                      for c in controls.values()) for i in range(3)]
+        gap = [abs(scores[i]["mae"] - plain[i]["mae"]) for i in range(3)]
+        emit(phase="mesh", step="four_card_gap", card=card(),
+             mae=dict({k: [r["mae"] for r in c] for k, c in controls.items()},
+                      four_cards=[r["mae"] for r in scores]),
+             control_spread=spread, four_card_gap=gap,
+             wider_than_spread=[g > c for g, c in zip(gap, spread)])
 
 
 def main() -> int:
@@ -5433,6 +5930,7 @@ def main() -> int:
 
     def done(phase):
         timeline[phase] = time.perf_counter() - t_run
+        emit(phase=phase, step="done", seconds_after_kernel=timeline[phase])
 
     fwd, bwd = kernel_phase()
     axis_mlp = axis_mlp_phase()
@@ -5441,6 +5939,10 @@ def main() -> int:
     # in the run the profiler has returned sessions without kernel records
     family_shapes = family_kernel_shapes()
     pipe_shapes = pipe_kernel_shapes()
+    # the float32 attention at recipes/run2_manifest.json's mosi_Dec shape,
+    # which decompose's third shape runs
+    emit(phase="decompose", step="kernel_shape", card=card(),
+         kernels=float32_attention_shape(64, 150))
     done("kernel")
     with tempfile.TemporaryDirectory() as root:
         task = write_run(root)
@@ -5457,10 +5959,20 @@ def main() -> int:
         quant_mode_steps(quant_argv)
         done("quant")
         resume = resume_phase(root)
+        jax_slot_resume(root)
         done("resume")
         rungs, rungs_quant = rungs_phase(root)
         done("rungs")
+        from mimrl_tpu_torch import native
+
+        for key in native.calls:
+            native.calls[key] = 0
         families = families_phase(root)
+        require(native.calls["pad_stack"] > 0,
+                f"families: the loaders did not pad through native/ "
+                f"({native.calls})")
+        emit(phase="families", step="native_path", calls=dict(native.calls))
+        native_check(root)
         done("families")
         fusions = fusions_phase(root)
         done("fusions")
@@ -5472,6 +5984,8 @@ def main() -> int:
         done("mi_bank")
         standalone_phase()
         done("standalone")
+        decompose = decompose_phase()
+        done("decompose")
         mesh = mesh_phase(root)
         done("mesh")
     emit(phase="timeline", seconds_after=timeline)
@@ -5487,7 +6001,8 @@ def main() -> int:
     paths = dict(serve=serve, train=train, serve_quant=serve_quant,
                  train_quant=quant, resume=resume, rungs=rungs,
                  rungs_quant=rungs_quant, families=families, fusions=fusions,
-                 hooks=hooks, group=group, mi_bank=mi_bank, mesh=mesh)
+                 hooks=hooks, group=group, mi_bank=mi_bank, mesh=mesh,
+                 decompose=decompose)
     records = (fwd, bwd, axis_mlp, int8)
     sources = ("flash_attention_fwd.cu", "flash_attention_bwd.cu",
                "cubemlp_axis_mlp.cu", "int8_matmul_wgmma.cu")
@@ -5521,7 +6036,7 @@ def main() -> int:
             "launches_serve_quant", "launches_train_quant", "launches_resume",
             "launches_rungs", "launches_rungs_quant", "launches_families",
             "launches_fusions", "launches_hooks", "launches_group",
-            "launches_mi_bank", "launches_mesh",
+            "launches_mi_bank", "launches_mesh", "launches_decompose",
             "library_ms_dw_layer", "library_profiler_ms_dw_layer", "shapes",
             "shapes_families", "shapes_pipe")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}

@@ -108,6 +108,29 @@ def local_slot(mesh, model, optimizers: Dict, slot: Dict) -> Dict:
     return _convert(slot, model, optimizers, mesh, False)
 
 
+class WholeShapes:
+    """The model as ``models/convert.py`` reads it (``state_dict()`` for
+    names and shapes, ``named_parameters()`` for the parameters), with
+    the model-sharded parameters at their whole shapes: a ``mimrl_tpu``
+    slot converts to a slot of whole tensors, which ``local_slot`` cuts."""
+
+    def __init__(self, mesh, model) -> None:
+        self.model, self.n = model, mesh.shape["model"]
+
+    def named_parameters(self):
+        return self.model.named_parameters()
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        dims = {k: shard_dim(p) for k, p in self.model.named_parameters()}
+        out = {}
+        for k, v in self.model.state_dict().items():
+            shape = list(v.shape)
+            if dims.get(k) is not None:
+                shape[dims[k]] *= self.n
+            out[k] = torch.empty(shape, device="meta")
+        return out
+
+
 class CheckpointManager:
     """The slots and config of one run directory; ``write=False`` (a mesh
     rank other than 0) reads and writes nothing."""

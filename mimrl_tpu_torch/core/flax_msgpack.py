@@ -19,6 +19,16 @@ which numpy has no dtype for (the bytes are read as ``uint16`` and viewed
 as ``torch.bfloat16``). Sequences come back as lists, maps as dicts.
 A byte, extension type or dtype that this module does not know raises
 ``ValueError``.
+
+``msgpack_serialize`` is the inverse for such trees, byte for byte what
+``flax.serialization.msgpack_serialize`` writes (msgpack's smallest
+encodings, floats as doubles; an ndarray as extension 1, a numpy scalar
+as extension 3; no array above flax's chunk size): a program or a test
+that has no flax can write a slot in ``mimrl_tpu``'s format with it.
+``skeleton`` keeps a tree's layout (every array's dtype and shape, the
+values of the small ones, the plain values) as JSON, and ``seeded_tree``
+refills it from a seed: a ``mimrl_tpu`` slot of a given config, with
+seeded values, where the slot itself would be too large to keep.
 """
 
 from __future__ import annotations
@@ -175,3 +185,192 @@ def read(path: str) -> Any:
     """``msgpack_restore`` of a file."""
     with open(path, "rb") as f:
         return msgpack_restore(f.read())
+
+
+_MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
+
+
+def _sized(out: bytearray, n: int, small, markers) -> None:
+    """The header of a sized item: ``small`` (a fixed-size marker base
+    and its limit) or the first of ``markers`` ((marker, width), ...)
+    whose width holds ``n``."""
+    if small is not None and n < small[1]:
+        out.append(small[0] | n)
+        return
+    for marker, width in markers:
+        if n < 1 << (8 * width):
+            out.append(marker)
+            out += n.to_bytes(width, "big")
+            return
+    raise ValueError(f"msgpack: an item of {n} entries is too long")
+
+
+def _pack_int(out: bytearray, x: int) -> None:
+    if 0 <= x < 0x80:
+        out.append(x)
+    elif -32 <= x < 0:
+        out.append(x & 0xff)
+    elif x >= 0:
+        for marker, fmt, top in ((0xcc, ">B", 1 << 8), (0xcd, ">H", 1 << 16),
+                                 (0xce, ">I", 1 << 32), (0xcf, ">Q", 1 << 64)):
+            if x < top:
+                out.append(marker)
+                out += struct.pack(fmt, x)
+                return
+        raise ValueError(f"msgpack: integer {x} out of range")
+    else:
+        for marker, fmt, low in ((0xd0, ">b", -(1 << 7)), (0xd1, ">h", -(1 << 15)),
+                                 (0xd2, ">i", -(1 << 31)), (0xd3, ">q", -(1 << 63))):
+            if x >= low:
+                out.append(marker)
+                out += struct.pack(fmt, x)
+                return
+        raise ValueError(f"msgpack: integer {x} out of range")
+
+
+def _pack_ext(out: bytearray, code: int, payload: bytes) -> None:
+    n = len(payload)
+    fixed = {1: 0xd4, 2: 0xd5, 4: 0xd6, 8: 0xd7, 16: 0xd8}
+    if n in fixed:
+        out.append(fixed[n])
+    else:
+        _sized(out, n, None, ((0xc7, 1), (0xc8, 2), (0xc9, 4)))
+    out += struct.pack(">b", code)
+    out += payload
+
+
+def _array_payload(x) -> bytes:
+    """flax's ``_ndarray_to_bytes``: msgpack ``[shape, dtype name, C-order
+    bytes]``; a bfloat16 torch tensor as numpy would hold it."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.bfloat16:
+            x = x.numpy()
+        else:
+            shape, raw = list(x.shape), x.contiguous().view(torch.int16).numpy().tobytes()
+            return _pack([shape, "bfloat16", raw])
+    if x.dtype.hasobject or x.dtype.fields is not None:
+        raise ValueError(f"msgpack: unsupported dtype {x.dtype}")
+    if x.nbytes > _MAX_CHUNK_SIZE:
+        raise ValueError("msgpack: arrays above flax's chunk size are "
+                         "written in chunks, which this writer does not do")
+    return _pack([list(x.shape), x.dtype.name, x.tobytes("C")])
+
+
+def _pack_into(out: bytearray, x: Any) -> None:
+    if x is None:
+        out.append(0xc0)
+    elif x is True or x is False:
+        out.append(0xc3 if x else 0xc2)
+    elif type(x) is int:
+        _pack_int(out, x)
+    elif type(x) is float:
+        out.append(0xcb)
+        out += struct.pack(">d", x)
+    elif type(x) is str:
+        raw = x.encode("utf-8")
+        _sized(out, len(raw), (0xa0, 32), ((0xd9, 1), (0xda, 2), (0xdb, 4)))
+        out += raw
+    elif type(x) is bytes:
+        _sized(out, len(x), None, ((0xc4, 1), (0xc5, 2), (0xc6, 4)))
+        out += x
+    elif type(x) is list:
+        _sized(out, len(x), (0x90, 16), ((0xdc, 2), (0xdd, 4)))
+        for item in x:
+            _pack_into(out, item)
+    elif type(x) is dict:
+        _sized(out, len(x), (0x80, 16), ((0xde, 2), (0xdf, 4)))
+        for key, value in x.items():
+            _pack_into(out, key)
+            _pack_into(out, value)
+    elif isinstance(x, (np.ndarray, torch.Tensor)):
+        _pack_ext(out, _EXT_NDARRAY, _array_payload(x))
+    elif isinstance(x, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _array_payload(np.asarray(x)))
+    elif type(x) is complex:
+        _pack_ext(out, _EXT_COMPLEX, _pack([x.real, x.imag]))
+    else:
+        raise ValueError(f"msgpack: cannot write a {type(x).__name__}")
+
+
+def _pack(x: Any) -> bytes:
+    out = bytearray()
+    _pack_into(out, x)
+    return bytes(out)
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """``tree`` (dicts with string keys, lists, Python scalars, numpy
+    arrays and scalars, bfloat16 torch tensors) in flax's msgpack format."""
+    return _pack(tree)
+
+
+def write(path: str, tree: Any) -> None:
+    """``msgpack_serialize`` of ``tree`` into a file."""
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(tree))
+
+
+SKELETON_VALUES = 64  # arrays up to this many entries keep their values
+
+
+def skeleton(tree: Any) -> Any:
+    """The JSON layout of a tree: an array leaf becomes ``{"dtype",
+    "shape"}`` (and ``"values"``, flat, up to ``SKELETON_VALUES``
+    entries; a numpy scalar also ``"scalar": true``); dicts, lists and
+    plain values stay."""
+    if isinstance(tree, dict):
+        return {k: skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [skeleton(v) for v in tree]
+    if isinstance(tree, (np.ndarray, np.generic, torch.Tensor)):
+        bf16 = isinstance(tree, torch.Tensor)
+        arr = tree.float().numpy() if bf16 else np.asarray(tree)
+        out = {"dtype": "bfloat16" if bf16 else arr.dtype.name,
+               "shape": list(arr.shape)}
+        if isinstance(tree, np.generic):
+            out["scalar"] = True
+        if arr.size <= SKELETON_VALUES:
+            out["values"] = arr.reshape(-1).tolist()
+        return out
+    return tree
+
+
+def _is_leaf(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) >= {"dtype", "shape"} and (
+        set(node) <= {"dtype", "shape", "values", "scalar"})
+
+
+def seeded_tree(layout: Any, seed: int) -> Any:
+    """A tree of ``skeleton``'s layout whose arrays keep their recorded
+    values or are drawn from ``seed`` in the layout's order: under a path
+    holding ``nu`` squares of N(0, 1e-3) (Adam's second moment is not
+    negative), under ``mu`` N(0, 1e-3), a LayerNorm ``scale`` 1 + N(0,
+    0.02), the rest N(0, 0.05). bfloat16 leaves are torch tensors."""
+    rng = np.random.default_rng(seed)
+
+    def fill(node, path):
+        if _is_leaf(node):
+            shape = tuple(node["shape"])
+            if "values" in node:
+                arr = np.asarray(node["values"], np.float64).reshape(shape)
+            else:
+                x = rng.standard_normal(shape)
+                if "nu" in path:
+                    arr = (1e-3 * x) ** 2
+                elif "mu" in path:
+                    arr = 1e-3 * x
+                elif path[-1] == "scale":
+                    arr = 1.0 + 0.02 * x
+                else:
+                    arr = 0.05 * x
+            if node["dtype"] == "bfloat16":
+                return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+            arr = arr.astype(node["dtype"])
+            return arr[()] if node.get("scalar") else arr
+        if isinstance(node, dict):
+            return {k: fill(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [fill(v, path + (str(i),)) for i, v in enumerate(node)]
+        return node
+
+    return fill(layout, ())

@@ -9,8 +9,10 @@ word per sentence and epoch (ref: Customization.py:66-76) from the
 epoch's generator after its shuffle, and is tokenised then. A partial
 final batch is cycle-padded with samples from the epoch start, and
 ``sample_mask`` marks the real rows (1) against the padding (0);
-predictions and metrics keep only the real rows. Padding is done with
-numpy.
+predictions and metrics keep only the real rows. Padding runs in the
+C++ routine of ``native/`` (built at first use; a failed build raises),
+as the JAX package's does; ``_pad_stack_plain`` is the numpy form it is
+held against.
 """
 
 from __future__ import annotations
@@ -57,9 +59,20 @@ def _pad_time(x: np.ndarray, time_len: int) -> np.ndarray:
     return x.astype(np.float32)
 
 
-def _pad_stack(arrays, time_len: int) -> np.ndarray:
-    """[len_i, d] list -> [n, time_len, d]."""
+def _pad_stack_plain(arrays, time_len: int) -> np.ndarray:
+    """[len_i, d] list -> [n, time_len, d] float32, in numpy."""
     return np.stack([_pad_time(a, time_len) for a in arrays])
+
+
+def _pad_stack(arrays, time_len: int) -> np.ndarray:
+    """``_pad_stack_plain`` by ``native.pad_stack`` for 2-D arrays (every
+    loader's features); arrays of another number of dimensions take the
+    numpy form, as in JAX."""
+    if arrays and all(np.ndim(a) == 2 for a in arrays):
+        from mimrl_tpu_torch import native
+
+        return native.pad_stack(arrays, time_len)
+    return _pad_stack_plain(arrays, time_len)
 
 
 class BatchPipeline:

@@ -1,9 +1,13 @@
-"""BERT-compatible WordPiece tokenizer (host-side, pure Python; the
-port's copy of ``mimrl_tpu.data.tokenizer`` without the native encoder).
+"""BERT-compatible WordPiece tokenizer (host-side; the port's copy of
+``mimrl_tpu.data.tokenizer``).
 
 Loads a standard ``vocab.txt`` when one is given and otherwise falls
 back to a deterministic hash-bucket vocabulary, so every pipeline
-produces valid, static-shape token ids with no files.
+produces valid, static-shape token ids with no files. A ``vocab.txt``
+tokenizer encodes batches with the C++ encoder of ``native/`` (built at
+first use; a failed build raises), as the JAX package's does;
+``batch_encode_plain`` is the Python form it is held against, and the
+hash vocabulary always takes it.
 
 ``encode(..., max_length, pad_to_max)`` reproduces the
 ``encode_plus(max_length=SENT_LEN, truncation=True, padding='max_length')``
@@ -65,13 +69,31 @@ class WordPieceTokenizer:
         self.vocab_size = max(vocab.values()) + 1
         self._hash_fallback = hash_fallback
 
+        self._native = None
+
     @classmethod
-    def from_vocab_file(cls, path: str, lower: bool = True) -> "WordPieceTokenizer":
+    def from_vocab_file(cls, path: str, lower: bool = True
+                        ) -> "WordPieceTokenizer":
         vocab: Dict[str, int] = {}
         with open(path, encoding="utf-8") as f:
             for i, line in enumerate(f):
                 vocab[line.rstrip("\n")] = i
-        return cls(vocab, lower=lower)
+        tok = cls(vocab, lower=lower)
+        tok.attach_native()
+        return tok
+
+    def attach_native(self) -> None:
+        """Encode batches with ``native.NativeWordPiece`` from now on;
+        the ids the vocabulary skips are named ``[unused{i}]``, as in
+        JAX's ``_try_native``."""
+        from mimrl_tpu_torch.native import NativeWordPiece
+
+        tokens = [f"[unused{i}]" for i in range(self.vocab_size)]
+        for tok_str, idx in self.vocab.items():
+            tokens[idx] = tok_str
+        self._native = NativeWordPiece(tokens, self.pad_id, self.unk_id,
+                                       self.cls_id, self.sep_id, self.lower,
+                                       plain=self.encode)
 
     @classmethod
     def hash_fallback(cls, vocab_size: int = 30522, lower: bool = True
@@ -132,6 +154,12 @@ class WordPieceTokenizer:
         return ids, types, mask
 
     def batch_encode(self, texts: List[str], max_length: int):
+        """(ids, type ids, attention mask), each ``[n, max_length]`` int32."""
+        if self._native is not None:
+            return self._native.batch_encode(texts, max_length)
+        return self.batch_encode_plain(texts, max_length)
+
+    def batch_encode_plain(self, texts: List[str], max_length: int):
         out_ids, out_types, out_mask = [], [], []
         for t in texts:
             ids, types, mask = self.encode(t, max_length)

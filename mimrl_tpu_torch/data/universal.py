@@ -4,6 +4,8 @@ BatchPipelines plus per-modality feature dims (the port's counterpart of
 the four families: CMU-SDK (``mosi_SDK``, ``mosei_SDK``, ``pom_SDK``),
 DeclareLab (``mosi_Dec``, ``mosei_Dec``), AVEC2019 and the local dense
 datasets. Shuffle only the train split; drop_last applies only to train.
+``get_dataset_scales`` and ``test_all_dataset`` are the maintenance
+helpers of JAX's module (ref: DataLoaderUniversal.py:98-152).
 """
 
 from __future__ import annotations
@@ -107,3 +109,51 @@ def get_label_from_datas(opt: MimrlConfig, batch: Dict) -> np.ndarray:
     if dataset in ("mmmo", "mmmov2"):
         return labels[0] if task == "regression" else labels[1]
     raise NotImplementedError(dataset)
+
+
+def get_dataset_scales(datasets=None, **cfg_overrides):
+    """Per-modality min/max over every split of each dataset, the scan
+    that produced the frozen tables in ``registry`` (ref:
+    DataLoaderUniversal.py:98-126). Returns {name: (mins, maxs)}."""
+    datasets = datasets or registry.ALL_DATASETS
+    results = {}
+    for name in datasets:
+        kw = dict(dataset=name, text="glove", audio="covarep",
+                  video="facet42", time_len=200, normalize=[False] * 3,
+                  log_scale=[False] * 3, batch_size=1024, num_workers=0)
+        kw.update(cfg_overrides)
+        mins = [np.inf] * 3
+        maxs = [-np.inf] * 3
+        for loader in get_data_loader(MimrlConfig(**kw))[:3]:
+            for batch in loader:
+                mods = [batch.get("text"), batch["audio"], batch["video"]]
+                for i, m in enumerate(mods):
+                    if m is None:
+                        continue
+                    mins[i] = min(mins[i], float(m.min()))
+                    maxs[i] = max(maxs[i], float(m.max()))
+        results[name] = (mins, maxs)
+    return results
+
+
+def test_all_dataset(datasets=None, **cfg_overrides):
+    """Iterate one batch of every dataset's train split and check the
+    feature widths against the registry (ref: DataLoaderUniversal.py:
+    139-152); raises ``ValueError`` naming the dataset on a mismatch."""
+    datasets = datasets or registry.ALL_DATASETS
+    for name in datasets:
+        is_avec = name == "avec2019"
+        kw = dict(
+            dataset=name, text="glove",
+            audio="covarep" if not is_avec else "ds",
+            video="facet42" if not is_avec else "resnet",
+            normalize=[False, True, True], log_scale=[False, True, True],
+            time_len=100, batch_size=1024, num_workers=0)
+        kw.update(cfg_overrides)
+        train, _, _, _d_t, d_a, d_v = get_data_loader(MimrlConfig(**kw))
+        for batch in train:
+            for key, want in (("audio", d_a), ("video", d_v)):
+                if batch[key].shape[-1] != want:
+                    raise ValueError(f"{name}: {key} width "
+                                     f"{batch[key].shape[-1]}, registry {want}")
+            break

@@ -218,3 +218,18 @@ def current_result_better(best_score, current_score, task: str,
     if dataset != "avec2019":
         return current_score["mae"] < best_score["mae"]
     return current_score["ccc"] > best_score["ccc"]
+
+
+def get_seperate_acc(labels, predictions, num_class: int) -> str:
+    """Per-class accuracy string (ref: Utils.py:104-114; [sic] name)."""
+    alls = [0] * num_class
+    corrects = [0] * num_class
+    for label, prediction in zip(labels, predictions):
+        alls[int(label)] += 1
+        if label == prediction:
+            corrects[int(label)] += 1
+    accs = [
+        "{0:5.1f}%".format(100 * corrects[i] / alls[i]) if alls[i] else "  n/a"
+        for i in range(num_class)
+    ]
+    return ",".join(accs)

@@ -31,7 +31,15 @@ round trip) and both routes build the same Philox mask from it, as
 data-parallel mesh the mask's batch rows are the rank's global rows.
 
 On a mesh with a ``model`` axis (``parallel/mesh.py``) the four dense
-kernels hold column blocks (tensor parallelism). On a ``pipe`` axis
+kernels hold column blocks (tensor parallelism). Under ``--seq_shard``
+(``Mesh.seq_shard``) the tower runs sequence parallel: the embeddings,
+LayerNorms, hidden dropouts and residual adds on this rank's time slice,
+the sequence gathered before the fused QKV and the FFN up-projection
+(this rank's heads and hidden units), the attention output dense and the
+FFN down-projection on row blocks with their partial sums
+reduce-scattered back to the slice; attention takes the plain route with
+this rank's heads, its dropout the heads' rows of the whole mask
+(``head0``), and the output is gathered whole at the end. On a ``pipe`` axis
 ``parallel/pipeline.py`` runs the layers in stages over microbatches: it
 draws each layer's attention seed once per forward (``attention_seed``,
 in layer order, as this module draws them) and hands it to the layer.
@@ -114,6 +122,66 @@ def _tp(module: nn.Module, weight: torch.Tensor):
     return pmesh.mesh_of(module) if pmesh.shard_dim(weight) is not None else None
 
 
+def _part(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` under ``--seq_shard``: the
+    block ``shard_params`` holds, or a view of the whole parameter (whose
+    gradient is then this rank's part, summed over ``model``)."""
+    if pmesh.shard_dim(t) == dim:
+        return t
+    n = mesh.shape[pmesh.MODEL_AXIS]
+    block = t.shape[dim] // n
+    return t.narrow(dim, mesh.coords[pmesh.MODEL_AXIS] * block, block)
+
+
+class _PartialSums(torch.autograd.Function):
+    """``h @ w.T`` of low-precision ``h`` and ``w`` (cast to ``h``'s
+    dtype) accumulated and returned in float32: a row-parallel product's
+    partial sums, which ``seq_scatter`` adds in float32 before the one
+    rounding that the unsharded product makes. On the card ``torch.mm``'s
+    ``out_dtype``; on the CPU the float32 product of the same values (the
+    products of two bf16 values are exact in float32). The backward is the
+    unsharded product's own, in ``h``'s dtype."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        wd = w.to(h.dtype)
+        ctx.save_for_backward(h, wd)
+        ctx.w_dtype = w.dtype
+        h2 = h.reshape(-1, h.shape[-1])
+        if h.is_cuda:
+            out = torch.mm(h2, wd.t(), out_dtype=torch.float32)
+        else:
+            out = torch.mm(widen(h2), widen(wd).t())
+        return out.reshape(*h.shape[:-1], wd.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        h, wd = ctx.saved_tensors
+        gd = g.to(h.dtype)
+        gw = gd.reshape(-1, gd.shape[-1]).t().mm(h.reshape(-1, h.shape[-1]))
+        return gd.matmul(wd), gw.to(ctx.w_dtype)
+
+
+def _partial_sums(h: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+    """This rank's partial sums of a row-parallel product in float32 (the
+    unsharded product accumulates the whole input axis in float32 and
+    rounds once): ``_PartialSums`` in a low-precision ``dtype``, else the
+    float32 product."""
+    h = h.to(dtype)
+    if dtype in (torch.bfloat16, torch.float16):
+        return _PartialSums.apply(h, w)
+    return F.linear(widen(h), widen(w.to(dtype)))
+
+
+def _check_seq(c: "BertConfig", mesh) -> None:
+    n = mesh.shape[pmesh.MODEL_AXIS]
+    for what, size in (("attention heads", c.num_attention_heads),
+                       ("intermediate units", c.intermediate_size)):
+        if size % n:
+            raise ValueError(f"--seq_shard: {size} {what} do not split "
+                             f"over {n} ranks of model")
+
+
 class BertEmbeddings(nn.Module):
     def __init__(self, c: BertConfig, device=None):
         super().__init__()
@@ -128,14 +196,23 @@ class BertEmbeddings(nn.Module):
                                       device=device)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, input_ids, token_type_ids):
+    def forward(self, input_ids, token_type_ids, time=None):
+        """``time``: (first step, whole length) of a time slice
+        (``--seq_shard``): the slice's steps are embedded."""
         dt = self.config.dtype
-        pos_ids = torch.arange(input_ids.shape[1], device=input_ids.device)
+        t0 = 0
+        if time is not None:
+            t0, steps = time[0], input_ids.shape[1] // (
+                self.mesh.shape[pmesh.MODEL_AXIS])
+            input_ids = input_ids[:, t0:t0 + steps]
+            token_type_ids = token_type_ids[:, t0:t0 + steps]
+        pos_ids = torch.arange(t0, t0 + input_ids.shape[1],
+                               device=input_ids.device)
         x = (self.word_embeddings(input_ids).to(dt)
              + self.position_embeddings(pos_ids)[None].to(dt)
              + _rows_in_fixed_order(self.token_type_embeddings.weight,
                                     token_type_ids).to(dt))
-        return self.dropout(_layer_norm(self.LayerNorm, x, dt))
+        return self.dropout(_layer_norm(self.LayerNorm, x, dt), time=time)
 
 
 def _rows_in_fixed_order(table: torch.Tensor, ids: torch.Tensor
@@ -181,10 +258,25 @@ class BertSelfOutput(nn.Module):
                                       device=device)
         self.dropout = Dropout(c.hidden_dropout_prob)
 
-    def forward(self, h, residual):
+    def forward(self, h, residual, time=None):
+        """``time`` (``--seq_shard``): ``h`` holds this rank's heads or
+        hidden units over the whole sequence, ``residual`` the time slice;
+        the row-parallel product's partial sums are reduce-scattered to
+        the slice."""
         c = self.config
-        h = self.dropout(_dense(h, self.dense.weight, self.dense.bias, c,
-                                _tp(self, self.dense.weight)))
+        if time is not None:
+            mesh = self.mesh
+            part = _partial_sums(h, _part(self.dense.weight, mesh, 1), c.dtype)
+            # the bias joins the first rank's partial sums before the one
+            # rounding, as the unsharded product adds it before its own;
+            # its gradient (the whole sequence's) is then rounded once too
+            first = float(mesh.coords[pmesh.MODEL_AXIS] == 0)
+            bias = widen(self.dense.bias.to(c.dtype)) * first
+            h = self.dropout(pmesh.seq_scatter(part + bias, mesh).to(c.dtype),
+                             time=time)
+        else:
+            h = self.dropout(_dense(h, self.dense.weight, self.dense.bias, c,
+                                    _tp(self, self.dense.weight)))
         return _layer_norm(self.LayerNorm, h + residual, c.dtype)
 
 
@@ -195,9 +287,11 @@ class BertAttention(nn.Module):
         self.self = BertSelfAttention(c, device)
         self.output = BertSelfOutput(c.hidden_size, c, device)
 
-    def forward(self, x, attn_bias, generator=None, seed=None):
+    def forward(self, x, attn_bias, generator=None, seed=None, time=None):
         """``seed``: the layer's attention seed drawn already (the
-        pipeline's), else one is drawn from ``generator``."""
+        pipeline's), else one is drawn from ``generator``. ``time``
+        (``--seq_shard``): ``x`` is this rank's time slice, gathered for
+        the fused QKV of this rank's heads."""
         c = self.config
         bs, T, H = x.shape
         nh = c.num_attention_heads
@@ -205,9 +299,22 @@ class BertAttention(nn.Module):
         s = self.self
         # fused QKV projection: one [H, 3H] matmul instead of three (and, when
         # quantised, one [H, 3H] matrix with per-column scales)
-        w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
-        b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
-        qkv = _dense(x, w, b, c, _tp(self, s.query.weight), parts=3)
+        head0 = 0
+        if time is not None:
+            mesh = self.mesh
+            nh //= mesh.shape[pmesh.MODEL_AXIS]
+            head0 = mesh.coords[pmesh.MODEL_AXIS] * nh
+            T, H = time[1], nh * hd
+            w = torch.cat([_part(l.weight, mesh, 0)
+                           for l in (s.query, s.key, s.value)])
+            b = torch.cat([_part(l.bias, mesh, 0)
+                           for l in (s.query, s.key, s.value)])
+            qkv = F.linear(pmesh.seq_gather(x.to(c.dtype), mesh),
+                           w.to(c.dtype), b.to(c.dtype))
+        else:
+            w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
+            b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
+            qkv = _dense(x, w, b, c, _tp(self, s.query.weight), parts=3)
         q, k, v = (y.reshape(bs, T, nh, hd).transpose(1, 2).contiguous()
                    for y in qkv.split(H, dim=-1))
         p_rate = float(c.attention_probs_dropout_prob)
@@ -220,12 +327,13 @@ class BertAttention(nn.Module):
             raise ValueError(
                 f"BertConfig.flash_attn={c.flash_attn!r} (want auto|on|off)")
         row0 = pmesh.attention_batch_offset(self)
-        if c.flash_attn != "off":
+        if c.flash_attn != "off" and time is None:
             ctx = flash_attention(q, k, v, attn_bias, seed, p_rate, row0)
         else:
-            ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate, row0)
+            ctx = flash_attention_plain(q, k, v, attn_bias, seed, p_rate,
+                                        row0, head0)
         ctx = ctx.transpose(1, 2).reshape(bs, T, H).to(c.dtype)
-        return self.output(ctx, x)
+        return self.output(ctx, x, time)
 
 
 class BertIntermediate(nn.Module):
@@ -243,13 +351,18 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(c, device)
         self.output = BertSelfOutput(c.intermediate_size, c, device)
 
-    def forward(self, x, attn_bias, generator=None, seed=None):
-        x = self.attention(x, attn_bias, generator, seed)
+    def forward(self, x, attn_bias, generator=None, seed=None, time=None):
+        x = self.attention(x, attn_bias, generator, seed, time)
         up = self.intermediate.dense
-        h = F.gelu(_dense(x, up.weight, up.bias, self.config,
-                          _tp(self, up.weight)),
-                   approximate="none")
-        return self.output(h, x)
+        c = self.config
+        if time is not None:  # this rank's hidden units, the whole sequence
+            mesh = self.mesh
+            h = F.linear(pmesh.seq_gather(x.to(c.dtype), mesh),
+                         _part(up.weight, mesh, 0).to(c.dtype),
+                         _part(up.bias, mesh, 0).to(c.dtype))
+        else:
+            h = _dense(x, up.weight, up.bias, c, _tp(self, up.weight))
+        return self.output(F.gelu(h, approximate="none"), x, time)
 
 
 class BertEncoder(nn.Module):
@@ -276,11 +389,19 @@ class BertModel(nn.Module):
 
     def forward(self, input_ids, token_type_ids, attention_mask,
                 generator=None):
-        x = self.embeddings(input_ids, token_type_ids)
+        mesh = pmesh.mesh_of(self)
+        time = None
+        if mesh is not None and mesh.seq_shard:  # --seq_shard
+            _check_seq(self.config, mesh)
+            time = (pmesh.time_slice(mesh, input_ids.shape[1])[0],
+                    input_ids.shape[1])
+        x = self.embeddings(input_ids, token_type_ids, time)
         # additive bias in float32: 0 for valid keys, -1e9 for padding
         attn_bias = (1.0 - attention_mask[:, None, None, :].float()) * -1e9
         for layer in self.encoder.layer:
-            x = layer(x, attn_bias, generator)
+            x = layer(x, attn_bias, generator, time=time)
+        if time is not None:
+            x = pmesh.gather(x, mesh, (pmesh.MODEL_AXIS,), 1)
         return widen(x)
 
 

@@ -28,6 +28,14 @@ The classifier keeps the names ``MimrlModel`` creates (model.py:190-195):
 ``classifier``, or ``classifier_hidden`` + ``classifier``. A dense-text
 model has no ``bertmodel``, and its ``W_t`` kernel is [d_t, d_common].
 
+``optimizer_states_from_jax`` carries a slot's optax states onto
+``ChainOptimizer``'s flat moments: optax's ``mu`` and ``nu`` are trees in
+the parameters' layout, so they go through the same rules as the
+parameters (a transpose or a column block is as exact for a moment as for
+a weight), and are then laid out in the optimizer's parameter order, each
+in its own dtype (a bfloat16 ``mu`` stays bfloat16: the rules only move
+values). ``bank_state_from_jax`` carries the feature bank.
+
 The ``vmi_*``/``vcmi_*`` estimator groups are trees of Dense layers whose
 flax names are the port's module names
 (``vmi_estimator_f_t/critic_model/MLP_g/fc_in/kernel`` ->
@@ -242,3 +250,106 @@ def state_dict_from_jax_slot(slot: Dict, model: nn.Module) -> Dict[str, torch.Te
     for g in groups:
         params.update(slot[g])
     return state_dict_from_jax(params, model)
+
+
+def _as_numpy(tree):
+    """A slot subtree with its bfloat16 leaves (torch tensors from
+    ``core/flax_msgpack.py``) widened to float32 numpy, which is exact."""
+    if isinstance(tree, dict):
+        return {k: _as_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return tree
+
+
+def _moment_trees(opt_state: Dict, what: str):
+    """(count, mu tree, nu tree or None, mu dtype) of an optax state as
+    ``mimrl_tpu/train/optim.py`` builds it: ``inject_hyperparams`` around
+    a chain holding ``scale_by_adam`` (count, mu, nu) or, for SGD,
+    ``trace`` (its count is the outer one)."""
+    inner = opt_state.get("inner_state", {})
+    for node in inner.values() if isinstance(inner, dict) else ():
+        if not isinstance(node, dict):
+            continue
+        if "mu" in node and "nu" in node:
+            return node["count"], node["mu"], node["nu"]
+        if "trace" in node:
+            return opt_state["count"], node["trace"], None
+    raise ValueError(f"{what}: no scale_by_adam (count, mu, nu) or trace "
+                     f"state among {sorted(inner) if isinstance(inner, dict) else inner}")
+
+
+def _leaf_dtype(tree) -> torch.dtype:
+    leaf = tree
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    if isinstance(leaf, torch.Tensor):
+        return leaf.dtype
+    return torch.from_numpy(np.zeros(0, np.asarray(leaf).dtype)).dtype
+
+
+def optimizer_states_from_jax(slot: Dict, model: nn.Module,
+                              optimizers: Dict) -> Dict[str, Dict]:
+    """``ChainOptimizer.state_dict()`` of each optimizer of ``optimizers``
+    ({"opt_main": ..., "opt_vmi": ...}) from a ``mimrl_tpu`` slot's
+    ``opt_main_state`` / ``opt_vmi_state``, in the layout of the
+    parameter shapes that ``model.state_dict()`` gives (whole ones on a
+    mesh: ``core/checkpoint.py::WholeShapes``). Each moment keeps the
+    dtype the optimizer holds it in; a moment that the slot holds in
+    another dtype, or an optimizer of another kind, raises."""
+    keys = {"opt_main": "opt_main_state", "opt_vmi": "opt_vmi_state"}
+    trees = {name: _moment_trees(slot[keys[name]], keys[name])
+             for name in optimizers}
+    names = {id(p): n for n, p in model.named_parameters()}
+    moments = {}
+    for m in (1, 2):
+        merged: Dict = {}
+        for tree in trees.values():
+            if tree[m] is not None:
+                merged.update(_as_numpy(tree[m]))
+        moments[m] = state_dict_from_jax(merged, model) if merged else {}
+    out = {}
+    for name, opt in optimizers.items():
+        count, mu, nu = trees[name]
+        kind = "Adam" if nu is not None else "SGD"
+        if kind != opt.kind:
+            raise ValueError(f"{keys[name]} holds {kind} moments, this run's "
+                             f"optimizer is {opt.kind}")
+        state = {"kind": opt.kind,
+                 "sizes": [moments[1][names[id(p)]].numel()
+                           for p in opt.params],
+                 "count": torch.tensor(float(np.asarray(count)),
+                                       dtype=opt.count.dtype)}
+        for m, (field, dst) in enumerate((("mu", opt.mu), ("nu", opt.nu)), 1):
+            tree = (mu, nu)[m - 1]
+            if tree is None:
+                state[field] = torch.zeros(0, dtype=dst.dtype)
+                continue
+            if _leaf_dtype(tree) != dst.dtype:
+                raise ValueError(f"{keys[name]} {field} is {_leaf_dtype(tree)}, "
+                                 f"this run keeps it in {dst.dtype} "
+                                 "(--moment_dtype)")
+            state[field] = torch.cat([moments[m][names[id(p)]].reshape(-1)
+                                      for p in opt.params]).to(dst.dtype)
+        out[name] = state
+    return out
+
+
+def bank_state_from_jax(slot: Dict, bank) -> Dict[str, torch.Tensor]:
+    """``FeatureBank.state_dict()`` from a ``mimrl_tpu`` slot's ``bank``
+    (C, F, T, A, V in the bank's dtype; ``valid``, float32 in JAX, as the
+    port's bool). JAX's ``F`` is ``d_common`` wide, the port's
+    ``classify_dim`` wide; they are one width whenever the JAX run could
+    write its bank (the fused features are ``classify_dim`` wide), and a
+    slot of another width raises."""
+    src = _as_numpy(slot["bank"])
+    state = {}
+    for f in bank.FIELDS:
+        dst = getattr(bank, f)
+        x = torch.from_numpy(np.asarray(src[f])).to(dst.dtype)
+        if x.shape != dst.shape:
+            raise ValueError(f"bank field {f}: the slot's {tuple(x.shape)}, "
+                             f"this run's {tuple(dst.shape)}")
+        state[f] = x
+    state["valid"] = torch.from_numpy(np.asarray(src["valid"]) > 0.5)
+    return state

@@ -82,20 +82,21 @@ def _probabilities(q, k, bias):
     return e / e.sum(dim=-1, keepdim=True)
 
 
-def _keep_mask(q, seed, dropout_p, row0):
+def _keep_mask(q, seed, dropout_p, row0, head0=0):
     bs, nh, t, _ = q.shape
-    return dropout_keep_mask(seed, bs, nh, t, t, dropout_p, row0)
+    return dropout_keep_mask(seed, bs, nh, t, t, dropout_p, row0, head0)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: torch.Tensor,
                           seed: Optional[torch.Tensor] = None,
-                          dropout_p: float = 0.0, row0: int = 0
-                          ) -> torch.Tensor:
-    """The forward kernel's math in PyTorch ops (and the CPU route)."""
+                          dropout_p: float = 0.0, row0: int = 0,
+                          head0: int = 0) -> torch.Tensor:
+    """The forward kernel's math in PyTorch ops (and the CPU route);
+    ``head0``: the global head of q's head 0 (``--seq_shard``)."""
     p = _probabilities(q, k, bias)
     if dropout_p > 0.0:
-        p = torch.where(_keep_mask(q, seed, dropout_p, row0),
+        p = torch.where(_keep_mask(q, seed, dropout_p, row0, head0),
                         p * (1.0 / (1.0 - dropout_p)), 0.0)
     return torch.matmul(widen(p.to(q.dtype)), widen(v)).to(q.dtype)
 

@@ -61,11 +61,12 @@ def dropout_threshold(dropout_p: float) -> int:
 
 
 def dropout_bits(seed: torch.Tensor, bs: int, nh: int, t_q: int,
-                 t_k: int, row0: int = 0) -> torch.Tensor:
+                 t_k: int, row0: int = 0, head0: int = 0) -> torch.Tensor:
     """The 32-bit word of every (batch row, head, query, key), as int64
     [bs, nh, t_q, t_k] on the seed's device. ``seed``: one int64.
     ``row0``: the global batch row of row 0 (a data-parallel rank's rows
-    draw the bits of their rows of the whole batch)."""
+    draw the bits of their rows of the whole batch); ``head0``: likewise
+    the global head of head 0 (a rank's heads under ``--seq_shard``)."""
     dev = seed.device
     s = seed.reshape(()).to(torch.int64)
     key = (s & _MASK32, (s >> 32) & _MASK32)
@@ -77,14 +78,15 @@ def dropout_bits(seed: torch.Tensor, bs: int, nh: int, t_q: int,
         return torch.arange(n, dtype=torch.int64, device=dev).reshape(shape)
 
     zero = torch.zeros((bs, nh, t_q, n4), dtype=torch.int64, device=dev)
-    counter = (axis(n4, 3) + zero, axis(t_q, 2) + zero, axis(nh, 1) + zero,
-               axis(bs, 0) + row0 + zero)
+    counter = (axis(n4, 3) + zero, axis(t_q, 2) + zero,
+               axis(nh, 1) + head0 + zero, axis(bs, 0) + row0 + zero)
     words = torch.stack(philox4x32_10(counter, key), dim=-1)
     return words.reshape(bs, nh, t_q, n4 * 4)[..., :t_k]
 
 
 def dropout_keep_mask(seed: torch.Tensor, bs: int, nh: int, t_q: int, t_k: int,
-                      dropout_p: float, row0: int = 0) -> torch.Tensor:
+                      dropout_p: float, row0: int = 0, head0: int = 0
+                      ) -> torch.Tensor:
     """bool [bs, nh, t_q, t_k]: True where the probability is kept."""
-    return (dropout_bits(seed, bs, nh, t_q, t_k, row0)
+    return (dropout_bits(seed, bs, nh, t_q, t_k, row0, head0)
             > dropout_threshold(dropout_p))

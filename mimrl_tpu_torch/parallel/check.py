@@ -27,13 +27,15 @@ gradients not summed over ``pipe``), ``output_sum`` (the last stage's
 cotangent of the shared output summed over ``pipe``) and ``bank_late``
 (stage 0 runs a tick's unit before the tick's bank, so a unit that takes
 the activation banked in its own tick (M = S) reads the bank before it is
-written).
+written); under ``--seq_shard`` ``scatter_no_sum`` (the row-parallel
+products' reduce-scatter without its sum).
 
 ``split_batch_step`` is the control that sets a limit on the card: the
 unsharded step with the batch's forward in two row blocks, whose
 gradients are summed in the other order; ``microbatch_step`` is the
 pipeline's: the unsharded step with BERT's stack run on M row blocks one
-after the other. ``run_ranks`` starts the ranks
+after the other; ``ksplit_step`` is ``--seq_shard``'s: BERT's second
+products summed over blocks of their input axis in float32. ``run_ranks`` starts the ranks
 of a group as processes (gloo or NCCL) and returns rank 0's result; ``critic_scores_gap`` holds a critic's
 ``[bs, bs]`` scores from data-sharded features against the unsharded
 scores.
@@ -51,10 +53,12 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.models.bert import BertConfig
 from mimrl_tpu_torch.models.model import MODEL_INPUTS, build_model
+from mimrl_tpu_torch.parallel import mesh as pmesh
 from mimrl_tpu_torch.parallel import pipeline
 from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, PIPE_AXIS, Mesh,
                                            all_reduce, gather_blocks,
@@ -102,6 +106,7 @@ def one_step(model, cfg: MimrlConfig, batch: Dict[str, np.ndarray],
         mesh.set_batch(cfg.batch_size)
         mesh.set_pipeline(cfg.pipe_microbatches, cfg.pipe_virtual,
                           cfg.pipe_remat)
+        mesh.set_sequence(cfg.seq_shard)
         shard_params(mesh, model)
     main, bert, vmi = partition_params(model)
     opt_main = make_main_optimizer(cfg, main, bert)
@@ -163,11 +168,14 @@ def _recording(opt, names: Sequence[str], grads: Dict, mesh):
     return record
 
 
-def _split_forward(order: Sequence[int]):
+def _split_forward(order: Sequence[int], n_micro: int = 0):
     """``forward_batch`` with the batch's rows run as ``len(order)`` blocks,
     in ``order``, and concatenated: each block draws its rows of the whole
     batch's dropout masks (the generators are rewound to the same state
-    before each block, as every rank draws them)."""
+    before each block, as every rank draws them). With ``n_micro`` each
+    block's BERT stack runs on that many microbatches of its rows
+    (``pipeline.bert_forward_microbatched``): the order of a rank of a
+    ``data x pipe`` mesh."""
 
     def forward(model, batch, return_features=True, generator=None):
         inputs = [batch.get(k) for k in MODEL_INPUTS[:5]] + [batch.get("text")]
@@ -192,8 +200,14 @@ def _split_forward(order: Sequence[int]):
             try:
                 rows = [None if x is None else x[b * block:(b + 1) * block]
                         for x in inputs]
+                hidden = None
+                if n_micro and model.raw_text and rows[5] is None:
+                    hidden = pipeline.bert_forward_microbatched(
+                        model.bertmodel, mesh, *rows[:3],
+                        n_microbatches=n_micro, generator=generator)
                 blocks[b] = model(*rows[:5], return_features=return_features,
-                                  generator=generator, text_features=rows[5])
+                                  generator=generator, text_features=rows[5],
+                                  text_hidden=hidden)
             finally:
                 for m in model.modules():
                     m.mesh = None
@@ -225,6 +239,50 @@ def _step_with(forward: Callable, *args) -> Dict[str, torch.Tensor]:
         return one_step(*args)
     finally:
         steps.forward_batch = saved
+
+
+def _ksplit_output(parts: int):
+    """``BertSelfOutput.forward`` with its product's input axis in
+    ``parts`` blocks: each block's partial sums a float32 ``F.linear`` of
+    the inputs rounded to the compute dtype, added in float32 with the
+    bias and rounded once, on one rank (the arithmetic that
+    ``--seq_shard``'s reduce-scatter does, written apart from
+    ``models/bert.py``'s)."""
+    from mimrl_tpu_torch.models import bert
+
+    def forward(self, h, residual, time=None):
+        c = self.config
+        n = h.shape[-1] // parts
+        h = h.to(c.dtype).float()
+        w = self.dense.weight.to(c.dtype).float()
+        total = sum(F.linear(h[..., i * n:(i + 1) * n],
+                             w[:, i * n:(i + 1) * n]) for i in range(parts))
+        total = total + self.dense.bias.to(c.dtype).float()
+        h = self.dropout(total.to(c.dtype))
+        return bert._layer_norm(self.LayerNorm, h + residual, c.dtype)
+
+    return forward
+
+
+def ksplit_step(model, cfg: MimrlConfig, batch: Dict[str, np.ndarray],
+                labels: np.ndarray, bank: Dict[str, np.ndarray],
+                n_valid: int, device, seed: int = 0, anchors=None
+                ) -> Dict[str, torch.Tensor]:
+    """``--seq_shard``'s control for the order of summation: ``one_step``
+    of the unsharded model with BERT's second products (the attention
+    output dense, the FFN down-projection) summed over ``cfg.mesh_model``
+    blocks of their input axis in float32 (``_ksplit_output``), the
+    arithmetic that the row-parallel products and their reduce-scatter
+    change; nothing else changes."""
+    from mimrl_tpu_torch.models import bert
+
+    saved = bert.BertSelfOutput.forward
+    bert.BertSelfOutput.forward = _ksplit_output(cfg.mesh_model)
+    try:
+        return one_step(model, cfg, batch, labels, bank, n_valid, device,
+                        seed, anchors)
+    finally:
+        bert.BertSelfOutput.forward = saved
 
 
 def _micro_forward(n_micro: int):
@@ -375,8 +433,11 @@ def _faulty(mesh: Mesh, faults: Dict):
     ``row_lo`` is read by the dropouts alone here, the batch's rows are
     taken by ``shard_batch``); the pipeline's output cotangent is summed
     over ``pipe`` (``output_sum``); each tick's ops run unit first
-    (``bank_late``)."""
+    (``bank_late``); under ``--seq_shard`` the reduce-scatter takes this
+    rank's slice of its own partial sums, not of their total
+    (``scatter_no_sum``)."""
     reduce, set_batch = optim.reduce_gradients, mesh.set_batch
+    scatter_sum = pmesh._scatter_sum
     cotangent, ticks = pipeline._output_cotangent, pipeline.rank_ticks
     skip = faults.get("skip_reduce")
 
@@ -406,9 +467,12 @@ def _faulty(mesh: Mesh, faults: Dict):
             lambda g, m: all_reduce(g, m, (PIPE_AXIS,)))
     if faults.get("bank_late"):
         pipeline.rank_ticks = late_bank
+    if faults.get("scatter_no_sum"):
+        pmesh._scatter_sum = lambda x, m: x
     try:
         yield
     finally:
+        pmesh._scatter_sum = scatter_sum
         optim.reduce_gradients = reduce
         pipeline._output_cotangent, pipeline.rank_ticks = cotangent, ticks
         if "set_batch" in vars(mesh):

@@ -20,15 +20,29 @@ and the collectives are written out:
   (``param_sharding_rule``, ``shard_params``): the product runs on the
   shard and its output columns are gathered over ``model``; the MoE
   experts are split over ``model`` and their gated sum is completed there.
-  ``--seq_shard`` keeps BERT's activations whole for now: split between
-  layers and gathered at each layer's input, they would save no memory
-  (autograd keeps the gathered input) and cost two more collectives per
-  layer.
+- ``--seq_shard`` (``Mesh.set_sequence``; a ``model`` axis, no ``pipe``)
+  is Megatron's sequence parallelism on BERT (Korthikanti et al. 2022):
+  between products a rank holds its time slice ``[b, T / m, H]``, on
+  which the LayerNorms, the hidden dropouts (``Dropout`` draws the whole
+  tensor's mask and keeps the slice's) and the residual adds run, so
+  autograd keeps slices for them. The sequence is gathered over ``model``
+  before each layer's first products (``seq_gather``: the fused QKV and
+  the FFN up-projection, column blocks: this rank's heads and hidden
+  units); the second products (the attention output dense and the FFN
+  down-projection) hold row blocks (``shard_dim`` 1) and their partial
+  sums are reduce-scattered back to the slice (``seq_scatter``). Every
+  other BERT parameter is held whole and used on a slice or on a block
+  of itself, so its gradient is partial and is summed over ``model``
+  (``model_summed``, in ``reduce_gradients``). JAX constrains the same
+  activations to ``P(data, model, None)`` between layers
+  (``mimrl_tpu/models/bert.py:109-115``).
 
 Every collective is an all-reduce (sum) over a subgroup: an all-gather is
 the all-reduce of a zero buffer that holds this rank's block, which is
 exact and which both NCCL and gloo take on CUDA tensors (gloo has no
-all-gather of CUDA tensors). Low-precision tensors are summed in float32.
+all-gather of CUDA tensors); a reduce-scatter is the all-reduce followed
+by this rank's block (exact; only the transient buffer is whole).
+Low-precision tensors are summed in float32.
 
 The gradient. Every rank computes the same global loss ``L`` from the
 gathered tensors. The backward of ``gather_rows`` sums the gathered
@@ -110,8 +124,8 @@ class Mesh:
     """The ranks ``0 .. n - 1`` of the default process group laid out as
     a ``(dcn, data, pipe, model)`` array, row-major. ``rank`` is this
     process's rank. ``connect()`` creates the subgroups of the batch axes,
-    of ``pipe``, of ``model`` and of the batch axes with ``pipe`` (every
-    rank must call it, in the same order); a mesh that is not connected
+    of ``pipe``, of ``model`` and of the batch axes with ``pipe`` and with
+    ``model`` (every rank must call it, in the same order); a mesh that is not connected
     holds the layout only (the sharding rules read nothing else).
 
     ``set_batch(n)`` fixes the run's global batch size: it is split over
@@ -133,6 +147,7 @@ class Mesh:
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.set_batch(None)
         self.set_pipeline()
+        self.set_sequence(False)
         self.micro: Optional[Microbatch] = None
 
     def __repr__(self) -> str:
@@ -168,7 +183,7 @@ class Mesh:
                              f"ranks, the group has {world}")
         self.backend = dist.get_backend()
         for axes in (BATCH_AXES, (PIPE_AXIS,), (MODEL_AXIS,),
-                     BATCH_AXES + (PIPE_AXIS,)):
+                     BATCH_AXES + (PIPE_AXIS,), BATCH_AXES + (MODEL_AXIS,)):
             others = [a for a in AXES if a not in axes]
             seen = set()
             for r in range(self.n_ranks):
@@ -215,6 +230,14 @@ class Mesh:
         self.n_microbatches = int(n_microbatches)
         self.n_virtual = max(int(n_virtual), 1)
         self.remat = bool(remat)
+
+    def set_sequence(self, seq_shard: bool) -> None:
+        """``--seq_shard``: BERT's activations held as time slices over
+        ``model`` (``seq_shard``), on a ``model`` axis without ``pipe``
+        (the pipeline's stages hold whole sequences, as JAX's
+        ``shard_map`` does)."""
+        self.seq_shard = (bool(seq_shard) and self.shape[MODEL_AXIS] > 1
+                          and self.shape[PIPE_AXIS] == 1)
 
 
 def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, dcn: int = 1,
@@ -355,6 +378,9 @@ def param_specs(mesh: Mesh, model: nn.Module) -> Dict[str, Tuple]:
             for name, (path, shape) in flax_views(model).items()}
 
 
+ROW_PARALLEL = ("attention.output.dense.weight", "output.dense.weight")
+
+
 def _sharded_forward(name: str, pipelined: bool = False) -> bool:
     """Parameters whose layer has a sharded forward here: BERT's four
     dense kernels (fused QKV, attention output, FFN up and down), but not
@@ -372,8 +398,16 @@ def _sharded_forward(name: str, pipelined: bool = False) -> bool:
 
 def shard_dim(p: torch.Tensor) -> Optional[int]:
     """The dimension of a parameter that ``shard_params`` split over
-    ``model``, or None for a whole one."""
+    ``model`` (0: a block of output rows, 1: under ``--seq_shard`` the
+    second products' block of input columns), or None for a whole one."""
     return getattr(p, "mimrl_shard_dim", None)
+
+
+def model_summed(p: torch.Tensor) -> bool:
+    """Whether ``shard_params`` marked a whole parameter whose gradient a
+    rank computes in part, to be summed over ``model`` (BERT's under
+    ``--seq_shard``)."""
+    return getattr(p, "mimrl_model_sum", False)
 
 
 def shard_params(mesh: Mesh, model: nn.Module) -> List[str]:
@@ -382,11 +416,14 @@ def shard_params(mesh: Mesh, model: nn.Module) -> List[str]:
     each parameter that the rule shards and whose layer has a sharded
     forward (``_sharded_forward``) is replaced by this rank's block of its
     sharded axis (torch's output dimension 0 for a ``Linear`` weight, the
-    expert axis for the experts). The other parameters the rule shards
-    (the critics' MLPs, ``W_t``, the GRUs, CubeMLP at large widths) are
-    held whole on every rank, which computes the same values. On a pipe
-    mesh BERT's parameters are marked for the sum over ``pipe``
-    (``pipe_summed``). Returns the names held sharded."""
+    expert axis for the experts; under ``mesh.seq_shard`` the attention
+    output dense and the FFN down-projection take their input dimension
+    1, row parallel, and every other BERT parameter is marked
+    ``model_summed``). The other parameters the rule shards (the critics'
+    MLPs, ``W_t``, the GRUs, CubeMLP at large widths) are held whole on
+    every rank, which computes the same values. On a pipe mesh BERT's
+    parameters are marked for the sum over ``pipe`` (``pipe_summed``).
+    Returns the names held sharded."""
     from mimrl_tpu_torch.models.bert import BertModel
 
     n_model = mesh.shape[MODEL_AXIS]
@@ -407,14 +444,22 @@ def shard_params(mesh: Mesh, model: nn.Module) -> List[str]:
         mod_name, _, pname = name.rpartition(".")
         owner = owners[mod_name]
         p = getattr(owner, pname)
-        if p.shape[0] % n_model:
+        dim = 1 if mesh.seq_shard and name.endswith(ROW_PARALLEL) else 0
+        if p.shape[dim] % n_model:
             continue
-        block = p.shape[0] // n_model
-        shard = nn.Parameter(p.detach()[m * block:(m + 1) * block].clone(),
-                             requires_grad=p.requires_grad)
-        shard.mimrl_shard_dim = 0
+        block = p.shape[dim] // n_model
+        shard = nn.Parameter(
+            p.detach().narrow(dim, m * block, block).clone(),
+            requires_grad=p.requires_grad)
+        shard.mimrl_shard_dim = dim
         setattr(owner, pname, shard)
         held.append(name)
+    if mesh.seq_shard:
+        for mod in model.modules():
+            if isinstance(mod, BertModel):
+                for p in mod.parameters():
+                    if shard_dim(p) is None:
+                        p.mimrl_model_sum = True
     return held
 
 
@@ -575,6 +620,64 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None, None
 
 
+def _scatter_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The partial sums' total over ``model`` (the reduce in
+    ``seq_scatter``)."""
+    return all_reduce(x, mesh, (MODEL_AXIS,))
+
+
+class _SeqGather(torch.autograd.Function):
+    """Forward: the time slices ``[b, T / m, ...]`` gathered to ``[b, T,
+    ...]`` over ``model``. Backward: the reduce-scatter: the ranks'
+    partial gradients (each from its own heads or hidden units) summed,
+    this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather_dim(x, mesh, (MODEL_AXIS,), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(all_reduce(g, ctx.mesh, (MODEL_AXIS,)), ctx.mesh,
+                      (MODEL_AXIS,), 1), None
+
+
+class _SeqScatter(torch.autograd.Function):
+    """Forward: the reduce-scatter of a row-parallel product's partial
+    sums ``[b, T, ...]``: their total, this rank's time slice. Backward:
+    the slices' gradients gathered over ``model``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _block(_scatter_sum(x, mesh), mesh, (MODEL_AXIS,), 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.mesh, (MODEL_AXIS,), 1), None
+
+
+def seq_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _SeqGather.apply(x, mesh)
+
+
+def seq_scatter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _SeqScatter.apply(x, mesh)
+
+
+def time_slice(mesh: Mesh, t: int) -> Tuple[int, int]:
+    """(first step, steps) of this rank's slice of a sequence of ``t``
+    steps under ``--seq_shard``; raises where ``model`` does not divide
+    ``t``."""
+    n = mesh.shape[MODEL_AXIS]
+    if t % n:
+        raise ValueError(f"--seq_shard: a sequence of {t} steps does not "
+                         f"split into {n} equal slices over model "
+                         "(--time_len must divide by --mesh_model)")
+    return mesh.coords[MODEL_AXIS] * (t // n), t // n
+
+
 def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """This rank's rows -> the global batch (a no-op when the batch is not
     split)."""
@@ -636,15 +739,19 @@ def reduce_gradients(mesh: Optional[Mesh], grads: List[torch.Tensor],
     all-reduce of the flat gradients; on a pipe mesh the gradients of the
     ``params`` that ``pipe_summed`` marks (BERT's, non-zero on their
     owning stage only) are summed over ``pipe`` in the same all-reduce, a
-    second one over the batch axes and ``pipe``."""
+    second one over the batch axes and ``pipe``; under ``--seq_shard`` the
+    gradients of those that ``model_summed`` marks (a rank's part: its
+    time slice, its block of heads or hidden units) are summed over
+    ``model``, one more over the batch axes and ``model``."""
     if mesh is None or not grads:
         return grads
-    piped = ([False] * len(grads) if params is None
-             else [pipe_summed(p) for p in params])
+    kinds = ([(False, False)] * len(grads) if params is None
+             else [(pipe_summed(p), model_summed(p)) for p in params])
     out = list(grads)
-    for axes, summed in ((BATCH_AXES, False),
-                         (BATCH_AXES + (PIPE_AXIS,), True)):
-        picked = [i for i, s in enumerate(piped) if s == summed]
+    for kind in ((False, False), (True, False), (False, True)):
+        axes = (BATCH_AXES + ((PIPE_AXIS,) if kind[0] else ())
+                + ((MODEL_AXIS,) if kind[1] else ()))
+        picked = [i for i, k in enumerate(kinds) if k == kind]
         if not picked:
             continue
         part = [grads[i] for i in picked]
@@ -762,12 +869,24 @@ class Dropout(nn.Dropout):
                               device=device)
         return self._draw(scratch, lo, rows)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                time: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """``time``: (first step, whole length) when ``x`` is a time slice
+        ``[b, T / m, ...]`` (``--seq_shard``): the mask is the slice's part
+        of the whole tensor's, which is drawn in its dense layout."""
         mesh = self.mesh
         if not self.training or self.p == 0.0 or x.numel() == 0:
             return F.dropout(x, self.p, self.training)
         if self.p >= 1.0:
             return x * torch.zeros((), dtype=x.dtype, device=x.device)
+        if time is not None:
+            rows = x.shape[0]
+            n, lo = ((mesh.global_batch, mesh.row_lo) if mesh.sharded
+                     else (rows, 0))
+            scratch = torch.empty((n, time[1]) + tuple(x.shape[2:]),
+                                  dtype=x.dtype, device=x.device)
+            mask = self._draw(scratch, lo, rows).narrow(1, time[0], x.shape[1])
+            return self._apply_mask(x, mask.contiguous())
         micro = None if mesh is None else mesh.micro
         if micro is not None:
             rows = x.shape[0]

@@ -80,9 +80,10 @@ checkpoint cadence are the same on every rank. Rank 0 alone writes the
 log, the scalars, the predictions and the slots; a slot holds whole
 tensors (``core/checkpoint.py::whole_slot``). ``--flash_attn auto`` means
 the plain attention on a mesh, as in JAX (``:79-88``), ``on`` is
-honoured, and ``--seq_shard`` takes the plain route; its activations
-stay whole for now, so it saves no memory yet (a warning says so). The
-``--epoch_scan``
+honoured, and ``--seq_shard`` takes the plain route and runs BERT
+sequence parallel over ``model`` (``parallel/mesh.py``): its activations
+between products are time slices (not on a ``pipe`` axis, and not with
+``--quant``, which raises). The ``--epoch_scan``
 steps are captured with their collectives under NCCL; gloo's collectives
 cannot be captured, so on a gloo group they run eagerly
 (``train/graphs.py``). On a ``pipe`` axis (``--mesh_pipe``,
@@ -113,7 +114,7 @@ import torch.distributed as dist
 
 from mimrl_tpu_torch.core.checkpoint import (SLOT_FORMAT, CheckpointManager,
                                              is_full_slot, local_slot,
-                                             whole_slot)
+                                             WholeShapes, whole_slot)
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
 from mimrl_tpu_torch.data.pipeline import prefetch
@@ -125,6 +126,9 @@ from mimrl_tpu_torch.device import resolve_device
 from mimrl_tpu_torch.eval.metrics import (current_result_better,
                                           get_score_from_result)
 from mimrl_tpu_torch.models.bert import load_bert_weights
+from mimrl_tpu_torch.models.convert import (bank_state_from_jax,
+                                            optimizer_states_from_jax,
+                                            state_dict_from_jax_slot)
 from mimrl_tpu_torch.models.model import (MODEL_INPUTS, build_model,
                                           init_weights)
 from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, MODEL_AXIS, PIPE_AXIS,
@@ -359,15 +363,17 @@ class Solver:
             mesh.set_batch(opt.batch_size)
             mesh.set_pipeline(opt.pipe_microbatches, opt.pipe_virtual,
                               opt.pipe_remat)
+            mesh.set_sequence(seq)
+            if mesh.seq_shard and opt.quant != "none":
+                raise ValueError(
+                    "--seq_shard with --quant: the row-parallel products "
+                    "would quantise over one rank's block of their input "
+                    "axis, which the unsharded product does not")
             if mesh.shape[PIPE_AXIS] > 1 and self.raw_text:
                 check_schedule(opt.bert_layers, mesh.shape[PIPE_AXIS],
                                opt.pipe_microbatches, opt.pipe_virtual,
                                opt.batch_size, mesh.size(BATCH_AXES))
             self.model_blocks = shard_params(mesh, self.model)
-            if seq:
-                log_message("WARNING: --seq_shard keeps BERT's activations "
-                            "whole on every rank for now: it saves no memory "
-                            "yet (ROADMAP.md, mesh).")
             rows = (f"{mesh.local_batch} rows of {opt.batch_size} per rank"
                     if mesh.sharded else f"all {opt.batch_size} rows on "
                     "every rank")
@@ -379,7 +385,7 @@ class Solver:
             log_message(f"Mesh: {mesh!r}, {mesh.n_ranks} ranks; batch: "
                         f"{rows}; {len(self.model_blocks)} parameters held as "
                         f"blocks over model; sequence sharding "
-                        f"{'on' if seq else 'off'}; pipeline {pipe}; "
+                        f"{'on' if mesh.seq_shard else 'off'}; pipeline {pipe}; "
                         f"attention {model_opt.flash_attn}; step graphs "
                         f"{'on' if self.graphs.capture else 'off'}")
         if opt.print_params:
@@ -508,13 +514,12 @@ class Solver:
         state = mgr.restore("latest", map_location="cpu")
         if state is None:
             mgr.refuse_orbax("latest")
-            if os.path.exists(mgr.jax_path("latest")):
-                raise NotImplementedError(
-                    f"{mgr.jax_path('latest')} is a mimrl_tpu slot: resuming "
-                    "its optax moments is not ported to mimrl_tpu_torch yet "
-                    "(ROADMAP.md, Open items); Predictor serves it")
-            log_message(f"No latest checkpoint in {resume_dir}; fresh start")
-            return
+            jax_slot = mgr.restore_jax("latest")
+            if jax_slot is None:
+                log_message(f"No latest checkpoint in {resume_dir}; fresh "
+                            "start")
+                return
+            state = self._slot_from_jax(jax_slot, mgr.jax_path("latest"))
         if not is_full_slot(state):
             raise ValueError(f"{resume_dir}: the latest slot holds the model "
                              "alone, not a training state to resume")
@@ -540,6 +545,50 @@ class Solver:
             torch.cuda.set_rng_state(rng["cuda"], self.device)
         self.start_epoch = int(state["epoch"]) + 1
         log_message(f"Resumed from {resume_dir} at epoch {self.start_epoch}")
+
+    def _passes_through(self, epoch: int) -> int:
+        """The train loader's passes at the end of ``epoch`` in a run of
+        this config: one a stage-2 pass, and from epoch 1 on, per batch,
+        ``stage1_n`` stage-1 passes before it (one under
+        ``--fast_stage1``); the ``--epoch_scan`` rung draws one an
+        epoch."""
+        if self.scan_mode:
+            return epoch + 1
+        stage1 = 1 if self.opt.fast_stage1 else self.opt.stage1_n
+        return epoch + 1 + epoch * stage1
+
+    def _slot_from_jax(self, slot: Dict, path: str) -> Dict:
+        """A ``mimrl_tpu`` msgpack ``latest`` (``core/checkpoint.py`` of the
+        JAX package: the three parameter groups, both optax states, the
+        bank, ``lr_factor``, ``global_step``, ``epoch``) as this package's
+        slot: parameters by ``models/convert.py::state_dict_from_jax``,
+        optax's count, mu and nu onto the flat moments in their dtypes, the
+        bank (present). JAX saves neither the loader's pass counter nor the
+        schedule's epoch (nor, under plateau, its best and bad epochs) nor
+        any generator state: the passes and the schedule's epoch are what
+        this run would have reached at the slot's epoch, the plateau state
+        starts empty and the generators keep their seeded states; one log
+        line names each."""
+        epoch = int(slot["epoch"])
+        schedule = {"kind": self.lr_schedule.kind,
+                    "factor": float(slot["lr_factor"]), "epoch": epoch + 1}
+        derived = {"loader_passes": self._passes_through(epoch),
+                   "schedule epoch": epoch + 1}
+        if self.lr_schedule.kind == "plateau":
+            schedule.update(best=None, bad_epochs=0)
+            derived.update({"plateau best": None, "plateau bad epochs": 0})
+        derived["generators"] = f"seeded from --seed {self.opt.seed}"
+        log_message(f"{path} is a mimrl_tpu slot; state it does not hold: "
+                    + ", ".join(f"{k} = {v}" for k, v in derived.items()))
+        view = (WholeShapes(self.mesh, self.model) if self.model_blocks
+                else self.model)  # a slot of whole tensors, as a port slot
+        return {"format": SLOT_FORMAT, "epoch": epoch,
+                "model": state_dict_from_jax_slot(slot, view),
+                **optimizer_states_from_jax(slot, view, self._optimizers()),
+                "bank": bank_state_from_jax(slot, self.bank),
+                "have_bank": True, "lr_schedule": schedule,
+                "loader_passes": derived["loader_passes"],
+                "rng": self._rng_state()}
 
     # ------------------------------------------------------------------ #
     def train(self, epoch: int):

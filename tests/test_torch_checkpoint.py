@@ -144,6 +144,225 @@ def test_reads_mimrl_tpu_msgpack_slots(tmp_path, monkeypatch):
     assert preds.shape == (N_TEST, 1)
     np.testing.assert_array_equal(targets, jax_targets)
     np.testing.assert_allclose(preds, jax_preds, rtol=1e-4, atol=1e-4)
+    _resumes_a_mimrl_tpu_latest(tmp_path, data, monkeypatch)
+
+
+FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mimrl_tpu_slot")
+PATHS = ("task_name", "data_dir", "task_dir")  # the run's own, not the config's
+STEP_TOL = 1e-4  # losses and MI values, relative to 1 + |value|
+PARAM_TOL = 3e-5  # absolute, after stage 2's steps of up to 7.5e-3 (Adam, 4e-3)
+# a gradient that is zero in exact arithmetic (softmax over the keys does
+# not move with the key bias) leaves Adam stepping on rounding noise
+NOISE_STEPPED = "attention.self.key.bias"
+
+
+def steps_to_device(batch, labels):
+    from mimrl_tpu_torch.train import steps
+
+    return steps.to_device(batch, labels, "regression", "cpu")
+
+
+def _jax_anchors(key, n_bank, n_valid, bs, k):
+    """The kNN anchors ``sample_all_knn`` of the JAX package draws from
+    ``key`` (steps.py:93-98, knn.py:73-74)."""
+    from mimrl_tpu.models.model import CMI_KEYS
+
+    valid = (jnp.arange(n_bank) < n_valid).astype(jnp.float32)
+    keys = jax.random.split(key, len(CMI_KEYS))
+    return {name: torch.from_numpy(np.asarray(jax.random.choice(
+        keys[i], n_bank, shape=(bs // k,), replace=False,
+        p=valid / jnp.sum(valid))).astype(np.int64))
+        for i, name in enumerate(CMI_KEYS)}
+
+
+def _jax_next_epoch(jax_solver, port, batches):
+    """The epoch after the slot on the JAX side, from its resumed state:
+    stage 2 (train steps with MI) first, from the resumed critics, then
+    stage 1 (critic steps) on its parameters; dropout is off in this
+    config. Returns per step (kNN anchors, loss, MI values or None), and
+    the main and BERT parameters after stage 2 as the port's state_dict."""
+    from mimrl_tpu.train import optim as joptim
+    from mimrl_tpu.train import steps as jsteps
+
+    cfg, j = port.opt, jax_solver
+    bs, n_bank = cfg.batch_size, port.n_bank
+    n_valid = int(port.bank.valid.sum())
+    new_bank = jsteps.FeatureBank.create(n_bank, n_valid, cfg.d_common)
+    main, bert, opt_state = j.params_main, j.params_bert, j.opt_main_state
+    records = []
+    for i, (batch, _) in enumerate(batches):
+        rng = j._next_rng()
+        knn = _jax_anchors(jax.random.split(rng)[1], n_bank, n_valid, bs,
+                           cfg.k_neighbor)
+        (main, bert, opt_state, loss, mis, _, new_bank) = j.steps.train_step(
+            main, bert, j.params_vmi, opt_state, *batch, j.bank, new_bank,
+            i * bs, rng, use_mi=True)
+        records.append((knn, np.asarray(loss), np.asarray(mis)))
+    params = state_dict_from_jax(jax.tree_util.tree_map(
+        np.asarray, joptim.merge_params(main, bert, j.params_vmi)), port.model)
+    vmi, vmi_state = j.params_vmi, j.opt_vmi_state
+    for batch, _ in batches:
+        rng = j._next_rng()
+        knn = _jax_anchors(jax.random.split(rng)[1], n_bank, n_valid, bs,
+                           cfg.k_neighbor)
+        vmi, vmi_state, loss, _ = j.steps.critic_step(
+            main, bert, vmi, vmi_state, *batch, j.bank, rng)
+        records.append((knn, np.asarray(loss), None))
+    return records, params
+
+
+def _port_gaps(port, batches, records, want):
+    """The port's same epoch from its resumed state, on the anchors of
+    ``records``: (max relative gap of the losses and MI values, max
+    absolute gap of the main and BERT parameters after stage 2,
+    ``NOISE_STEPPED`` aside)."""
+    from mimrl_tpu_torch.train import steps
+    from mimrl_tpu_torch.train.optim import partition_params
+
+    cfg, bs, gaps = port.opt, port.opt.batch_size, []
+    port.new_bank.zero_()
+
+    def gap(w, g):
+        return float(np.abs(w - g.numpy()).max() / (1 + np.abs(w).max()))
+
+    for i, (_, inputs) in enumerate(batches):
+        knn, loss, mis = records[i]
+        got = steps.train_step(port.model, port.opt_main, cfg, *inputs,
+                               port.bank, port.new_bank, i * bs, None, True,
+                               anchors=knn)
+        gaps += [gap(loss, got[0]), gap(mis, got[1])]
+    now = port.model.state_dict()
+    main_p, bert_p, _ = partition_params(port.model)
+    param_gap = max(float((now[k] - want[k]).abs().max())
+                    for k in list(main_p) + list(bert_p)
+                    if not k.endswith(NOISE_STEPPED))
+    for (_, inputs), (knn, loss, _) in zip(batches, records[len(batches):]):
+        got = steps.critic_step(port.model, port.opt_vmi, cfg, *inputs,
+                                port.bank, None, anchors=knn)
+        gaps.append(gap(loss, got[0]))
+    gaps = np.asarray(gaps)
+    return (float(gaps.max()) if np.isfinite(gaps).all() else np.inf,
+            param_gap if np.isfinite(param_gap) else np.inf)
+
+
+def _resumes_a_mimrl_tpu_latest(tmp_path, data, monkeypatch):
+    """``--resume`` of a ``mimrl_tpu`` run: a 2-epoch JAX run writes
+    ``latest`` (epoch 1, Adam with bfloat16 first moments), JAX resumes it
+    (its own ``_resume``) and so does the port, which starts at epoch 2
+    with the weights, both optimizers' count, mu (bfloat16) and nu, the
+    bank, the rate and the derived loader passes; the next epoch's steps
+    agree (losses and MI within STEP_TOL, parameters within PARAM_TOL:
+    Adam's resumed moments set every step, so only the key biases, whose
+    gradient is rounding noise, are left out),
+    and a resume that takes optax's nu as mu is caught. The port's writer
+    gives the slot's bytes back, and the committed fixture
+    ``tests/fixtures/mimrl_tpu_slot`` (the layout that ``chip_smoke.py``
+    fills from a seed and resumes on the card: a slot of this config is
+    41 MB) is this run's slot and config, paths aside."""
+    import json
+
+    from mimrl_tpu_torch.core.config import MimrlConfig
+    from mimrl_tpu_torch.data.universal import get_label_from_datas
+    from mimrl_tpu_torch.models import convert
+
+    cfg = _cfg(data).replace(task_dir=str(tmp_path / "jax_runs"),
+                             task_name="mimrl_tpu_slot", epochs_num=2,
+                             save_latest_every=1)
+    jax_solver = JaxSolver(cfg)
+    jax_solver.solve()
+    run = f"{cfg.task_dir}/{cfg.task_name}"
+    raw = open(f"{run}/latest_model.msgpack", "rb").read()
+    slot = flax_msgpack.msgpack_restore(raw)
+    assert flax_msgpack.msgpack_serialize(slot) == raw
+    with open(f"{FIXTURE}/skeleton.json") as f:
+        assert flax_msgpack.skeleton(slot) == json.load(f)
+    with open(f"{FIXTURE}/config.json") as f:
+        fixture_cfg = json.load(f)
+    written = json.load(open(f"{run}/config.json"))
+    assert ({k: v for k, v in written.items() if k not in PATHS}
+            == {k: v for k, v in fixture_cfg.items() if k not in PATHS})
+    seeded = flax_msgpack.seeded_tree(flax_msgpack.skeleton(slot), 0)
+    assert flax_msgpack.skeleton(seeded) == flax_msgpack.skeleton(slot)
+    assert (serialization.msgpack_restore(flax_msgpack.msgpack_serialize(
+        seeded))["opt_main_state"]["count"] == slot["opt_main_state"]["count"])
+
+    jax_solver._resume(run)
+    assert jax_solver.start_epoch == 2
+    port_cfg = MimrlConfig.from_json(cfg.to_json()).replace(
+        task_name="port", resume=run, device="cpu")
+
+    def resumed():
+        port = Solver(port_cfg)
+        port.writer.close()
+        return port
+
+    port = resumed()
+    log = open(f"{cfg.task_dir}/port/Running.log").read()
+    assert ("latest_model.msgpack is a mimrl_tpu slot; state it does not "
+            "hold: loader_passes = 3, schedule epoch = 2, generators = "
+            "seeded from --seed 0") in log
+    assert port.start_epoch == 2 and port.have_bank
+    assert port.train_loader.passes == 3 and port.lr_schedule.epoch == 2
+    assert port.opt_main.mu.dtype == torch.bfloat16
+    for opt, state in ((port.opt_main, slot["opt_main_state"]),
+                       (port.opt_vmi, slot["opt_vmi_state"])):
+        inner = state["inner_state"]["1"]
+        assert opt.count.item() == int(inner["count"]) > 0
+        assert opt.learning_rate == pytest.approx(
+            float(state["hyperparams"]["learning_rate"]))
+    for f in "CFTAV":
+        np.testing.assert_array_equal(getattr(port.bank, f).numpy(),
+                                      np.asarray(jax_solver.bank.__getattribute__(f)))
+    batches = []
+    for b in port.train_loader:
+        labels = np.asarray(get_label_from_datas(port_cfg, b), np.float32)
+        jb = {k: jnp.asarray(b[k]) for k in (
+            "bert_sentences", "bert_sentence_types", "bert_sentence_att_mask",
+            "audio", "video", "sample_mask")}
+        batches.append(((jb, jnp.asarray(labels)),
+                        steps_to_device(b, labels)))
+    records, want = _jax_next_epoch(jax_solver, port, batches)
+    step_gap, param_gap = _port_gaps(port, batches, records, want)
+    assert step_gap <= STEP_TOL, step_gap
+    assert param_gap <= PARAM_TOL, param_gap
+
+    # on a model axis (one process per rank: the cut needs no collective)
+    # the slot converts whole and each rank takes its blocks, column and,
+    # under --seq_shard, row blocks
+    from mimrl_tpu_torch.core.checkpoint import local_slot
+    from mimrl_tpu_torch.parallel.mesh import Mesh, shard_dim
+
+    whole = port._slot_from_jax(slot, run)
+    for seq, rank in ((False, 1), (True, 0)):
+        mesh = Mesh({"model": 2}, rank)
+        ranked = Solver(port_cfg.replace(task_name=f"rank{rank}", mesh_model=2,
+                                         seq_shard=seq), mesh=mesh)
+        ranked.writer.close()
+        dims = {n: shard_dim(p) for n, p in ranked.model.named_parameters()}
+        assert sorted(set(dims.values()) - {None}) == ([0, 1] if seq else [0])
+        blocks = local_slot(mesh, ranked.model, ranked._optimizers(), whole)
+        held = ranked.model.state_dict()
+        for name, t in blocks["model"].items():
+            assert torch.equal(held[name], t), name
+        for name in ("opt_main", "opt_vmi"):
+            opt = getattr(ranked, name)
+            assert opt.sizes == blocks[name]["sizes"]
+            assert torch.equal(opt.mu, blocks[name]["mu"])
+            assert torch.equal(opt.nu, blocks[name]["nu"])
+
+    moment_trees = convert._moment_trees
+
+    def nu_as_mu(opt_state, what):
+        count, mu, nu = moment_trees(opt_state, what)
+        return count, mu, jax.tree_util.tree_map(
+            lambda x: x.float() if isinstance(x, torch.Tensor) else x, mu)
+
+    with monkeypatch.context() as m:
+        m.setattr(convert, "_moment_trees", nu_as_mu)
+        faulty = resumed()
+    step_gap, param_gap = _port_gaps(faulty, batches, records, want)
+    assert step_gap > STEP_TOL or param_gap > 10 * PARAM_TOL, (
+        step_gap, param_gap)
 
 
 def _hf_file(path, c: BertConfig, seed: int):

@@ -20,6 +20,7 @@ from mimrl_tpu.data import synthetic as jsyn
 from mimrl_tpu.data import tokenizer as jtok
 from mimrl_tpu.data.declab import load_dec_dataset as jax_load_dec
 from mimrl_tpu.utils.activations import get_activation_fn as jax_act
+from mimrl_tpu_torch import native
 from mimrl_tpu_torch.core import config
 from mimrl_tpu_torch.data import pipeline, synthetic, tokenizer
 from mimrl_tpu_torch.data.declab import load_dec_dataset
@@ -69,7 +70,8 @@ def test_config_rejects_invalid_values(bad):
 @pytest.mark.parametrize("vocab_file", [False, True])
 def test_tokenizer_matches_jax(tmp_path, vocab_file):
     texts = ["The movie was GOOD, really good!", "badness and sadness",
-             "", "an unknownword here " * 30]
+             "", "an unknownword here " * 30, "Caf\u00c9 sad\u2014bad\u3000and",
+             "bad\x1cness\tand\x0bsad"]
     if vocab_file:
         words = jtok.SPECIAL_TOKENS + ["the", "movie", "was", "good", ",",
                                        "!", "bad", "##ness", "sad", "and"]
@@ -81,8 +83,28 @@ def test_tokenizer_matches_jax(tmp_path, vocab_file):
         want = jtok.WordPieceTokenizer.hash_fallback()
         got = tokenizer.build_tokenizer()
     assert got.vocab_size == want.vocab_size
-    for a, b in zip(got.batch_encode(texts, 16), want.batch_encode(texts, 16)):
+    before = native.calls["tokenizer"]
+    encoded = got.batch_encode(texts, 16)
+    for a, b, c in zip(encoded, want.batch_encode(texts, 16),
+                       got.batch_encode_plain(texts, 16)):
+        assert a.dtype == b.dtype == c.dtype == np.int32
         np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    # a vocab.txt tokenizer encodes through native/collate.cpp (the last
+    # two texts' rows by the Python form: not byte-exact), the hash one
+    # in Python, as in JAX; on ASCII text JAX's own native encoder agrees
+    assert native.calls["tokenizer"] - before == int(vocab_file)
+    if vocab_file:
+        assert [native.byte_exact(t) for t in texts] == [True] * 4 + [False] * 2
+        jax_native = jtok.WordPieceTokenizer.from_vocab_file(str(path))
+        for a, b in zip(got.batch_encode(texts[:4], 9),
+                        jax_native.batch_encode(texts[:4], 9)):
+            np.testing.assert_array_equal(a, b)
+        other = tokenizer.WordPieceTokenizer.from_vocab_file(str(path))
+        other.vocab["sad"] = other.vocab["bad"]  # a second vocabulary
+        other.attach_native()                     # installs itself ...
+        assert (got.batch_encode(["sad"], 4)[0]   # ... and got re-installs
+                == got.batch_encode_plain(["sad"], 4)[0]).all()
 
 
 def test_dec_fixture_is_byte_identical(tmp_path):
@@ -94,6 +116,58 @@ def test_dec_fixture_is_byte_identical(tmp_path):
         assert ((tmp_path / "port" / name).read_bytes()
                 == (tmp_path / "jax" / name).read_bytes())
     _preflight_matches_jax(tmp_path)
+    _noalign_and_helpers_match_jax(tmp_path)
+
+
+def _noalign_and_helpers_match_jax(tmp_path):
+    """``declab.build_from_noalign`` (stdlib csv) writes the same pickle
+    bytes as JAX's (pandas) from one ``*_data_noalign.pkl`` and label
+    CSV (lead-padded features, a NaN, quoted text, clips out of order);
+    ``eval.metrics.get_seperate_acc`` gives JAX's strings."""
+    import csv
+    import pickle
+
+    from mimrl_tpu.data.declab import build_from_noalign as jax_build
+    from mimrl_tpu.eval.metrics import get_seperate_acc as jax_acc
+    from mimrl_tpu_torch.data.declab import build_from_noalign
+    from mimrl_tpu_torch.eval.metrics import get_seperate_acc
+
+    rng = np.random.default_rng(4)
+    rows, noalign, n = [], {}, 0
+    for split, size in (("train", 5), ("valid", 2), ("test", 3)):
+        vision = rng.normal(size=(size, 8, 6)).astype(np.float32)
+        audio = rng.normal(size=(size, 9, 4)).astype(np.float32)
+        ids = []
+        for i in range(size):
+            vision[i, :i % 4] = 0.0
+            audio[i, :(i + 1) % 5] = 0.0
+            ids.append([f"v{n % 3}x_{n // 3 + 10}".encode(), b"-"])
+            rows.append((f"v{n % 3}x", n // 3 + 10,
+                         f'word{n}, "quoted" and  more {n}'))
+            n += 1
+        vision[0, -1, 0] = np.nan
+        noalign[split] = {"vision": vision, "audio": audio,
+                          "labels": rng.normal(size=(size, 1, 1)),
+                          "id": np.asarray(ids)}
+    for d in ("np", "nj"):
+        (tmp_path / d).mkdir()
+        with open(tmp_path / d / "mosi_data_noalign.pkl", "wb") as f:
+            pickle.dump(noalign, f)
+        with open(tmp_path / d / "MOSI-label.csv", "w", newline="") as f:
+            writer = csv.writer(f)
+            writer.writerow(["video_id", "clip_id", "text", "label"])
+            writer.writerows([(v, c, t, 0.5) for v, c, t in reversed(rows)])
+    build_from_noalign(str(tmp_path / "np"), "mosi")
+    jax_build(str(tmp_path / "nj"), "mosi")
+    for split in ("train", "valid", "test"):
+        name = f"mosi_{split}.pkl"
+        assert ((tmp_path / "np" / name).read_bytes()
+                == (tmp_path / "nj" / name).read_bytes()), name
+    labels = rng.integers(0, 4, size=40)
+    preds = np.where(rng.random(40) < 0.6, labels, rng.integers(0, 4, 40))
+    for num_class in (4, 6):
+        assert (get_seperate_acc(labels, preds, num_class)
+                == jax_acc(labels, preds, num_class))
 
 
 def _preflight_matches_jax(tmp_path):
@@ -185,6 +259,24 @@ def test_pipeline_matches_jax(tmp_path, shuffle):
     want = jpipe.BatchPipeline(
         jax_load_dec("mosi_Dec", "train", str(tmp_path)), tokenizer=tok_j, **kw)
     assert len(got) == len(want) == 3
+    # the padded features came from native/collate.cpp, equal to the numpy
+    # form bit for bit (and a feature of another rank takes numpy)
+    calls = native.calls["pad_stack"]
+    ds = load_dec_dataset("mosi_Dec", "train", str(tmp_path))
+    for key in ("audio", "video"):
+        arrays = getattr(ds, key) + [np.full((3, ds.audio[0].shape[1] if
+                                               key == "audio" else
+                                               ds.video[0].shape[1]),
+                                              np.nan, np.float64)]
+        np.testing.assert_array_equal(pipeline._pad_stack(arrays, 10),
+                                      pipeline._pad_stack_plain(arrays, 10))
+        np.testing.assert_array_equal(getattr(got, f"_{key}"),
+                                      pipeline._pad_stack_plain(getattr(ds, key), 10))
+    assert native.calls["pad_stack"] == calls + 2
+    ragged = [np.ones(4, np.float32), np.ones(2, np.float32)]
+    with pytest.raises(ValueError):
+        native.pad_stack(ragged, 3)
+    assert pipeline._pad_stack([a[:, None] for a in ragged], 3).shape == (2, 3, 1)
     for _epoch in range(2):
         batches = list(zip(got, want))
         for g, w in batches:
@@ -270,6 +362,9 @@ def test_families_match_jax(tmp_path):
     from mimrl_tpu.data.universal import uses_raw_text as jax_raw
     from mimrl_tpu_torch.data.universal import uses_raw_text
 
+    from mimrl_tpu.data import universal as juniversal
+    from mimrl_tpu_torch.data import universal
+
     with pytest.raises(ValueError, match="unknown dataset"):
         get_data_loader(config.MimrlConfig(dataset="nope"))
     for n, (dataset, flags, writer, args) in enumerate(FAMILIES):
@@ -308,6 +403,20 @@ def test_families_match_jax(tmp_path):
                     for gl, wl in zip(g["labels"], w["labels"]):
                         assert gl.dtype == wl.dtype
                         np.testing.assert_array_equal(gl, wl)
+        if n == 1:  # the maintenance helpers on the registry's widths
+            scales = {}
+            for pkg, mod in (("mimrl_tpu_torch", universal),
+                             ("mimrl_tpu", juniversal)):
+                scales[pkg] = mod.get_dataset_scales(
+                    datasets=[dataset], data_dir=roots[pkg], time_len=9,
+                    batch_size=4)
+                mod.test_all_dataset(datasets=[dataset], data_dir=roots[pkg],
+                                     batch_size=4)
+            assert scales["mimrl_tpu_torch"] == scales["mimrl_tpu"]
+            assert np.isfinite(scales["mimrl_tpu"][dataset][0]).all()
+            with pytest.raises(ValueError, match="video width 35, registry 47"):
+                universal.test_all_dataset(datasets=[dataset], video="facet41",
+                                           data_dir=roots["mimrl_tpu_torch"])
         avec_words = dataset == "avec2019" and raw
         assert got[0].static_tensors == (not avec_words)
         if avec_words:  # the two passes drew other words

@@ -19,7 +19,8 @@ weights, bank, batch and seeds) in each, at tiny shapes as
 | what | against | limit |
 | 2-rank data step, SGD, dropout on | unsharded | 1e-5 |
 | the same, batch of 7 (not divisible: whole on every rank) | unsharded | 1e-5 |
-| data 2 x model 2, --seq_shard, SGD | unsharded | 1e-5 |
+| data 2 x model 2, --seq_shard (sequence parallel BERT), SGD | unsharded | 1e-5 |
+| the same with dropout on | unsharded | 1e-5 |
 | the same mesh step | JAX's step on make_mesh(2, 2, 1) | TOL (1e-4) |
 | dcn 2 x data 2 | unsharded | 1e-5 |
 | --fusion moe, model 2 | unsharded | 1e-5 |
@@ -28,7 +29,9 @@ weights, bank, batch and seeds) in each, at tiny shapes as
 
 The three fault controls of the data group (a rank skips one parameter's
 gradient average; the average's division left out; a rank draws its
-dropout rows from row 0) must miss 1e-5 by more than tenfold.
+dropout rows from row 0) and the one of the --seq_shard step (the
+row-parallel products' reduce-scatter without its sum) must miss 1e-5 by
+more than tenfold.
 
 ``test_pipeline_steps`` does the same for the pipeline
 (``parallel/pipeline.py``), at ``tests/test_pipeline.py``'s tiny BERT
@@ -442,16 +445,19 @@ def test_mesh_steps_and_cli(tmp_path):
           for name, kw in faults.items()]])
     tp = group(4, dict(data=2, model=2), [
         ("seq_shard", TP, dict(keep=True, anchors=anchors)),
+        ("seq_shard_dropout", dict(TP, **DROP), {}),
+        ("scatter_no_sum", TP, dict(faults={"scatter_no_sum": True})),
         ("adam_f64", dict(TP, optm="Adam"), dict(float64=True))])
     dcn = group(4, dict(data=2, dcn=2), [("dcn", dict(mesh_dcn=2), {})])
     moe = group(2, dict(data=1, model=2), [("moe", MOE, {})])
     gaps = {name: r["gap"] for g in (dp, tp, dcn, moe) for name, r in
             g.items()}
-    for name in ("dropout_on", "not_divisible", "seq_shard", "dcn", "moe"):
+    for name in ("dropout_on", "not_divisible", "seq_shard",
+                 "seq_shard_dropout", "dcn", "moe"):
         assert gaps[name] <= LIMIT, (name, gaps)
     assert gaps["adam_f64"] <= LIMIT_F64, gaps
     assert gaps["scores"] <= LIMIT_SCORES, gaps
-    for name in faults:
+    for name in list(faults) + ["scatter_no_sum"]:
         assert gaps[name] > 10 * LIMIT, (name, gaps)
 
     # the control for the order of summation (the limit on the card): the
@@ -463,6 +469,31 @@ def test_mesh_steps_and_cli(tmp_path):
     split = check.split_batch_step(check.build(
         cfg, VOCAB, D_A, D_V, state["cubemlp"], "cpu"), *args)
     assert 0 < check.absolute_gap(ref, split, {})["abs"] <= LIMIT
+    # --seq_shard's: BERT's second products summed over two blocks of
+    # their input axis (the row-parallel products' arithmetic)
+    ksplit = check.ksplit_step(check.build(
+        cfg, VOCAB, D_A, D_V, state["cubemlp"], "cpu"), cfg.replace(
+            mesh_model=2), *args[1:])
+    assert 0 < check.absolute_gap(ref, ksplit, {})["abs"] <= LIMIT
+    # the row-parallel partial sums of bf16 inputs (models/bert.py's
+    # _PartialSums, the form the card runs) against the float32 product
+    # of the same values: the sums equal, the gradients within bf16's
+    # rounding (2^-8 of the largest magnitude)
+    from mimrl_tpu_torch.models import bert
+    g = torch.Generator().manual_seed(3)
+    h = torch.randn(4, 6, 64, generator=g).bfloat16().requires_grad_()
+    w = torch.randn(32, 64, generator=g).requires_grad_()
+    dy = torch.randn(4, 6, 32, generator=g)
+    y = bert._partial_sums(h, w, torch.bfloat16)
+    hf = h.detach().float().requires_grad_()
+    wf = w.detach().bfloat16().float().requires_grad_()
+    yf = torch.nn.functional.linear(hf, wf)
+    assert y.dtype == torch.float32 and torch.equal(y, yf)
+    for got_g, want_g in zip(torch.autograd.grad(y, (h, w), dy),
+                             torch.autograd.grad(yf, (hf, wf),
+                                                 dy.bfloat16().float())):
+        gap = (got_g.float() - want_g).abs().max() / want_g.abs().max()
+        assert 0 < gap <= 2.0 ** -8, gap
 
     # the data 2 x model 2 --seq_shard step against JAX's on its mesh
     got = tp["seq_shard"]["got"]

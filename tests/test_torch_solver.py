@@ -619,6 +619,51 @@ def test_solver_needs_cuda_unless_asked(run, monkeypatch):
     assert next(solver.model.parameters()).device.type == "cpu"
     assert solver.generator.device.type == "cpu"
     solver.writer.close()
+    _decompose_runs_on_the_cpu(monkeypatch)
+
+
+def _decompose_runs_on_the_cpu(monkeypatch):
+    """``tools/decompose.py``: without a card it raises unless asked for
+    the CPU; at tiny shapes on the CPU it times JAX's pieces under JAX's
+    names (``res[...]`` of ``mimrl_tpu/tools/decompose.py``), the four
+    replayable steps also replayed, and prints JAX's text lines, then one
+    JSON line."""
+    import contextlib
+    import inspect
+    import io
+    import re
+
+    from mimrl_tpu.tools import decompose as jdecompose
+    from mimrl_tpu_torch.tools import decompose
+
+    tiny = ["--steps", "1", "--warmup", "1", "--profile", "1",
+            "--bert_hidden", "32", "--bert_heads", "2"]
+    for var, value in (("BENCH_BS", "8"), ("BENCH_TIME_LEN", "12"),
+                       ("BENCH_BERT_LAYERS", "1")):
+        monkeypatch.setenv(var, value)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decompose.main(tiny)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert decompose.main(tiny + ["--device", "cpu"]) == 0
+    lines = out.getvalue().strip().splitlines()
+    doc = json.loads(lines[-1])
+    jax_names = re.findall(r'res\["(\w+)"\] =', inspect.getsource(jdecompose))
+    assert list(doc["pieces"]) == [n for n in jax_names if n != "bert_error"]
+    assert doc["shape"] == dict(bs=8, time_len=12, bert_layers=1,
+                                dtype="bfloat16", quant="none",
+                                use_pallas=False)
+    for name, piece in doc["pieces"].items():
+        assert piece["ms"] > 0 and piece["busy_ms"] is None, name
+        assert (piece["replayed_ms"] is not None) == (
+            name in decompose.REPLAYED), name
+    assert doc["card"] is None and doc["device"] == "cpu"
+    text = [line.split()[0] for line in lines[-len(doc["pieces"]) - 2:-2]]
+    assert text == list(doc["pieces"])
+    assert lines[-2].startswith("implied samples/s")
+    assert doc["implied_samples_per_s"] == pytest.approx(8e3 / (
+        doc["pieces"]["train_step"]["ms"]
+        + 2 * doc["pieces"]["critic_update"]["ms"]))
 
 
 RUNGS = {  # stage-1 mode -> (its runs' flags, the JAX epoch program)
