@@ -93,14 +93,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
            A2-vs-A gap (bit-equal where A2 is), a resume with the loader's
            pass counter left at 0 must fail that gate, and every
            ``train_step`` of the resumed epoch launches 12 + 12 attention
-           kernels. Slot bytes, save, read and ``_resume`` ms, peak memory
-           of a save. Then a ``mimrl_tpu`` msgpack ``latest``: the layout
+           kernels. B runs with ``--ckpt_backend orbax``: its slots are
+           written on a background thread and its ``latest`` is there when
+           it stops. Slot bytes, save, read and ``_resume`` ms, the main
+           thread's ms per save under each backend and the thread's write
+           ms, peak memory of a save. Then a ``mimrl_tpu`` msgpack
+           ``latest``: the layout
            of ``tests/fixtures/mimrl_tpu_slot`` filled from a seed, written
            in flax's format and resumed on the card and on the CPU; the
            next epoch's steps (stage 2's train steps, then a critic step;
            the same host-drawn kNN anchors) on the card within
            JAX_SLOT_TOL of the CPU's losses and MI values, and a resume
-           that takes optax's nu as mu must miss that tenfold.
+           that takes optax's nu as mu must miss that tenfold. The same
+           tree as a ``mimrl_tpu`` orbax slot (``core/orbax_slot.py``'s
+           writer): read back against the msgpack read bit for bit,
+           resumed on the card into the same state and epoch as the
+           msgpack resume (bit for bit), within JAX_SLOT_TOL of the CPU,
+           and served. The committed ``tests/fixtures/mimrl_tpu_orbax``
+           (written by JAX's orbax) decoded here by ``native/zstd.cpp``:
+           every leaf's sha256 against ``leaves.json``; the reader's ms
+           and MB/s on it, on the seeded slot and on a ``[30522, 768]``
+           float32 leaf; the decoder's MB/s.
 7. rungs   the canonical recipe for 3 epochs (milestone at epoch 2) on each
            ``--epoch_scan`` rung: a fresh forward per critic step,
            ``--fast_stage1`` and ``--stage1_cached``, then the flagged recipe
@@ -2372,6 +2385,7 @@ def resume_phase(root: str):
     counts of the resumed run."""
     import os
     import signal
+    import threading
     import warnings
 
     import math
@@ -2402,8 +2416,8 @@ def resume_phase(root: str):
     record = dict(phase="resume", step="resume_vs_uninterrupted",
                   bert_file_bytes=os.path.getsize(bert_path))
     originals = {n: vars(Solver)[n] for n in ("solve", "train", "_resume")}
-    save = CheckpointManager.save
-    saves = []
+    save, write_file = CheckpointManager.save, CheckpointManager._write_file
+    saves, writes = [], []
 
     def timed_save(self, slot, state):
         torch.cuda.synchronize()
@@ -2411,15 +2425,27 @@ def resume_phase(root: str):
         live = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         save(self, slot, state)
-        saves.append(dict(slot=slot, ms=1e3 * (time.perf_counter() - t0),
+        saves.append(dict(slot=slot, backend=self.backend,
+                          ms=1e3 * (time.perf_counter() - t0),
                           live_gb=live / 1e9,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9))
+
+    def timed_write(self, slot, host, event):
+        """The write of a slot, on the thread that does it."""
+        t0 = time.perf_counter()
+        write_file(self, slot, host, event)
+        writes.append(dict(slot=slot, backend=self.backend,
+                           thread=threading.current_thread().name,
+                           ms=1e3 * (time.perf_counter() - t0),
+                           bytes=os.path.getsize(self._path(slot))))
 
     def run(name, *flags, patches=()):
         """cli.main, then the run's final latest slot and epoch-2 values."""
         gc.collect()
         torch.cuda.empty_cache()
-        with patched([(CheckpointManager, "save", timed_save), *patches]):
+        with patched([(CheckpointManager, "save", timed_save),
+                      (CheckpointManager, "_write_file", timed_write),
+                      *patches]):
             cli_main(argv(name, *flags))
         task = f"{runs}/{name}"
         slot = CheckpointManager(task).restore("latest", map_location="cpu")
@@ -2442,20 +2468,28 @@ def resume_phase(root: str):
         return originals["solve"](self)
 
     a = run("A", patches=[(Solver, "solve", solve_checking_bert)])
-    a_saves = list(saves)
+    a_saves, a_writes = list(saves), list(writes)
     a2 = run("A2")
 
-    # B: SIGTERM to this process during epoch 1
+    # B: SIGTERM to this process during epoch 1, under --ckpt_backend
+    # orbax: its slots are written on a background thread, and latest is
+    # durable when the run stops
     def train_with_sigterm(self, epoch):
         if epoch == 1:
             os.kill(os.getpid(), signal.SIGTERM)
         return originals["train"](self, epoch)
 
     handler = signal.getsignal(signal.SIGTERM)
-    b = run("B", patches=[(Solver, "train", train_with_sigterm)])
+    del saves[:], writes[:]
+    b = run("B", "--ckpt_backend", "orbax",
+            patches=[(Solver, "train", train_with_sigterm)])
+    b_saves, b_writes = list(saves), list(writes)
     require(b["slot"]["epoch"] == 1 and signal.getsignal(signal.SIGTERM) is handler,
             f"run B: latest at epoch {b['slot']['epoch']}, want 1, and the "
             "SIGTERM handler restored")
+    require(b_writes and all(w["thread"] != "MainThread" for w in b_writes)
+            and all(w["thread"] == "MainThread" for w in a_writes),
+            f"run B's slots not written on a background thread: {b_writes}")
     del b
     b_task = f"{runs}/B"
     t0 = time.perf_counter()
@@ -2547,6 +2581,12 @@ def resume_phase(root: str):
         and resumed["unstable_ulps"] == 0,
         gate_passed=passed, fault_caught=caught, slot_bytes=latest,
         write_latest_ms=[s["ms"] for s in a_saves if s["slot"] == "latest"],
+        card=card(), save_main_thread_ms={
+            backend: [s["ms"] for s in got if s["slot"] == "latest"]
+            for backend, got in (("msgpack", a_saves), ("orbax", b_saves))},
+        background_write_ms=[w["ms"] for w in b_writes],
+        background_write_bytes=[w["bytes"] for w in b_writes],
+        background_write_threads=sorted({w["thread"] for w in b_writes}),
         save_peak_gb=max(s["peak_gb"] for s in a_saves),
         save_live_gb=max(s["live_gb"] for s in a_saves),
         resume_ms=resume_ms[0], launches=dict(zip(KERNEL_NAMES, launches)),
@@ -5477,7 +5517,15 @@ def jax_slot_resume(root: str, device=None) -> dict:
     anchors drawn on the host for both (the config's dropout is off); the
     card's losses and MI values within JAX_SLOT_TOL of the CPU's, and a
     resume that takes optax's nu as mu (on the card) must miss that limit
-    tenfold. ``device``: the card (None) or, to rehearse, the CPU."""
+    tenfold. Then the same tree as ``mimrl_tpu``'s orbax slot
+    (``core/orbax_slot.py``'s writer) in a run directory of its own: read
+    back leaf for leaf bit for bit against the msgpack read, resumed on
+    the card into the msgpack resume's state bit for bit, its epoch equal
+    to the msgpack resume's (bit for bit; where it is not, a second
+    msgpack resume on the card is the control: bit for bit where it
+    repeats the first, else within RESUME_GAP_FACTOR times its gap)
+    and within JAX_SLOT_TOL of the CPU's, and served by ``Predictor``.
+    ``device``: the card (None) or, to rehearse, the CPU."""
     import json
     import math
     import os
@@ -5485,9 +5533,10 @@ def jax_slot_resume(root: str, device=None) -> dict:
     import numpy as np
     import torch
 
-    from mimrl_tpu_torch.core import flax_msgpack
+    from mimrl_tpu_torch.core import flax_msgpack, orbax_slot
     from mimrl_tpu_torch.core.config import MimrlConfig
     from mimrl_tpu_torch.data.synthetic import make_dec_fixture
+    from mimrl_tpu_torch.eval.predict import Predictor
     from mimrl_tpu_torch.models import convert
     from mimrl_tpu_torch.train import steps
     from mimrl_tpu_torch.train.solver import Solver
@@ -5509,8 +5558,9 @@ def jax_slot_resume(root: str, device=None) -> dict:
     cfg = MimrlConfig.from_json(cfg_json).replace(
         data_dir=data, task_dir=base, resume=run)
 
-    def resumed(device, name):
-        solver = Solver(cfg.replace(task_name=name), device=device)
+    def resumed(device, name, resume=run):
+        solver = Solver(cfg.replace(task_name=name, resume=resume),
+                        device=device)
         solver.writer.close()
         return solver
 
@@ -5551,6 +5601,15 @@ def jax_slot_resume(root: str, device=None) -> dict:
         g = np.abs(got - want) / (1.0 + np.abs(want))
         return float(g.max()) if np.isfinite(g).all() else math.inf
 
+    def resumed_state(solver):
+        """What a resume loads, on the host: weights, moments, bank."""
+        out = {f"model.{k}": v for k, v in solver.model.state_dict().items()}
+        for name in ("opt_main", "opt_vmi"):
+            out.update({f"{name}.{k}": v for k, v in zip(
+                ("count", "mu", "nu"), getattr(solver, name).state())})
+        out.update({f"bank.{k}": v for k, v in solver.bank.state_dict().items()})
+        return {k: v.detach().cpu().clone() for k, v in out.items()}
+
     want = epoch(cpu)
     card_solver = resumed(device, "card")
     state = dict(start_epoch=card_solver.start_epoch,
@@ -5558,6 +5617,7 @@ def jax_slot_resume(root: str, device=None) -> dict:
                  count_main=card_solver.opt_main.count.item(),
                  count_vmi=card_solver.opt_vmi.count.item(),
                  mu_dtype=str(card_solver.opt_main.mu.dtype))
+    msgpack_state = resumed_state(card_solver)
     got = epoch(card_solver)
     del card_solver
     moment_trees = convert._moment_trees
@@ -5585,6 +5645,190 @@ def jax_slot_resume(root: str, device=None) -> dict:
     require(record["fault_gap"] >= 10 * JAX_SLOT_TOL,
             f"the nu-as-mu fault moved the epoch by {record['fault_gap']} "
             "only")
+
+    # the same tree as an orbax slot, in a run directory of its own
+    t_orbax = time.perf_counter()
+    orun = f"{base}/orbax_run"
+    os.makedirs(orun, exist_ok=True)
+    with open(f"{orun}/config.json", "w") as f:
+        f.write(cfg_json)
+    t0 = time.perf_counter()
+    orbax_slot.write(f"{orun}/latest_model.orbax", slot)
+    write_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    from_orbax = orbax_slot.read(f"{orun}/latest_model.orbax")
+    read_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    from_msgpack = flax_msgpack.read(f"{run}/latest_model.msgpack")
+    msgpack_read_ms = 1e3 * (time.perf_counter() - t0)
+
+    def by_path(tree):
+        return sorted(orbax_slot.leaf_digests(tree),
+                      key=lambda leaf: leaf["path"])
+
+    leaves = by_path(from_orbax)
+    same_leaves = leaves == by_path(from_msgpack)
+    slot_bytes = sum(leaf_nbytes(x) for x in tree_leaves(from_orbax))
+    orbax_solver = resumed(device, "card_orbax", orun)
+    orbax_state = resumed_state(orbax_solver)
+    unequal = [k for k, v in msgpack_state.items()
+               if not (v.dtype == orbax_state[k].dtype
+                       and torch.equal(v, orbax_state[k]))]
+    got_orbax = epoch(orbax_solver)
+    del orbax_solver
+    # where the epochs differ: a second msgpack resume on the card is the
+    # control of what the card repeats
+    control = got if got_orbax.tobytes() == got.tobytes() else epoch(
+        resumed(device, "card_control"))
+    control_equal = control.tobytes() == got.tobytes()
+    limit = 0.0 if control_equal else RESUME_GAP_FACTOR * gap(control, got)
+    predictor = Predictor(orun, config_overrides={"data_dir": data},
+                          device=device)
+    preds, _ = predictor.predict_loader(predictor.test_loader)
+    del predictor
+    orbax_log = open(f"{base}/card_orbax/Running.log").read()
+    orbax_record = dict(
+        phase="resume", step="mimrl_tpu_orbax_slot", card=card(),
+        leaves=len(leaves), read_equals_msgpack_read=same_leaves,
+        resumed_state_tensors=len(msgpack_state),
+        resumed_state_unequal=unequal[:5],
+        epoch_bit_equal_msgpack=got_orbax.tobytes() == got.tobytes(),
+        control_bit_equal=control_equal, control_gap=gap(control, got),
+        gap_msgpack=gap(got_orbax, got), limit_msgpack=limit,
+        gap_cpu=gap(got_orbax, want), limit_cpu=JAX_SLOT_TOL,
+        served_rows=int(preds.shape[0]),
+        served_finite=bool(np.isfinite(preds).all()),
+        slot_bytes=slot_bytes, write_ms=write_ms, read_ms=read_ms,
+        read_mb_per_s=slot_bytes / 1e6 / (read_ms / 1e3),
+        msgpack_read_ms=msgpack_read_ms,
+        seconds=time.perf_counter() - t_orbax,
+        log=[ln for ln in orbax_log.splitlines() if "mimrl_tpu slot" in ln])
+    emit(**orbax_record)
+    require(same_leaves, "orbax slot: the reader's leaves differ from the "
+            "msgpack reader's")
+    require(not unequal, f"orbax slot resumed into another state: {unequal[:5]}")
+    require(orbax_record["gap_msgpack"] <= limit,
+            f"orbax resume: epoch against the msgpack resume's "
+            f"{orbax_record['gap_msgpack']} (limit {limit})")
+    require(orbax_record["gap_cpu"] <= JAX_SLOT_TOL,
+            f"orbax resume: card against CPU {orbax_record['gap_cpu']}")
+    require(orbax_record["served_finite"] and preds.shape[1] == 1
+            and orbax_record["log"], f"orbax slot served: {preds.shape}, "
+            f"log {orbax_record['log']}")
+    return record
+
+
+def tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tree_leaves(v)
+    else:
+        yield tree
+
+
+def leaf_nbytes(x) -> int:
+    import numpy as np
+
+    if hasattr(x, "element_size"):
+        return x.numel() * x.element_size()
+    return int(np.asarray(x).nbytes)
+
+
+ORBAX_FIXTURE = "tests/fixtures/mimrl_tpu_orbax"
+ORBAX_LEAF = (30522, 768)  # BERT-base's word embedding
+DECODE_REPEATS = 50
+
+
+def orbax_readings(root: str) -> dict:
+    """The committed ``mimrl_tpu`` orbax fixture (written by JAX's orbax:
+    zstd frames with Huffman literals and FSE sequences) decoded on this
+    machine by the port's reader and native decoder: every leaf's sha256
+    against its ``leaves.json``; the reader's ms and MB/s on it and on one
+    large leaf written by the port's writer (``ORBAX_LEAF`` float32), and
+    the decoder's MB/s over the fixture's frames."""
+    import hashlib
+    import os
+
+    import numpy as np
+
+    from mimrl_tpu_torch import native
+    from mimrl_tpu_torch.core import orbax_slot
+
+    t_start = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, ORBAX_FIXTURE)
+    with open(f"{fixture}/leaves.json") as f:
+        listed = sorted(json.load(f), key=lambda leaf: leaf["path"])
+    t0 = time.perf_counter()
+    tree = orbax_slot.read(f"{fixture}/latest_model.orbax")
+    fixture_ms = 1e3 * (time.perf_counter() - t0)
+    got = sorted(orbax_slot.leaf_digests(tree), key=lambda leaf: leaf["path"])
+    fixture_bytes = sum(leaf_nbytes(x) for x in tree_leaves(tree)
+                        if not isinstance(x, dict))
+    # each chunk's frame and its size (orbax's frames do not declare it)
+    kv = orbax_slot.read_kv(f"{fixture}/latest_model.orbax")
+    frames, sizes = [], []
+    for key, value in kv.items():
+        name, _, chunk = key.decode().rpartition("/")
+        if chunk == ".zarray":
+            continue
+        meta = json.loads(kv[f"{name}/.zarray".encode()])
+        if meta["compressor"] is not None:
+            item = 2 if meta["dtype"] == "bfloat16" else np.dtype(
+                meta["dtype"]).itemsize
+            frames.append(value)
+            sizes.append(item * int(np.prod(meta["chunks"], dtype=np.int64)))
+    decoded = [native.zstd_decompress(v, n) for v, n in zip(frames, sizes)]
+    t0 = time.perf_counter()
+    for _ in range(DECODE_REPEATS):
+        for v, n in zip(frames, sizes):
+            native.zstd_decompress(v, n)
+    decode_s = time.perf_counter() - t0
+    decode_bytes = DECODE_REPEATS * sum(sizes)
+
+    # the decoder is the port's own: the library links no libzstd
+    ldd = subprocess.run(["ldd", str(native.library_path())],
+                         capture_output=True, text=True, timeout=60).stdout
+    links = [ln.split()[0] for ln in ldd.splitlines() if ln.strip()]
+    require(not any("zstd" in name for name in links),
+            f"the native library links {links}")
+
+    rng = np.random.default_rng(11)
+    leaf = (0.05 * rng.standard_normal(ORBAX_LEAF)).astype(np.float32)
+    big = f"{root}/orbax_leaf/latest_model.orbax"
+    os.makedirs(os.path.dirname(big), exist_ok=True)
+    tree_big = {"params_bert": {"embeddings": {"word_embeddings": {
+        "embedding": leaf}}}}
+    t0 = time.perf_counter()
+    orbax_slot.write(big, tree_big)
+    big_write_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    back = orbax_slot.read(big)
+    big_read_ms = 1e3 * (time.perf_counter() - t0)
+    back = back["params_bert"]["embeddings"]["word_embeddings"]["embedding"]
+    record = dict(
+        phase="resume", step="orbax_readings", card=card(),
+        fixture_leaves=len(listed), fixture_sha256_match=got == listed,
+        fixture_frames=len(frames), fixture_bytes=fixture_bytes,
+        fixture_read_ms=fixture_ms,
+        fixture_read_mb_per_s=fixture_bytes / 1e6 / (fixture_ms / 1e3),
+        decode_mb_per_s=decode_bytes / 1e6 / decode_s,
+        decode_compressed_bytes=sum(len(v) for v in frames),
+        decode_bytes=sum(sizes),
+        decoded_nonempty=all(d.size == n for d, n in zip(decoded, sizes)),
+        leaf_shape=list(ORBAX_LEAF), leaf_bytes=leaf.nbytes,
+        leaf_write_ms=big_write_ms, leaf_read_ms=big_read_ms,
+        leaf_read_mb_per_s=leaf.nbytes / 1e6 / (big_read_ms / 1e3),
+        leaf_bit_equal=hashlib.sha256(back.tobytes()).digest()
+        == hashlib.sha256(leaf.tobytes()).digest(),
+        library=str(native.library_path()), library_links=links,
+        seconds=time.perf_counter() - t_start)
+    emit(**record)
+    require(record["fixture_sha256_match"],
+            "the committed orbax fixture decodes to other leaves than "
+            "leaves.json lists")
+    require(record["leaf_bit_equal"], "the large orbax leaf read back "
+            "differs from what was written")
     return record
 
 
@@ -5960,6 +6204,7 @@ def main() -> int:
         done("quant")
         resume = resume_phase(root)
         jax_slot_resume(root)
+        orbax_readings(root)
         done("resume")
         rungs, rungs_quant = rungs_phase(root)
         done("rungs")

@@ -21,13 +21,26 @@ state at the end of an epoch (``train/solver.py::Solver._snapshot``)::
 gives the model's state_dict for serving, from this schema or from a bare
 state_dict (the slots of earlier versions of this package).
 
-``mimrl_tpu``'s msgpack slots (``{slot}_model.msgpack``) are read by
-``restore_jax`` through ``core/flax_msgpack.py``, with no flax or msgpack
-installed; ``models/convert.py::state_dict_from_jax_slot`` turns one into
-the model's state_dict. Orbax slots (``{slot}_model.orbax/``, what
-``mimrl_tpu`` writes under ``--ckpt_backend orbax``) are not read: reading
-them needs orbax and tensorstore, so ``refuse_orbax`` names such a slot
-instead of passing it by as a missing one.
+``save`` takes a host copy of the slot before it returns (device tensors
+are copied into page-locked buffers, in the current stream's order, so
+the steps that follow cannot change what is written) and writes it with
+``torch.save``. Under ``--ckpt_backend orbax`` (``backend="orbax"``),
+as in ``mimrl_tpu``, the write runs on a background thread, so the epoch
+loop is not blocked while a slot of the parameters and both optimizers'
+moments is written: a save first waits for the one before, an error of
+the thread is raised by the next ``save`` or by ``wait_until_finished``,
+and the Solver waits before its run returns or stops. Both backends
+write the same ``.pt`` bytes; the port writes neither of ``mimrl_tpu``'s
+formats.
+
+``mimrl_tpu``'s slots are read by ``restore_jax`` with neither flax,
+msgpack, orbax nor tensorstore installed: its msgpack slots
+(``{slot}_model.msgpack``) through ``core/flax_msgpack.py``, its orbax
+slots (``{slot}_model.orbax/``) through ``core/orbax_slot.py``, and where
+a run directory holds both, the one ``mimrl_tpu`` would restore (the
+sidecar ``{slot}_model.meta.json``'s backend, else the newer);
+``models/convert.py::state_dict_from_jax_slot`` turns one into the
+model's state_dict.
 
 ``config.json`` is the ``MimrlConfig`` as JSON, the same file the JAX
 package writes.
@@ -44,11 +57,12 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Dict, Optional
 
 import torch
 
-from mimrl_tpu_torch.core import flax_msgpack
+from mimrl_tpu_torch.core import flax_msgpack, orbax_slot
 from mimrl_tpu_torch.parallel.mesh import gather_blocks, shard_dim, take_block
 
 SLOT_FORMAT = "mimrl_tpu_torch.slot/1"
@@ -131,13 +145,64 @@ class WholeShapes:
         return out
 
 
+def host_copy(state: Any):
+    """``state`` with every tensor copied to the host, and the CUDA event
+    after which the copies are complete (None when no tensor was on the
+    card). Tensors that share a storage share their copy, with the same
+    offsets and strides, so ``torch.save`` writes the same records as for
+    the originals. Device copies go into page-locked buffers in the
+    current stream's order: the steps that follow cannot change them."""
+    copies: Dict[Any, torch.Tensor] = {}
+    event = None
+
+    def copy(t: torch.Tensor) -> torch.Tensor:
+        nonlocal event
+        storage = t.untyped_storage()
+        key = (t.device, storage.data_ptr())
+        host = copies.get(key)
+        if host is None:
+            src = torch.empty(0, dtype=torch.uint8, device=t.device).set_(
+                storage, 0, (storage.nbytes(),), (1,))
+            host = torch.empty(storage.nbytes(), dtype=torch.uint8,
+                               pin_memory=t.is_cuda)
+            host.copy_(src, non_blocking=t.is_cuda)
+            if t.is_cuda and event is None:
+                event = torch.cuda.Event()
+            copies[key] = host
+        return torch.empty(0, dtype=t.dtype).set_(
+            host.untyped_storage(), t.storage_offset(), t.size(), t.stride())
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            return copy(x.detach())
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    out = walk(state)
+    if event is not None:
+        event.record()
+    return out, event
+
+
 class CheckpointManager:
     """The slots and config of one run directory; ``write=False`` (a mesh
-    rank other than 0) reads and writes nothing."""
+    rank other than 0) reads and writes nothing. ``backend`` is the run's
+    ``--ckpt_backend``: ``"orbax"`` writes on a background thread."""
 
-    def __init__(self, task_path: str, write: bool = True):
+    def __init__(self, task_path: str, write: bool = True,
+                 backend: str = "msgpack"):
+        if backend not in ("msgpack", "orbax"):
+            raise ValueError(f"checkpoint backend {backend!r}, not msgpack "
+                             "or orbax")
         self.task_path = task_path
         self.write = write
+        self.backend = backend
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._pending = ""
 
     def _path(self, slot: str) -> str:
         return os.path.join(self.task_path, f"{slot}_model.pt")
@@ -146,28 +211,51 @@ class CheckpointManager:
         """Where ``mimrl_tpu`` writes the slot (flax msgpack)."""
         return os.path.join(self.task_path, f"{slot}_model.msgpack")
 
-    def orbax_path(self, slot: str) -> str:
+    def jax_orbax_path(self, slot: str) -> str:
         """Where ``mimrl_tpu`` writes the slot under ``--ckpt_backend
         orbax`` (a directory)."""
         return os.path.join(self.task_path, f"{slot}_model.orbax")
 
-    def refuse_orbax(self, slot: str) -> None:
-        """Raise when ``mimrl_tpu`` wrote the slot as an orbax directory,
-        which this package cannot read (call it when no ``.pt`` slot and
-        no msgpack slot was found)."""
-        if os.path.isdir(self.orbax_path(slot)):
-            raise NotImplementedError(
-                f"{self.orbax_path(slot)} is a mimrl_tpu orbax slot: reading "
-                "orbax slots is not ported to mimrl_tpu_torch (ROADMAP.md, "
-                "section 3); rerun mimrl_tpu with --ckpt_backend msgpack")
+    def _write_file(self, slot: str, host: Dict, event) -> None:
+        if event is not None:
+            event.synchronize()
+        tmp = self._path(slot) + ".tmp"
+        torch.save(host, tmp)
+        os.replace(tmp, self._path(slot))
+
+    def _background(self, slot: str, host: Dict, event) -> None:
+        try:
+            self._write_file(slot, host, event)
+        except BaseException as e:  # raised by the next save or wait
+            self._error = e
 
     def save(self, slot: str, state: Dict[str, Any]) -> None:
+        """Write the slot; under the orbax backend the write is left to a
+        background thread once the host copy is taken."""
         if not self.write:
             return
+        self.wait_until_finished()
         os.makedirs(self.task_path, exist_ok=True)
-        tmp = self._path(slot) + ".tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, self._path(slot))
+        host, event = host_copy(state)
+        if self.backend == "msgpack":
+            self._write_file(slot, host, event)
+            return
+        self._pending = slot
+        self._thread = threading.Thread(
+            target=self._background, args=(slot, host, event),
+            name=f"save-{slot}")
+        self._thread.start()
+
+    def wait_until_finished(self) -> None:
+        """Block until the background save is written; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError(f"the background save of slot "
+                               f"{self._pending!r} in {self.task_path} "
+                               f"failed: {error!r}") from error
 
     def restore(self, slot: str, map_location=None) -> Optional[Dict[str, Any]]:
         """The slot as it was written, or None when it was never written."""
@@ -185,13 +273,39 @@ class CheckpointManager:
             return state["model"]
         return state
 
+    def jax_slot_path(self, slot: str) -> Optional[str]:
+        """The ``mimrl_tpu`` slot that ``restore_jax`` reads: its msgpack
+        file or its orbax directory; where both exist, the one that
+        ``mimrl_tpu``'s ``CheckpointManager.restore`` takes (the sidecar's
+        ``backend``, else the newer by mtime); None when there is none."""
+        path, opath = self.jax_path(slot), self.jax_orbax_path(slot)
+        has_msgpack, has_orbax = os.path.exists(path), os.path.isdir(opath)
+        if has_msgpack and has_orbax:
+            meta = None
+            try:
+                with open(os.path.join(self.task_path,
+                                       f"{slot}_model.meta.json")) as f:
+                    meta = json.load(f)
+            except (OSError, json.JSONDecodeError):
+                pass
+            if isinstance(meta, dict) and meta.get("backend") in (
+                    "msgpack", "orbax"):
+                has_msgpack = meta["backend"] == "msgpack"
+            else:
+                has_msgpack = os.path.getmtime(path) >= os.path.getmtime(opath)
+        if has_msgpack:
+            return path
+        return opath if has_orbax else None
+
     def restore_jax(self, slot: str) -> Optional[Dict[str, Any]]:
-        """``mimrl_tpu``'s msgpack slot as nested dicts of arrays, or None
-        when there is none."""
-        path = self.jax_path(slot)
-        if not os.path.exists(path):
+        """``mimrl_tpu``'s slot (``jax_slot_path``) as nested dicts of
+        arrays, or None when there is none."""
+        path = self.jax_slot_path(slot)
+        if path is None:
             return None
-        return flax_msgpack.read(path)
+        if path.endswith(".msgpack"):
+            return flax_msgpack.read(path)
+        return orbax_slot.read(path)
 
     def save_config(self, cfg_json: str) -> None:
         if not self.write:

@@ -246,8 +246,8 @@ class MimrlConfig:
     # v5e — threefry mask generation is that expensive); 'threefry' is
     # jax's default, stable across backends/versions
     rng_impl: str = "rbg"
-    # checkpoint storage: 'msgpack' (one portable file per slot) or
-    # 'orbax' (async background saves, multi-host-safe directory format)
+    # checkpoint storage: both write this package's .pt slots; 'orbax'
+    # writes them on a background thread (mimrl_tpu: async orbax saves)
     ckpt_backend: str = "msgpack"
     # failure containment: skip the optimizer update (params and opt
     # state unchanged) whenever any gradient is NaN/Inf, instead of

@@ -9,11 +9,11 @@ for a dense-text run, the text features. Labels and metrics follow the
 run's dataset family.
 
 The slot is this package's ``{slot}_model.pt`` or, in a run directory of
-``mimrl_tpu``, its ``{slot}_model.msgpack``, read without flax
-(``core/flax_msgpack.py``) and converted by
+``mimrl_tpu``, its ``{slot}_model.msgpack`` or ``{slot}_model.orbax/``,
+read without flax, orbax or tensorstore (``core/flax_msgpack.py``,
+``core/orbax_slot.py``) and converted by
 ``models/convert.py::state_dict_from_jax_slot``; ``config.json`` is the
-same file in both packages. An orbax slot of ``mimrl_tpu`` is refused by
-name (``CheckpointManager.refuse_orbax``).
+same file in both packages.
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class Predictor:
         self.cfg = MimrlConfig.from_dict(cfg_dict)
 
         # the slot, else latest; of each, this package's file, else
-        # mimrl_tpu's msgpack file
+        # mimrl_tpu's msgpack file or orbax directory
         state = jax_slot = None
         for name in dict.fromkeys((slot, "latest")):
             state = mgr.restore_model(name, map_location=self.device)
@@ -60,7 +60,6 @@ class Predictor:
                 jax_slot = mgr.restore_jax(name)
             if state is not None or jax_slot is not None:
                 break
-            mgr.refuse_orbax(name)
         else:
             raise FileNotFoundError(f"no checkpoint in {task_dir}")
 

@@ -1,16 +1,19 @@
-"""ctypes loader for the port's host-pipeline library (``collate.cpp``):
-padded-batch assembly and a WordPiece encoder with a plain C interface.
+"""ctypes loader for the port's native library, two sources with a plain
+C interface: ``collate.cpp`` (padded-batch assembly and a WordPiece
+encoder) and ``zstd.cpp`` (a Zstandard decoder, XXH64 and CRC-32C, which
+``core/orbax_slot.py`` reads ``mimrl_tpu``'s orbax slots with).
 
 The library is built with ``g++`` at first use into ``ops/build/`` (a
-directory git ignores), under a name that carries a hash of the source
+directory git ignores), under a name that carries a hash of the sources
 and the flags, so an edited source is rebuilt and an unchanged one is
 reused; the compiler writes a temporary file that is renamed into place,
 so two processes that build at once both load a whole library. Nothing
 is built at import time.
 
 Unlike the JAX package's loader, this one does not fall back: a failed
-build raises with the compiler's output, and a library that does not
-load raises too. The numpy forms in ``data/pipeline.py`` and
+build raises with the compiler's output, a library that does not load
+raises too, and so does a zstd frame that does not decode (with the byte
+offset of the fault). The numpy forms in ``data/pipeline.py`` and
 ``data/tokenizer.py`` stay as the plain versions, which the tests hold
 this library against and which a caller may ask for by name.
 
@@ -26,15 +29,16 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parent / "collate.cpp"
+SOURCES = tuple(Path(__file__).resolve().parent / name
+                for name in ("collate.cpp", "zstd.cpp"))
 BUILD_DIR = Path(__file__).resolve().parent.parent / "ops" / "build"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
-calls: Dict[str, int] = {"pad_stack": 0, "tokenizer": 0}
+calls: Dict[str, int] = {"pad_stack": 0, "tokenizer": 0, "zstd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 # the NativeWordPiece whose vocabulary the library holds (it keeps one)
@@ -42,27 +46,27 @@ _installed: Optional["NativeWordPiece"] = None
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+    digest = hashlib.sha256(b"".join(s.read_bytes() for s in SOURCES)
                             + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"collate-{digest}.so"
+    return BUILD_DIR / f"native-{digest}.so"
 
 
 def build() -> Path:
-    """Compile ``collate.cpp`` unless its library exists; raises with the
+    """Compile the sources unless their library exists; raises with the
     compiler's output on failure."""
     lib = library_path()
     if lib.exists():
         return lib
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: the host-pipeline library "
-                           f"{SOURCE} cannot be built")
+        raise RuntimeError("g++ not found: the native library of "
+                           f"{[s.name for s in SOURCES]} cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([gxx, *GXX_FLAGS, str(SOURCE), "-o", str(tmp)],
+    proc = subprocess.run([gxx, *GXX_FLAGS, *map(str, SOURCES), "-o", str(tmp)],
                           capture_output=True, text=True, timeout=240)
     if proc.returncode != 0:
-        raise RuntimeError(f"g++ failed for {SOURCE} (exit "
+        raise RuntimeError(f"g++ failed for {[str(s) for s in SOURCES]} (exit "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib)
     return lib
@@ -77,7 +81,7 @@ def load() -> ctypes.CDLL:
     try:
         lib = ctypes.CDLL(str(path))
     except OSError as e:
-        raise RuntimeError(f"the host-pipeline library {path} does not "
+        raise RuntimeError(f"the native library {path} does not "
                            f"load: {e}") from e
     lib.pad_stack_f32.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
@@ -93,12 +97,64 @@ def load() -> ctypes.CDLL:
     lib.tokenizer_encode_batch.restype = None
     lib.tokenizer_free.argtypes = []
     lib.tokenizer_free.restype = None
+    lib.zstd_decompress.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64]
+    lib.zstd_decompress.restype = ctypes.c_int64
+    lib.crc32c.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32]
+    lib.crc32c.restype = ctypes.c_uint32
     _lib = lib
     return lib
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:
     return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def _buffer(data) -> Tuple[ctypes.c_void_p, int, object]:
+    """(address, length, owner) of a bytes-like object, without a copy
+    for numpy arrays, bytearrays, writable memoryviews and bytes."""
+    if isinstance(data, np.ndarray):
+        arr = np.ascontiguousarray(data)
+        return _ptr(arr), arr.nbytes, arr
+    if isinstance(data, bytes):
+        ptr = ctypes.cast(ctypes.c_char_p(data), ctypes.c_void_p)
+        return ptr, len(data), data
+    arr = np.frombuffer(data, np.uint8)
+    return _ptr(arr), arr.nbytes, arr
+
+
+def zstd_decompress(data, size: int, out: Optional[np.ndarray] = None,
+                    exact: bool = True) -> np.ndarray:
+    """The ``size`` bytes that the zstd frames in ``data`` decode to, in a
+    new uint8 array or written into ``out`` (a contiguous array of
+    ``size`` bytes, any dtype), which is returned; raises ``ValueError``
+    with the input offset of a fault, or when the frames hold another
+    size (``exact=False``: at most ``size`` bytes, and the uint8 array of
+    those is returned)."""
+    src, n, keep = _buffer(data)
+    if out is None:
+        out = np.empty(size, np.uint8)
+    if not out.flags.c_contiguous or out.nbytes != size:
+        raise ValueError(f"zstd: the output buffer holds {out.nbytes} bytes "
+                         f"(contiguous: {out.flags.c_contiguous}), not {size}")
+    err = ctypes.create_string_buffer(512)
+    got = load().zstd_decompress(src, n, _ptr(out), size, err, len(err))
+    del keep
+    calls["zstd"] += 1
+    if got < 0:
+        raise ValueError(err.value.decode())
+    if got != size:
+        if not exact:
+            return out.reshape(-1).view(np.uint8)[:got]
+        raise ValueError(f"zstd: the frames hold {got} bytes, not {size}")
+    return out
+
+
+def crc32c(data, crc: int = 0) -> int:
+    """CRC-32C (Castagnoli) of ``data``, continuing from ``crc``."""
+    src, n, keep = _buffer(data)
+    return int(load().crc32c(src, n, crc))
 
 
 def pad_stack(arrays: Sequence[np.ndarray], time_len: int) -> np.ndarray:

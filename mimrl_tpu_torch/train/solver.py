@@ -94,8 +94,10 @@ parameter, and the steps run eagerly under either backend.
 ``model`` axis runs per epoch (``_group_mesh_ok``). A mesh request with
 one rank logs JAX's warning and runs unsharded.
 
-Not ported, and refused with a ``NotImplementedError`` that names
-ROADMAP.md: ``--ckpt_backend orbax`` (this package writes ``.pt`` slots).
+``--ckpt_backend orbax`` writes the same ``.pt`` slots as ``msgpack``, on
+a background thread (``core/checkpoint.py``); the run waits for the last
+write before it returns or stops, as ``mimrl_tpu``'s does. ``--resume``
+reads this package's slot, else ``mimrl_tpu``'s msgpack or orbax slot.
 """
 
 from __future__ import annotations
@@ -143,19 +145,6 @@ from mimrl_tpu_torch.train.optim import (LRScheduler, PlateauState,
                                          make_vmi_optimizer, partition_params)
 
 MI_NAMES = ("ft", "fa", "fv", "in", "spec_t", "spec_a", "spec_v", "comp")
-
-
-def _refuse_unported(opt: MimrlConfig) -> None:
-    unported = {
-        "--ckpt_backend orbax (this package writes .pt slots; orbax and "
-        "tensorstore are not among its dependencies)":
-            opt.ckpt_backend == "orbax",
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            "not ported to mimrl_tpu_torch yet (ROADMAP.md, Open items): "
-            + "; ".join(asked))
 
 
 def wants_mesh(opt: MimrlConfig) -> bool:
@@ -300,7 +289,6 @@ class Solver:
 
     def __init__(self, opt: MimrlConfig, device=None, graphs: bool = True,
                  mesh: Optional[Mesh] = None):
-        _refuse_unported(opt)
         self.opt = opt
         self.device = resolve_device(device if device is not None
                                      else opt.device)
@@ -445,12 +433,12 @@ class Solver:
         task_path = os.path.join(self.opt.task_dir, self.opt.task_name)
         if not self.is_writer:
             set_logger(None)
-            return task_path, _NoScalars(), CheckpointManager(task_path,
-                                                              write=False)
+            return task_path, _NoScalars(), CheckpointManager(
+                task_path, write=False, backend=self.opt.ckpt_backend)
         os.makedirs(task_path, exist_ok=True)
         set_logger(os.path.join(task_path, "Running.log"))
         writer = ScalarWriter(task_path)
-        ckpt = CheckpointManager(task_path)
+        ckpt = CheckpointManager(task_path, backend=self.opt.ckpt_backend)
         ckpt.save_config(self.opt.to_json())
         return task_path, writer, ckpt
 
@@ -513,13 +501,12 @@ class Solver:
         mgr = CheckpointManager(resume_dir)
         state = mgr.restore("latest", map_location="cpu")
         if state is None:
-            mgr.refuse_orbax("latest")
-            jax_slot = mgr.restore_jax("latest")
-            if jax_slot is None:
+            path = mgr.jax_slot_path("latest")
+            if path is None:
                 log_message(f"No latest checkpoint in {resume_dir}; fresh "
                             "start")
                 return
-            state = self._slot_from_jax(jax_slot, mgr.jax_path("latest"))
+            state = self._slot_from_jax(mgr.restore_jax("latest"), path)
         if not is_full_slot(state):
             raise ValueError(f"{resume_dir}: the latest slot holds the model "
                              "alone, not a training state to resume")
@@ -558,8 +545,8 @@ class Solver:
         return epoch + 1 + epoch * stage1
 
     def _slot_from_jax(self, slot: Dict, path: str) -> Dict:
-        """A ``mimrl_tpu`` msgpack ``latest`` (``core/checkpoint.py`` of the
-        JAX package: the three parameter groups, both optax states, the
+        """A ``mimrl_tpu`` ``latest``, msgpack or orbax (``core/checkpoint.py``
+        of the JAX package: the three parameter groups, both optax states, the
         bank, ``lr_factor``, ``global_step``, ``epoch``) as this package's
         slot: parameters by ``models/convert.py::state_dict_from_jax``,
         optax's count, mu and nu onto the flat moments in their dtypes, the
@@ -1048,6 +1035,9 @@ class Solver:
         self.save_results(tracking["predictions"], tracking["targets"],
                           tracking["features"], tracking["valid_state"],
                           tracking["test_state"])
+        # (ref: mimrl_tpu/train/solver.py:1579-1580) the background saves
+        # are durable before the run returns
+        self.ckpt.wait_until_finished()
         return tracking["score"]
 
     # ------------------------------------------------------------------ #
@@ -1334,6 +1324,7 @@ class Solver:
 
     def _stop_preempted(self, epoch: int, snap: Dict) -> None:
         self.ckpt.save("latest", snap)
+        self.ckpt.wait_until_finished()  # durable before the process stops
         log_message(f"Preemption requested: checkpointed at epoch {epoch}, "
                     "stopping.")
 

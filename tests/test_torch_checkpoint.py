@@ -15,7 +15,10 @@
   ``--bert_weights`` holds them.
 """
 
+import json
 import os
+import shutil
+import unittest.mock
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +34,9 @@ from mimrl_tpu.eval.predict import Predictor as JaxPredictor
 from mimrl_tpu.models import bert as jbert
 from mimrl_tpu.train.optim import make_vmi_optimizer
 from mimrl_tpu.train.solver import Solver as JaxSolver
-from mimrl_tpu_torch.core import flax_msgpack
+from mimrl_tpu_torch import native
+from mimrl_tpu_torch.core import flax_msgpack, orbax_slot
+from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import parse_args
 from mimrl_tpu_torch.data.synthetic import make_dec_fixture
 from mimrl_tpu_torch.eval.predict import Predictor
@@ -144,10 +149,159 @@ def test_reads_mimrl_tpu_msgpack_slots(tmp_path, monkeypatch):
     assert preds.shape == (N_TEST, 1)
     np.testing.assert_array_equal(targets, jax_targets)
     np.testing.assert_allclose(preds, jax_preds, rtol=1e-4, atol=1e-4)
+    _reads_mimrl_tpu_orbax_slots(tmp_path, cfg, state, want, jax_preds)
     _resumes_a_mimrl_tpu_latest(tmp_path, data, monkeypatch)
 
 
+def _same_jax_tree(got, want):
+    """Bit-equal JAX trees (arrays by dtype and bytes, scalars by value)."""
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(want))
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want)):
+        g, w = np.asarray(g), np.asarray(w)
+        assert (g.dtype, g.shape, g.tobytes()) == (w.dtype, w.shape, w.tobytes())
+
+
+def _zstd_frames():
+    """(name, content, frame) for the decoder's check: levels 1, 3, 19
+    and -5; 0 B, 1 B, 1 KB, 200 KB (several blocks) and 5 MB; random and
+    repetitive data; with and without the content checksum."""
+    import zstandard
+
+    rng = np.random.default_rng(5)
+    contents = {"0B": b"", "1B": b"\x07"}
+    for n, tag in ((1024, "1KB"), (200_000, "200KB"), (5_000_000, "5MB")):
+        contents[f"random{tag}"] = rng.bytes(n)
+        contents[f"repetitive{tag}"] = (b"mimrl %d " * n)[:n]
+    for name, content in contents.items():
+        for level in (1, 3, 19, -5):
+            for checksum in (False, True):
+                frame = zstandard.ZstdCompressor(
+                    level=level, write_checksum=checksum).compress(content)
+                yield f"{name}/{level}/{checksum}", content, frame
+
+
+def _reads_mimrl_tpu_orbax_slots(tmp_path, cfg, state, want, jax_preds):
+    """``mimrl_tpu``'s ``--ckpt_backend orbax`` slot of the same state:
+    the port's reader returns the msgpack reader's tree bit for bit (also
+    with arrays over several chunks), ``Predictor`` serves it, orbax
+    restores the port's writer's directory bit for bit, the committed
+    fixture matches its leaf list and JAX's restore, faults raise by name,
+    the sidecar picks between two formats as JAX does, and the native
+    zstd decoder equals ``zstandard``."""
+    import orbax.checkpoint as ocp
+
+    run_o = str(tmp_path / "run_orbax")
+    jax_o = JaxCheckpointManager(run_o, backend="orbax")
+    jax_o.save_config(cfg.to_json())
+    jax_o.save("best_valid", state)
+    jax_o.wait_until_finished()
+    slot_dir = f"{run_o}/best_valid_model.orbax"
+    decoded = native.calls["zstd"]
+    _assert_same_tree(orbax_slot.read(slot_dir), want)
+    assert native.calls["zstd"] > decoded
+
+    # arrays over several chunks (ragged at the edges of a 2 KB chunk)
+    chunked_dir = str(tmp_path / "orbax_chunked")
+    checkpointer = ocp.AsyncCheckpointer(ocp.StandardCheckpointHandler())
+    checkpointer.save(chunked_dir, args=ocp.args.StandardSave(
+        state, save_args=jax.tree_util.tree_map(
+            lambda _: ocp.SaveArgs(chunk_byte_size=2048), state)))
+    checkpointer.wait_until_finished()
+    names = {k.split(b"/")[0] for k in orbax_slot.read_kv(chunked_dir)
+             if k.endswith(b"/1.0") or k.endswith(b"/1")}
+    assert len(names) > 10
+    _assert_same_tree(orbax_slot.read(chunked_dir), want)
+
+    # the port's Predictor serves the orbax-only run directory
+    assert {f for f in os.listdir(run_o) if not f.endswith(".json")} == {
+        "best_valid_model.orbax"}
+    predictor = Predictor(run_o, device="cpu")
+    preds, _ = predictor.predict_loader(predictor.test_loader)
+    np.testing.assert_allclose(preds, jax_preds, rtol=1e-4, atol=1e-4)
+
+    # the writer's directories (zstd frames of Raw blocks, or none) restore
+    # in JAX bit for bit
+    for compress in (True, False):
+        out = str(tmp_path / f"written_{compress}")
+        os.makedirs(out)
+        orbax_slot.write(f"{out}/best_valid_model.orbax", want, compress)
+        _same_jax_tree(JaxCheckpointManager(out, backend="orbax").restore(
+            "best_valid", state), state)
+        _assert_same_tree(orbax_slot.read(f"{out}/best_valid_model.orbax"),
+                          want)
+
+    # the committed fixture: its leaf list and JAX's own restore
+    with open(f"{ORBAX_FIXTURE}/leaves.json") as f:
+        listed = sorted(json.load(f), key=lambda leaf: leaf["path"])
+    fixture = orbax_slot.read(f"{ORBAX_FIXTURE}/latest_model.orbax")
+    assert sorted(orbax_slot.leaf_digests(fixture),
+                  key=lambda leaf: leaf["path"]) == listed
+    restored = JaxCheckpointManager(ORBAX_FIXTURE, backend="orbax").restore(
+        "latest", _orbax_fixture_state())
+    _same_jax_tree(restored, _orbax_fixture_state())
+    assert sorted(orbax_slot.leaf_digests(flax_msgpack.msgpack_restore(
+        serialization.to_bytes(restored))), key=lambda leaf: leaf["path"]) == listed
+
+    # faults raise by name: an uncommitted save, a truncated data file, a
+    # flipped checksum
+    bad = str(tmp_path / "bad_model.orbax")
+    shutil.copytree(slot_dir, bad)
+    os.remove(f"{bad}/_CHECKPOINT_METADATA")
+    with pytest.raises(ValueError, match="uncommitted"):
+        orbax_slot.read(bad)
+    tmp_named = slot_dir + ".orbax-checkpoint-tmp-1"
+    shutil.copytree(slot_dir, tmp_named)
+    with pytest.raises(ValueError, match="uncommitted"):
+        orbax_slot.read(tmp_named)
+    shutil.rmtree(bad)
+    shutil.copytree(slot_dir, bad)
+    data = max((os.path.join(d, f) for d, _, fs in os.walk(
+        f"{bad}/ocdbt.process_0/d") for f in fs), key=os.path.getsize)
+    with open(data, "r+b") as f:
+        f.truncate(os.path.getsize(data) // 2)
+    with pytest.raises(ValueError, match=f"{os.path.basename(data)}.*truncated"):
+        orbax_slot.read(bad)
+    shutil.rmtree(bad)
+    shutil.copytree(slot_dir, bad)
+    with open(f"{bad}/manifest.ocdbt", "r+b") as f:
+        raw = bytearray(f.read())
+        raw[-1] ^= 0x40
+        f.seek(0)
+        f.write(raw)
+    with pytest.raises(ValueError, match="manifest.ocdbt: bad crc32c"):
+        orbax_slot.read(bad)
+
+    # both formats in one run directory: the sidecar decides, else mtime
+    both = str(tmp_path / "both")
+    JaxCheckpointManager(both).save("best_valid", state)
+    jax_both = JaxCheckpointManager(both, backend="orbax")
+    jax_both.save("best_valid", {**state, "epoch": 9})
+    jax_both.wait_until_finished()
+    mgr = CheckpointManager(both)
+    sidecar = f"{both}/best_valid_model.meta.json"
+    assert json.load(open(sidecar))["backend"] == "orbax"
+    assert mgr.restore_jax("best_valid")["epoch"] == 9
+    with open(sidecar, "w") as f:
+        json.dump({"backend": "msgpack", "counter": 3}, f)
+    assert mgr.restore_jax("best_valid")["epoch"] == 4
+    os.remove(sidecar)
+    os.utime(mgr.jax_path("best_valid"), (1, 1))
+    assert mgr.jax_slot_path("best_valid") == mgr.jax_orbax_path("best_valid")
+
+    # the native zstd decoder against zstandard
+    for name, content, frame in _zstd_frames():
+        got = native.zstd_decompress(frame, len(content))
+        assert got.tobytes() == content, name
+    frame = frame[:-5] + bytes([frame[-5] ^ 1]) + frame[-4:]
+    with pytest.raises(ValueError, match="zstd: .* at input byte"):
+        native.zstd_decompress(frame, len(content))
+
+
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mimrl_tpu_slot")
+ORBAX_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                             "mimrl_tpu_orbax")
 PATHS = ("task_name", "data_dir", "task_dir")  # the run's own, not the config's
 STEP_TOL = 1e-4  # losses and MI values, relative to 1 + |value|
 PARAM_TOL = 3e-5  # absolute, after stage 2's steps of up to 7.5e-3 (Adam, 4e-3)
@@ -443,3 +597,59 @@ def test_bert_weights(tmp_path):
     np.savez(npz, **flat)
     with pytest.raises(ValueError, match="unfilled"):
         load_bert_weights(npz, BertModel(c))
+
+
+def _orbax_fixture_state():
+    """The tree of ``tests/fixtures/mimrl_tpu_orbax``: every kind of leaf
+    a ``mimrl_tpu`` slot holds (float32, bfloat16 and int32 arrays, Python
+    scalars, an optax chain state with its ``EmptyState`` and namedtuples),
+    random data that does not compress beside smooth data that does."""
+    import optax
+
+    rng = np.random.default_rng(17)
+    params = {"dense": {"kernel": rng.normal(size=(40, 24)).astype(np.float32),
+                        "bias": np.round(np.linspace(-1, 1, 24), 2).astype(
+                            np.float32)},
+              "embed.table": np.asarray(jnp.asarray(
+                  rng.normal(size=(32, 16)), jnp.bfloat16))}
+    opt = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-3)).init(
+        params)
+    opt = jax.tree_util.tree_map(  # moments with values of their own dtype
+        lambda x: (np.asarray(jnp.asarray(1e-3 * rng.normal(size=x.shape),
+                                          x.dtype)) if x.ndim else
+                   np.asarray(x)), opt)
+    wave = np.sin(np.arange(64 * 48) / 7.0).reshape(64, 48)
+    return {"params": params, "opt_state": opt,
+            "bank": {"F": np.round(wave, 3).astype(np.float32),
+                     "ids": (np.arange(512) % 11).astype(np.int32)},
+            "epoch": 3, "global_step": 120, "lr_factor": 0.25}
+
+
+def _write_orbax_fixture(root):
+    """Writes the fixture with ``mimrl_tpu``'s ``CheckpointManager(backend=
+    "orbax")`` (``bank/F`` over several chunks of at most 2 KB), and
+    ``leaves.json`` from the state itself: ``python
+    tests/test_torch_checkpoint.py`` rewrites it."""
+    import orbax.checkpoint as ocp
+
+    standard_save = ocp.args.StandardSave
+
+    def chunked(item):
+        args = jax.tree_util.tree_map(lambda _: ocp.SaveArgs(), item)
+        args["bank"]["F"] = ocp.SaveArgs(chunk_byte_size=2048)
+        return standard_save(item, save_args=args)
+
+    state = _orbax_fixture_state()
+    with unittest.mock.patch.object(ocp.args, "StandardSave", chunked):
+        mgr = JaxCheckpointManager(root, backend="orbax")
+        mgr.save("latest", state)
+        mgr.wait_until_finished()
+    leaves = orbax_slot.leaf_digests(flax_msgpack.msgpack_restore(
+        serialization.to_bytes(state)))
+    with open(os.path.join(root, "leaves.json"), "w") as f:
+        json.dump(leaves, f, indent=1)
+
+
+if __name__ == "__main__":
+    shutil.rmtree(ORBAX_FIXTURE, ignore_errors=True)
+    _write_orbax_fixture(ORBAX_FIXTURE)

@@ -1,6 +1,6 @@
 """The port stands alone: importing it loads neither JAX nor any module
-of the JAX package, nor flax, msgpack or orbax, and no file of it (nor
-chip_smoke.py) imports them.
+of the JAX package, nor flax, msgpack, orbax, tensorstore or zstandard,
+and no file of it (nor chip_smoke.py) imports them.
 
 The import check runs in a subprocess, because this test session has
 imported JAX already (tests/conftest.py).
@@ -17,9 +17,11 @@ import mimrl_tpu_torch
 
 PACKAGE = Path(mimrl_tpu_torch.__file__).resolve().parent
 # the card's machine has none of them: checkpoints of mimrl_tpu are read
-# by the port's own msgpack reader (core/flax_msgpack.py)
+# by the port's own readers (core/flax_msgpack.py; core/orbax_slot.py,
+# whose OCDBT walker and zarr assembly need no tensorstore and whose zstd
+# frames native/zstd.cpp decodes, without zstandard or a system libzstd)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "orbax",
-             "mimrl_tpu")
+             "tensorstore", "zstandard", "mimrl_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -32,6 +34,7 @@ def test_import_loads_no_jax():
             "import mimrl_tpu_torch.models.convert, mimrl_tpu_torch.ops._build\n"
             "import mimrl_tpu_torch.cli.main, mimrl_tpu_torch.train.solver\n"
             "import mimrl_tpu_torch.core.flax_msgpack\n"
+            "import mimrl_tpu_torch.core.orbax_slot\n"
             "import mimrl_tpu_torch.mi.estimators, mimrl_tpu_torch.mi.knn\n"
             "import mimrl_tpu_torch.models.fusion, mimrl_tpu_torch.train.custom\n"
             "import mimrl_tpu_torch.train.regularizers\n"

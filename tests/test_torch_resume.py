@@ -9,19 +9,26 @@ B receives a real SIGTERM in epoch 1 and stops after it; C resumes B for
 epoch 2. C's final slot (weights, both optimizers' moments, the feature
 bank, the schedule, the loader's passes, the generators) and its epoch-2
 telemetry equal A's; the same holds for the ``--epoch_scan`` rung, whose
-epochs are dispatched ahead of their host work. Three faulty resumes, each
-leaving one piece of the state out, must each end with other weights.
-A ``mimrl_tpu`` msgpack ``latest`` that is cut short raises; orbax
-directories, which the port cannot read, are refused by name, as is
-``--ckpt_backend orbax``.
+epochs are dispatched ahead of their host work. B and C run with
+``--ckpt_backend orbax`` (slots written on a background thread): B's
+``latest`` is durable when it stops, and C's ``latest`` holds the bytes
+of A's, which ran under ``msgpack``. Three faulty resumes, each leaving
+one piece of the state out, must each end with other weights. A
+``mimrl_tpu`` msgpack ``latest`` that is cut short raises; a ``mimrl_tpu``
+run of ``--ckpt_backend orbax`` (orbax directories only) resumes and
+serves.
 """
 
 import json
 import os
 import signal
 
+import numpy as np
 import pytest
 import torch
+from mimrl_tpu.core.checkpoint import CheckpointManager as JaxCheckpointManager
+from mimrl_tpu.core.config import parse_args as jax_parse_args
+from mimrl_tpu.train.solver import Solver as JaxSolver
 
 from mimrl_tpu_torch.cli.main import main
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
@@ -89,7 +96,7 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
     try:
         with monkeypatch.context() as m:
             m.setattr(Solver, "train", train_with_sigterm)
-            b = run("B")
+            b = run("B", "--ckpt_backend", "orbax")
         assert signal.getsignal(signal.SIGTERM) is sentinel
         assert signal.getsignal(signal.SIGINT) is prev_int
     finally:
@@ -99,9 +106,13 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
     assert {s for s in range(3) if _scalars(f"{runs}/B", s)} == {0, 1}
     assert "Preemption requested" in open(f"{runs}/B/Running.log").read()
 
-    # C: resume B for epoch 2; everything equals A
-    c = run("C", "--resume", f"{runs}/B")
+    # C: resume B for epoch 2; everything equals A, and the background
+    # write gives the bytes of A's inline one
+    c = run("C", "--ckpt_backend", "orbax", "--resume", f"{runs}/B")
     assert _same(c, a), [k for k in a if not _same(a[k], c[k])]
+    with open(f"{runs}/A/latest_model.pt", "rb") as fa, open(
+            f"{runs}/C/latest_model.pt", "rb") as fc:
+        assert fa.read() == fc.read()
     # milestone 2 cut the rate after epoch 1, and the cut carried over
     assert c["lr_schedule"] == {"kind": "multi_step",
                                 "factor": pytest.approx(0.1), "epoch": 3}
@@ -187,20 +198,56 @@ def test_resume_equals_uninterrupted(tmp_path, monkeypatch):
         Solver(parse_args(_argv(root, "--task_name", "jax", *EXTRA,
                                 "--resume", f"{root}/empty")))
     # a mimrl_tpu run of --ckpt_backend orbax holds only orbax directories:
-    # --resume and Predictor name the slot instead of starting fresh; the
-    # port writes no orbax slot, so the flag is refused
+    # --resume continues its latest, and Predictor serves its best_valid
     orbax = f"{root}/orbax"
-    os.makedirs(f"{orbax}/latest_model.orbax")
-    os.makedirs(f"{orbax}/best_valid_model.orbax")
-    with open(f"{orbax}/config.json", "w") as f:
-        f.write(open(f"{runs}/A/config.json").read())
-    for refused in (
-            lambda: Solver(parse_args(_argv(root, "--task_name", "orbax",
-                                            *EXTRA, "--resume", orbax))),
-            lambda: Predictor(orbax, device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match="best_valid_model.orbax|latest_model.orbax"):
-            refused()
-    with pytest.raises(NotImplementedError, match="--ckpt_backend orbax"):
-        Solver(parse_args(_argv(root, "--task_name", "orbax",
-                                "--ckpt_backend", "orbax")))
+    argv = _argv(root, "--task_name", "jax_orbax", *EXTRA)
+    i = argv.index("--device")
+    jax_cfg = jax_parse_args(argv[:i] + argv[i + 2:])
+    jax_ckpt = JaxCheckpointManager(orbax, backend="orbax")
+    jax_ckpt.save_config(jax_cfg.to_json())
+    jax_state = JaxSolver(jax_cfg)._state_dict(1)
+    for slot in ("latest", "best_valid"):
+        jax_ckpt.save(slot, jax_state)
+    jax_ckpt.wait_until_finished()
+    assert sorted(f for f in os.listdir(orbax) if f.endswith(".orbax")) == [
+        "best_valid_model.orbax", "latest_model.orbax"]
+    resumed = Solver(parse_args(_argv(root, "--task_name", "orbax", *EXTRA,
+                                      "--resume", orbax)))
+    resumed.writer.close()
+    assert resumed.start_epoch == 2 and resumed.have_bank
+    assert "latest_model.orbax is a mimrl_tpu slot" in open(
+        f"{runs}/orbax/Running.log").read()
+    served = Predictor(orbax, device="cpu")
+    held = resumed.model.state_dict()
+    for name, t in served.model.state_dict().items():
+        assert torch.equal(t, held[name]), name
+    preds, _ = served.predict_loader(served.test_loader)
+    assert preds.shape == (N_TEST, 1) and np.isfinite(preds).all()
+
+    # an error of the background write is raised by the next save and by
+    # wait_until_finished, never swallowed; a save waits for the one before
+    from mimrl_tpu_torch.core import checkpoint
+
+    order = []
+    torch_save = torch.save
+
+    def failing_save(obj, path):
+        order.append(os.path.basename(path))
+        if "latest" in path:
+            raise OSError("disk full")
+        torch_save(obj, path)
+
+    mgr = CheckpointManager(f"{root}/background", backend="orbax")
+    with monkeypatch.context() as m:
+        m.setattr(checkpoint.torch, "save", failing_save)
+        mgr.save("best_test", a)
+        mgr.save("latest", a)
+        with pytest.raises(RuntimeError, match="'latest'.*disk full"):
+            mgr.wait_until_finished()
+        mgr.save("latest", a)
+        with pytest.raises(RuntimeError, match="disk full"):
+            mgr.save("best_valid", a)
+    mgr.wait_until_finished()
+    assert order == ["best_test_model.pt.tmp"] + ["latest_model.pt.tmp"] * 2
+    assert _same(mgr.restore("best_test"), a)
+    assert mgr.restore("latest") is None and mgr.restore("best_valid") is None
