@@ -24,6 +24,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.data.tokenizer import WordPieceTokenizer
 
 SPLITS = ("train", "valid", "test")
@@ -194,22 +195,31 @@ class BatchPipeline:
         return idx_plan, mask_plan, tokens
 
     def __iter__(self) -> Iterator[Dict]:
-        idx_plan, mask_plan, tokens = self.next_epoch()
-        for idx, mask in zip(idx_plan, mask_plan):
-            batch = {
-                "audio": self._audio[idx],
-                "video": self._video[idx],
-                "labels": [np.asarray(lab)[idx] for lab in self.ds.labels],
-                "sample_mask": mask,
-            }
-            if tokens is not None:
-                ids, types, amask = tokens
-                batch["bert_sentences"] = ids[idx]
-                batch["bert_sentence_types"] = types[idx]
-                batch["bert_sentence_att_mask"] = amask[idx]
-            if self._text_feat is not None:
-                batch["text"] = self._text_feat[idx]
+        plan = None
+        for b in range(self.n_batches):
+            with span("data/batch"):  # the first one draws the pass's plan
+                if plan is None:
+                    plan = self.next_epoch()
+                batch = self._batch(*plan, b)
             yield batch
+
+    def _batch(self, idx_plan, mask_plan, tokens, b: int) -> Dict:
+        """Batch ``b`` of a pass's plan."""
+        idx, mask = idx_plan[b], mask_plan[b]
+        batch = {
+            "audio": self._audio[idx],
+            "video": self._video[idx],
+            "labels": [np.asarray(lab)[idx] for lab in self.ds.labels],
+            "sample_mask": mask,
+        }
+        if tokens is not None:
+            ids, types, amask = tokens
+            batch["bert_sentences"] = ids[idx]
+            batch["bert_sentence_types"] = types[idx]
+            batch["bert_sentence_att_mask"] = amask[idx]
+        if self._text_feat is not None:
+            batch["text"] = self._text_feat[idx]
+        return batch
 
 
 class _Failure:
@@ -241,7 +251,8 @@ def prefetch(iterator: Iterator, size: int = 2) -> Iterator:
     thread.start()
     try:
         while True:
-            item = q.get()
+            with span("data/wait"):
+                item = q.get()
             if item is end:
                 return
             if isinstance(item, _Failure):

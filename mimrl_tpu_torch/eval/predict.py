@@ -25,6 +25,7 @@ import torch
 
 from mimrl_tpu_torch.core.checkpoint import CheckpointManager
 from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
 from mimrl_tpu_torch.data.universal import (get_data_loader,
                                             get_label_from_datas,
@@ -76,9 +77,10 @@ class Predictor:
 
     def forward(self, batch: Dict) -> torch.Tensor:
         """The model's output [bs, num_class] for one host batch."""
-        inputs = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                  for k in MODEL_INPUTS if k in batch}
-        with torch.inference_mode():
+        with span("data/copy"):
+            inputs = {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
+                      for k in MODEL_INPUTS if k in batch}
+        with span("step/predict"), torch.inference_mode():
             return forward_batch(self.model, inputs, return_features=False)[0]
 
     def predict_loader(self, loader) -> Tuple[np.ndarray, np.ndarray]:

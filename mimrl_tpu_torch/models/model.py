@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.device import compute_dtype
 from mimrl_tpu_torch.mi.estimators import (VCMIEstimator, VMIEstimator,
                                            batched_vcmi, batched_vmi)
@@ -223,17 +224,18 @@ class MimrlModel(nn.Module):
         taken in place of the tower (ref: mimrl_tpu/models/model.py:
         232-250)."""
         T = self.time_len
-        if text_hidden is not None:
-            t = text_hidden
-        elif self.raw_text:
-            t = self.bertmodel(bert_sentences, bert_sentence_types,
-                               bert_sentence_att_mask, generator)
-        elif text_features is None:
-            raise ValueError("a dense-text model takes text_features "
-                             "[bs, T, d_t]")
-        else:
-            t = text_features
-        t = self.W_t(t)
+        with span("model/text"):  # BERT (or the dense text) and W_t
+            if text_hidden is not None:
+                t = text_hidden
+            elif self.raw_text:
+                t = self.bertmodel(bert_sentences, bert_sentence_types,
+                                   bert_sentence_att_mask, generator)
+            elif text_features is None:
+                raise ValueError("a dense-text model takes text_features "
+                                 "[bs, T, d_t]")
+            else:
+                t = text_features
+            t = self.W_t(t)
 
         if self.encoders == "conv":
             a, v = self.conv_a(a), self.conv_v(v)
@@ -322,19 +324,21 @@ class MimrlModel(nn.Module):
     def compute_vmi_loss_stage1(self, labels, F_F, T_F, A_F, V_F, knn):
         """11 (mi, mi_loss) pairs for critic training
         (ref: Model.py:305-341)."""
-        m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
+        with span("mi/estimates"):
+            m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
         order = VMI_KEYS + CMI_KEYS
         return [m[k] for k in order], [l[k] for k in order]
 
     def compute_vmi_loss_stage2(self, labels, F_F, T_F, A_F, V_F, knn):
         """8 derived (mi, mi_loss) pairs for main-model training
         (ref: Model.py:343-386)."""
-        m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
-        mi_inv = m["t_a"] + m["t_v"]
-        mi_spec_t = m["tc_a"] + m["tc_v"] - m["ta_c"] - m["tv_c"]
-        mi_spec_a = m["ac_t"] - m["ta_c"]
-        mi_spec_v = m["vc_t"] - m["tv_c"]
-        mi_comp = m["ta_c"] + m["tv_c"]
+        with span("mi/estimates"):
+            m, l = self._all_estimates(labels, F_F, T_F, A_F, V_F, knn)
+            mi_inv = m["t_a"] + m["t_v"]
+            mi_spec_t = m["tc_a"] + m["tc_v"] - m["ta_c"] - m["tv_c"]
+            mi_spec_a = m["ac_t"] - m["ta_c"]
+            mi_spec_v = m["vc_t"] - m["tv_c"]
+            mi_comp = m["ta_c"] + m["tv_c"]
         mis = [m["f_t"], m["f_a"], m["f_v"], mi_inv,
                mi_spec_t, mi_spec_a, mi_spec_v, mi_comp]
         losses = [l["f_t"], l["f_a"], l["f_v"], -mi_inv,
@@ -355,10 +359,11 @@ def forward_batch(model: MimrlModel, batch: Dict[str, torch.Tensor],
     hidden = None
     if (mesh is not None and mesh.shape[PIPE_AXIS] > 1 and model.raw_text
             and batch.get("text") is None):
-        hidden = bert_forward_pipelined(
-            model.bertmodel, mesh, *inputs[:3],
-            n_microbatches=mesh.n_microbatches, n_virtual=mesh.n_virtual,
-            remat=mesh.remat, generator=generator)
+        with span("model/text"):
+            hidden = bert_forward_pipelined(
+                model.bertmodel, mesh, *inputs[:3],
+                n_microbatches=mesh.n_microbatches, n_virtual=mesh.n_virtual,
+                remat=mesh.remat, generator=generator)
     outs = model(*inputs, return_features=return_features,
                  generator=generator, text_features=batch.get("text"),
                  text_hidden=hidden)

@@ -101,6 +101,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from mimrl_tpu_torch.core.spans import span
+
 DCN_AXIS = "dcn"
 DATA_AXIS = "data"
 PIPE_AXIS = "pipe"
@@ -530,7 +532,7 @@ def _shift(x: torch.Tensor, mesh: Mesh, step: int) -> torch.Tensor:
     buf = torch.zeros((n,) + tuple(x.shape), dtype=_acc_dtype(x.dtype),
                       device=x.device)
     buf[(i + step) % n].copy_(x)
-    with torch.profiler.record_function("mimrl/pipe_hop"):
+    with span("pipe_hop"):
         dist.all_reduce(buf, group=mesh.group((PIPE_AXIS,)))
     return buf[i].to(x.dtype)
 
@@ -759,7 +761,7 @@ def reduce_gradients(mesh: Optional[Mesh], grads: List[torch.Tensor],
             torch.float32 if g.dtype != torch.float64 else g.dtype)
             for g in part])
         if mesh.size(axes) > 1:
-            with torch.profiler.record_function("mimrl/grad_reduce"):
+            with span("grad_reduce"):
                 dist.all_reduce(flat, group=mesh.group(axes))
         flat = flat / mesh.size(BATCH_AXES)
         for i, f, g in zip(picked, flat.split([g.numel() for g in part]),

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.device import widen
 from mimrl_tpu_torch.models.bert import attention_seed
 from mimrl_tpu_torch.parallel.mesh import (BATCH_AXES, PIPE_AXIS, Dropout,
@@ -203,7 +204,7 @@ class _Run:
             if t + 1 < len(self.ticks):
                 state = hop(y, self.mesh)
         out = torch.cat(outputs) if self.last else torch.zeros_like(x)
-        with torch.profiler.record_function("mimrl/pipe_output"):
+        with span("pipe_output"):
             return all_reduce(out, self.mesh, (PIPE_AXIS,))
 
     def unit_back(self, t: int, m: int, r: int, g_y: torch.Tensor,

@@ -51,6 +51,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.ops.cubemlp_kernel import fused_axis_mlp
 from mimrl_tpu_torch.ops.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
@@ -139,14 +140,16 @@ class StepGraphs:
     def __call__(self, name: str, body: Callable, **inputs):
         if not self.capture:
             return body(**inputs)
-        step = self.steps.get(name)
-        if step is None:
-            return self._first_call(name, body, inputs)
-        _fill(name, step.inputs, inputs)
-        step.graph.replay()
-        _add_launches(step.launches)
-        step.replays += 1
-        return _map(torch.Tensor.clone, step.outputs)
+        # step/critic, step/train, ...; the selection's graph: step/select
+        with span("step/" + name.split("_")[0]):
+            step = self.steps.get(name)
+            if step is None:
+                return self._first_call(name, body, inputs)
+            _fill(name, step.inputs, inputs)
+            step.graph.replay()
+            _add_launches(step.launches)
+            step.replays += 1
+            return _map(torch.Tensor.clone, step.outputs)
 
     def _first_call(self, name: str, body: Callable, inputs: Dict):
         if self._stream is None:

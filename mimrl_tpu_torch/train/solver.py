@@ -119,6 +119,7 @@ from mimrl_tpu_torch.core.checkpoint import (SLOT_FORMAT, CheckpointManager,
                                              WholeShapes, whole_slot)
 from mimrl_tpu_torch.core.config import MimrlConfig
 from mimrl_tpu_torch.core.logging import ScalarWriter, log_message, set_logger
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.data.pipeline import prefetch
 from mimrl_tpu_torch.data.tokenizer import build_tokenizer
 from mimrl_tpu_torch.data.universal import (get_data_loader,
@@ -223,6 +224,13 @@ class _Fetch:
             out[name] = flat[at:at + size].reshape(shape).astype(kind)
             at += size
         return out
+
+
+def _readback(t: torch.Tensor, where: str) -> np.ndarray:
+    """A device tensor as float32 numpy: a wait of the host on the device,
+    in the span ``sync/<where>``."""
+    with span("sync/" + where):
+        return t.float().cpu().numpy()
 
 
 def _part(values: Dict, prefix: str) -> Dict:
@@ -446,21 +454,23 @@ class Solver:
         """Host batch -> (CPU tensors and labels, page-locked on the card's
         runs, host labels, host sample mask); on a mesh the model inputs
         are this rank's rows."""
-        labels = np.asarray(get_label_from_datas(self.opt, batch))
-        if self.mesh is not None and self.mesh.sharded:
-            batch = dict(batch, **shard_batch(self.mesh, {
-                k: batch[k] for k in MODEL_INPUTS if k in batch}))
-        tensors = steps.host_tensors(batch, labels, self.opt.task,
-                                     pin=self.device.type == "cuda")
+        with span("data/copy"):
+            labels = np.asarray(get_label_from_datas(self.opt, batch))
+            if self.mesh is not None and self.mesh.sharded:
+                batch = dict(batch, **shard_batch(self.mesh, {
+                    k: batch[k] for k in MODEL_INPUTS if k in batch}))
+            tensors = steps.host_tensors(batch, labels, self.opt.task,
+                                         pin=self.device.type == "cuda")
         return tensors, labels, batch["sample_mask"]
 
     def _to_device(self, host):
         """``_host``'s result -> (device batch, device labels, host labels,
         host sample mask), copied in stream order."""
         (model_batch, labels), labels_np, mask = host
-        return ({k: v.to(self.device, non_blocking=True)
-                 for k, v in model_batch.items()},
-                labels.to(self.device, non_blocking=True), labels_np, mask)
+        with span("data/copy"):
+            return ({k: v.to(self.device, non_blocking=True)
+                     for k, v in model_batch.items()},
+                    labels.to(self.device, non_blocking=True), labels_np, mask)
 
     def _prep(self, batch: Dict):
         """Host batch -> (device batch, device labels, host labels)."""
@@ -588,81 +598,96 @@ class Solver:
         self.stage1_pass_losses = []
 
         # Stage 1 (skipped at epoch 0, ref: Solver.py:201-203)
-        if epoch > 0 and self.have_bank:
-            if opt.fast_stage1:
-                # one forward per batch, stage1_n critic updates on the
-                # cached features (ref: mimrl_tpu/train/solver.py:511-530)
-                cached = []
-                for batch in self.train_loader:
-                    model_batch, labels_dev, _ = self._prep(batch)
-                    cached.append((steps.features_step(
-                        self.model, model_batch, self.generator), labels_dev))
-                passes = [[steps.critic_update(
-                    self.model, self.opt_vmi, opt, feats, labels_dev,
-                    self.bank, self.generator)[0]
-                    for feats, labels_dev in cached]
-                    for _ in range(opt.stage1_n)]
-            else:
-                passes = []
-                for _ in range(opt.stage1_n):
-                    mi_losses = []
-                    for batch in self.train_loader:
-                        model_batch, labels_dev, _ = self._prep(batch)
-                        loss, _mis = steps.critic_step(
-                            self.model, self.opt_vmi, opt, model_batch,
-                            labels_dev, self.bank, self.generator)
-                        mi_losses.append(loss)
-                        if opt.check_gradient:
-                            self._log_gradients(model_batch, labels_dev, 1)
-                    passes.append(mi_losses)
-            for mi_losses in passes:
-                pass_loss = float(torch.stack(mi_losses).sum())
-                running_loss_mi += pass_loss
-                self.stage1_pass_losses.append(pass_loss / n)
-        self._synchronize()
+        with span("solver/stage1"):
+            if epoch > 0 and self.have_bank:
+                passes = self._stage1()
+                for mi_losses in passes:
+                    with span("sync/stage1_loss"):
+                        pass_loss = float(torch.stack(mi_losses).sum())
+                    running_loss_mi += pass_loss
+                    self.stage1_pass_losses.append(pass_loss / n)
+            with span("sync/stage1_end"):
+                self._synchronize()
         t_stage2 = time.time()
         log_message(f"  stage1: {t_stage2 - t_stage1:.2f}s" + "".join(
             f" pass{i + 1}:[{l:.4f}]"
             for i, l in enumerate(self.stage1_pass_losses)))
 
         # Stage 2
-        use_mi = self.have_bank
-        self.new_bank.zero_()
-        offset = 0
-        step_losses, step_mis, outs, masks, targets = [], [], [], [], []
-        host_batches = map(self._host, self.train_loader)
-        if opt.num_workers > 0:  # ref: mimrl_tpu/train/solver.py:559-560
-            host_batches = prefetch(host_batches, 2)
-        for host in host_batches:
-            model_batch, labels_dev, labels_np, sample_mask = self._to_device(host)
-            loss, mis, out = steps.train_step(
-                self.model, self.opt_main, opt, model_batch, labels_dev,
-                self.bank, self.new_bank, offset, self.generator, use_mi,
-                custom_loss=self.custom_loss)
-            if opt.check_gradient and use_mi:
-                self._log_gradients(model_batch, labels_dev, 2)
-            # device tensors are kept; converting here would synchronise
-            # the host on every step
-            step_losses.append(loss)
-            step_mis.append(mis)
-            outs.append(out)
-            masks.append(np.asarray(sample_mask) > 0.5)
-            targets.append(labels_np)
-            offset += opt.batch_size
-        self._synchronize()
-        log_message(f"  stage2: {time.time() - t_stage2:.2f}s")
+        with span("solver/stage2"):
+            use_mi = self.have_bank
+            self.new_bank.zero_()
+            offset = 0
+            step_losses, step_mis, outs, masks, targets = [], [], [], [], []
+            host_batches = map(self._host, self.train_loader)
+            if opt.num_workers > 0:  # ref: mimrl_tpu/train/solver.py:559-560
+                host_batches = prefetch(host_batches, 2)
+            for host in host_batches:
+                (model_batch, labels_dev, labels_np,
+                 sample_mask) = self._to_device(host)
+                loss, mis, out = steps.train_step(
+                    self.model, self.opt_main, opt, model_batch, labels_dev,
+                    self.bank, self.new_bank, offset, self.generator, use_mi,
+                    custom_loss=self.custom_loss)
+                if opt.check_gradient and use_mi:
+                    self._log_gradients(model_batch, labels_dev, 2)
+                # device tensors are kept; converting here would
+                # synchronise the host on every step
+                step_losses.append(loss)
+                step_mis.append(mis)
+                outs.append(out)
+                masks.append(np.asarray(sample_mask) > 0.5)
+                targets.append(labels_np)
+                offset += opt.batch_size
+            with span("sync/stage2_end"):
+                self._synchronize()
+            log_message(f"  stage2: {time.time() - t_stage2:.2f}s")
 
-        running_loss = float(torch.stack(step_losses).sum())
-        mis_sum = torch.stack(step_mis).sum(dim=0).cpu().numpy()
-        self.bank.copy_(self.new_bank)
-        self.have_bank = True
-        predictions = np.concatenate(
-            [o.float().cpu().numpy()[m] for o, m in zip(outs, masks)])
-        targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
-        train_score = get_score_from_result(
-            predictions, targets, opt.dataset, opt.task, opt.num_class)
+            with span("sync/train_readback"):
+                running_loss = float(torch.stack(step_losses).sum())
+            mis_sum = _readback(torch.stack(step_mis).sum(dim=0),
+                                "train_readback")
+            self.bank.copy_(self.new_bank)
+            self.have_bank = True
+            predictions = np.concatenate(
+                [_readback(o, "train_readback")[m]
+                 for o, m in zip(outs, masks)])
+            targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
+            train_score = get_score_from_result(
+                predictions, targets, opt.dataset, opt.task, opt.num_class)
         return (running_loss / n, running_loss_mi / n,
                 (mis_sum / n).tolist(), train_score)
+
+    def _stage1(self) -> List[List[torch.Tensor]]:
+        """Stage 1's critic updates: their losses, as device tensors, per
+        pass over the train split."""
+        opt = self.opt
+        if opt.fast_stage1:
+            # one forward per batch, stage1_n critic updates on the
+            # cached features (ref: mimrl_tpu/train/solver.py:511-530)
+            cached = []
+            for batch in self.train_loader:
+                model_batch, labels_dev, _ = self._prep(batch)
+                cached.append((steps.features_step(
+                    self.model, model_batch, self.generator), labels_dev))
+            return [[steps.critic_update(
+                self.model, self.opt_vmi, opt, feats, labels_dev,
+                self.bank, self.generator)[0]
+                for feats, labels_dev in cached]
+                for _ in range(opt.stage1_n)]
+        passes = []
+        for _ in range(opt.stage1_n):
+            mi_losses = []
+            for batch in self.train_loader:
+                model_batch, labels_dev, _ = self._prep(batch)
+                loss, _mis = steps.critic_step(
+                    self.model, self.opt_vmi, opt, model_batch,
+                    labels_dev, self.bank, self.generator)
+                mi_losses.append(loss)
+                if opt.check_gradient:
+                    self._log_gradients(model_batch, labels_dev, 1)
+            passes.append(mi_losses)
+        return passes
 
     def _log_gradients(self, model_batch, labels_dev, stage: int) -> None:
         """--check_gradient: per-parameter name, parameter-sum and
@@ -672,43 +697,49 @@ class Solver:
                                      labels_dev, self.bank, self.generator,
                                      stage)
         for name in sorted(sums):
-            p_sum, g_sum = sums[name]
+            with span("sync/check_gradient"):
+                p_sum, g_sum = (float(t) for t in sums[name])
             log_message(f"-->name: {name}")
-            log_message(f"-->para: {float(p_sum):.6f}")
-            log_message(f"-->grad_value: {float(g_sum):.6f}")
+            log_message(f"-->para: {p_sum:.6f}")
+            log_message(f"-->grad_value: {g_sum:.6f}")
             log_message("=" * 25)
 
     def evaluate(self, loader):
         """No-grad eval pass (ref: Solver.py:250-270)."""
-        opt = self.opt
-        use_mi = self.have_bank
-        losses, mis_list, outs, masks, targets, features = [], [], [], [], [], []
-        for batch in loader:
-            model_batch, labels_dev, labels_np = self._prep(batch)
-            loss, mis, out, feats = steps.eval_step(
-                self.model, opt, model_batch, labels_dev, self.bank,
-                self.generator, use_mi, custom_loss=self.custom_loss)
-            losses.append(loss)
-            mis_list.append(mis)
-            outs.append(out)
-            masks.append(batch["sample_mask"] > 0.5)
-            targets.append(labels_np)
-            if opt.save_best_features:
-                features.append(feats)
+        with span("solver/eval"):
+            opt = self.opt
+            use_mi = self.have_bank
+            losses, mis_list, outs, masks, targets, features = (
+                [], [], [], [], [], [])
+            for batch in loader:
+                model_batch, labels_dev, labels_np = self._prep(batch)
+                loss, mis, out, feats = steps.eval_step(
+                    self.model, opt, model_batch, labels_dev, self.bank,
+                    self.generator, use_mi, custom_loss=self.custom_loss)
+                losses.append(loss)
+                mis_list.append(mis)
+                outs.append(out)
+                masks.append(batch["sample_mask"] > 0.5)
+                targets.append(labels_np)
+                if opt.save_best_features:
+                    features.append(feats)
 
-        n = len(loader)
-        predictions = np.concatenate(
-            [o.float().cpu().numpy()[m] for o, m in zip(outs, masks)])
-        targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
-        if opt.save_best_features:
-            features = [[f.float().cpu().numpy()[m] for f in fl]
-                        for fl, m in zip(features, masks)]
-        score = get_score_from_result(predictions, targets, opt.dataset,
-                                      opt.task, opt.num_class)
-        avg_loss = float(torch.stack(losses).sum()) / n
-        avg_mis = (torch.stack(mis_list).sum(dim=0).cpu().numpy() / n).tolist()
-        return (avg_loss, avg_mis, score, predictions, targets,
-                features if opt.save_best_features else None)
+            n = len(loader)
+            predictions = np.concatenate(
+                [_readback(o, "eval_readback")[m]
+                 for o, m in zip(outs, masks)])
+            targets = np.concatenate([t[m] for t, m in zip(targets, masks)])
+            if opt.save_best_features:
+                features = [[_readback(f, "eval_readback")[m] for f in fl]
+                            for fl, m in zip(features, masks)]
+            score = get_score_from_result(predictions, targets, opt.dataset,
+                                          opt.task, opt.num_class)
+            with span("sync/eval_readback"):
+                avg_loss = float(torch.stack(losses).sum()) / n
+            avg_mis = (_readback(torch.stack(mis_list).sum(dim=0),
+                                 "eval_readback") / n).tolist()
+            return (avg_loss, avg_mis, score, predictions, targets,
+                    features if opt.save_best_features else None)
 
     # ------------------------------------------------------------------ #
     # --epoch_scan (ref: mimrl_tpu/train/solver.py:300-494, :595-697)
@@ -777,10 +808,11 @@ class Solver:
         def up(a):
             return torch.from_numpy(a).to(self.device)
 
-        batches = self._gather(
-            loader, up(idx_plan), up(mask_plan),
-            None if loader.static_tensors else [up(t) for t in tokens])
-        result = (batches, up(labels), labels_np, masks)
+        with span("data/copy"):
+            batches = self._gather(
+                loader, up(idx_plan), up(mask_plan),
+                None if loader.static_tensors else [up(t) for t in tokens])
+            result = (batches, up(labels), labels_np, masks)
         if not loader.shuffle and loader.static_tensors:
             self._stacks[loader] = result
         return result
@@ -820,16 +852,18 @@ class Solver:
             return [lambda: stacked] * g
         self._warn_replicated()
         plans = [self._epoch_plan(loader) for _ in range(g)]
-        idx, mask, labels = (self._upload(np.stack([p[j] for p in plans]))
-                             for j in (0, 1, 3))
-        tokens = None
-        if not loader.static_tensors:
-            tokens = [self._upload(np.stack([p[2][j] for p in plans]))
-                      for j in range(3)]
+        with span("data/copy"):
+            idx, mask, labels = (self._upload(np.stack([p[j] for p in plans]))
+                                 for j in (0, 1, 3))
+            tokens = None
+            if not loader.static_tensors:
+                tokens = [self._upload(np.stack([p[2][j] for p in plans]))
+                          for j in range(3)]
 
         def epoch(i):
-            batches = self._gather(loader, idx[i], mask[i], None if tokens
-                                   is None else [t[i] for t in tokens])
+            with span("data/copy"):
+                batches = self._gather(loader, idx[i], mask[i], None if tokens
+                                       is None else [t[i] for t in tokens])
             return batches, labels[i], plans[i][4], plans[i][5]
 
         return [functools.partial(epoch, i) for i in range(g)]
@@ -842,22 +876,24 @@ class Solver:
         nb = labels.shape[0]
         pass_sums = None
         if epoch > 0 and self.have_bank:
-            if opt.stage1_cached:
-                pass_sums = steps.critic_epoch_cached(
-                    self.model, self.opt_vmi, opt, self.bank, nb,
-                    self.generator, opt.stage1_n, run=self.graphs)
-            else:
-                critic = (steps.critic_epoch if opt.fast_stage1
-                          else steps.critic_epoch_fresh)
-                pass_sums = critic(self.model, self.opt_vmi, opt, batches,
-                                   labels, self.bank, self.generator,
-                                   opt.stage1_n, run=self.graphs)
+            with span("solver/stage1"):
+                if opt.stage1_cached:
+                    pass_sums = steps.critic_epoch_cached(
+                        self.model, self.opt_vmi, opt, self.bank, nb,
+                        self.generator, opt.stage1_n, run=self.graphs)
+                else:
+                    critic = (steps.critic_epoch if opt.fast_stage1
+                              else steps.critic_epoch_fresh)
+                    pass_sums = critic(self.model, self.opt_vmi, opt, batches,
+                                       labels, self.bank, self.generator,
+                                       opt.stage1_n, run=self.graphs)
         use_mi = self.have_bank
         self.new_bank.zero_()
-        losses, mis, outs = steps.train_epoch(
-            self.model, self.opt_main, opt, batches, labels, self.bank,
-            self.new_bank, self.generator, use_mi, run=self.graphs,
-            custom_loss=self.custom_loss)
+        with span("solver/stage2"):
+            losses, mis, outs = steps.train_epoch(
+                self.model, self.opt_main, opt, batches, labels, self.bank,
+                self.new_bank, self.generator, use_mi, run=self.graphs,
+                custom_loss=self.custom_loss)
         self.bank.copy_(self.new_bank)
         self.have_bank = True
         return {"pass_sums": pass_sums, "loss_sum": losses.sum(),
@@ -883,9 +919,11 @@ class Solver:
     def _enqueue_eval(self, batches, labels):
         """Enqueue one split's eval; returns (the device values that
         ``_eval_result`` reads, the four feature stacks)."""
-        losses, mis, outs, feats = steps.eval_epoch(
-            self.model, self.opt, batches, labels, self.bank, self.generator,
-            self.have_bank, run=self.graphs, custom_loss=self.custom_loss)
+        with span("solver/eval"):
+            losses, mis, outs, feats = steps.eval_epoch(
+                self.model, self.opt, batches, labels, self.bank,
+                self.generator, self.have_bank, run=self.graphs,
+                custom_loss=self.custom_loss)
         return ({"loss_sum": losses.sum(), "mis_sum": mis.sum(dim=0),
                  "outs": outs}, feats)
 
@@ -920,8 +958,9 @@ class Solver:
         log_message(f"  train dispatch: {time.time() - t0:.2f}s")
 
         def finalize():
-            return self._train_result(_Fetch(vals).wait(), labels_np, masks,
-                                      labels.shape[0])
+            with span("sync/train_fetch"):
+                got = _Fetch(vals).wait()
+            return self._train_result(got, labels_np, masks, labels.shape[0])
 
         return finalize
 
@@ -934,8 +973,9 @@ class Solver:
             vals.update((f"feat{j}", f) for j, f in enumerate(feats))
 
         def finalize():
-            return self._eval_result(_Fetch(vals).wait(), labels_np, masks,
-                                     len(loader))
+            with span("sync/eval_fetch"):
+                got = _Fetch(vals).wait()
+            return self._eval_result(got, labels_np, masks, len(loader))
 
         return finalize
 
@@ -1005,7 +1045,8 @@ class Solver:
             self._finalize_epoch(tracking, epoch, time.time() - t0,
                                  *(f() for f in fins))
             if profiler is not None:
-                self._synchronize()
+                with span("sync/profile_end"):
+                    self._synchronize()
                 profiler.stop()  # writes the trace
                 profiler = None
                 log_message(f"Profiler trace written to {opt.profile_dir}")
@@ -1188,36 +1229,40 @@ class Solver:
         the best-model bookkeeping, and the log line and scalars that
         ``_finalize_epoch`` writes; then ``latest`` when the group's end
         is due one."""
-        got = group["fetch"].wait()
-        g = group["g"]
-        nb = len(self.train_loader)
-        nv, nt = len(self.valid_loader), len(self.test_loader)
-        for i, m in enumerate(group["meta"]):
-            epoch = m["epoch"]
-            if self._plateau is not None:
-                m["slot"]["lr_schedule"] = self._plateau.state_dict(
-                    _part(got, f"{i}/plateau"), m["schedule_epoch"])
-            self._group_meta[epoch] = m["slot"]
-            self._eval_masks = {s: m["hosts"][s][1] for s in m["hosts"]}
-            train = self._train_result(_part(got, f"{i}/train"),
-                                       m["labels_np"], m["masks"], nb)
-            valid = self._eval_result(_part(got, f"{i}/valid"),
-                                      *m["hosts"]["valid"], nv)
-            test = self._eval_result(_part(got, f"{i}/test"),
-                                     *m["hosts"]["test"], nt)
-            better_valid, better_test = (bool(b) for b in got[f"{i}/better"])
-            if better_valid:
-                self._best["valid"].epoch_host = epoch
-            if better_test:
-                self._best["test"].epoch_host = epoch
-            self._track(tracking, better_valid, better_test, valid, test,
-                        None)
-            self._log_epoch(epoch, dt / g, train, valid, test,
-                            m["slot"]["lr_schedule"]["factor"], group=g)
-        latest = group.get("latest")
-        if latest is not None:
-            latest["lr_schedule"] = group["meta"][-1]["slot"]["lr_schedule"]
-            self.ckpt.save("latest", latest)
+        with span("solver/finalize"):
+            with span("sync/group_fetch"):
+                got = group["fetch"].wait()
+            g = group["g"]
+            nb = len(self.train_loader)
+            nv, nt = len(self.valid_loader), len(self.test_loader)
+            for i, m in enumerate(group["meta"]):
+                epoch = m["epoch"]
+                if self._plateau is not None:
+                    m["slot"]["lr_schedule"] = self._plateau.state_dict(
+                        _part(got, f"{i}/plateau"), m["schedule_epoch"])
+                self._group_meta[epoch] = m["slot"]
+                self._eval_masks = {s: m["hosts"][s][1] for s in m["hosts"]}
+                train = self._train_result(_part(got, f"{i}/train"),
+                                           m["labels_np"], m["masks"], nb)
+                valid = self._eval_result(_part(got, f"{i}/valid"),
+                                          *m["hosts"]["valid"], nv)
+                test = self._eval_result(_part(got, f"{i}/test"),
+                                         *m["hosts"]["test"], nt)
+                better_valid, better_test = (bool(b)
+                                             for b in got[f"{i}/better"])
+                if better_valid:
+                    self._best["valid"].epoch_host = epoch
+                if better_test:
+                    self._best["test"].epoch_host = epoch
+                self._track(tracking, better_valid, better_test, valid, test,
+                            None)
+                self._log_epoch(epoch, dt / g, train, valid, test,
+                                m["slot"]["lr_schedule"]["factor"], group=g)
+            latest = group.get("latest")
+            if latest is not None:
+                latest["lr_schedule"] = (
+                    group["meta"][-1]["slot"]["lr_schedule"])
+                self.ckpt.save("latest", latest)
 
     def _best_slot(self, best: _DeviceBest) -> Dict:
         """A device best as the slot that ``_snapshot`` of its epoch gives:
@@ -1291,14 +1336,17 @@ class Solver:
         for split, best in self._best.items():
             if best.epoch_host is None:
                 continue  # the host's best (epoch 0) stands
-            if int(best.epoch) != best.epoch_host:
+            with span("sync/best_epoch"):
+                epoch = int(best.epoch)
+            if epoch != best.epoch_host:
                 raise RuntimeError(
-                    f"best {split} epoch {int(best.epoch)} on the device, "
+                    f"best {split} epoch {epoch} on the device, "
                     f"{best.epoch_host} in the host's replay")
             if opt.save_models:
                 tracking[f"{split}_state"] = self._best_slot(best)
             if opt.save_best_features:
-                got = _Fetch(best.feats).wait()
+                with span("sync/best_fetch"):
+                    got = _Fetch(best.feats).wait()
                 feats = {s: self._features_host(
                     [got[f"{s}{j}"] for j in range(4)], self._eval_masks[s])
                     for s in ("valid", "test") if f"{s}0" in got}
@@ -1347,31 +1395,32 @@ class Solver:
         schedule was stepped then), track the best models, write the
         epoch's log line and scalar channels, and keep the checkpoint
         cadence."""
-        opt = self.opt
-        val_score, test_score = valid[2], test[2]
-        if snap is None:
-            self._step_schedule(valid[0])
+        with span("solver/finalize"):
+            opt = self.opt
+            val_score, test_score = valid[2], test[2]
+            if snap is None:
+                self._step_schedule(valid[0])
 
-        # best-model tracking (ref: Solver.py:59-93); one snapshot of the
-        # epoch serves both best slots and latest
-        better_valid = current_result_better(
-            tracking["score"][0], val_score, opt.task, opt.num_class,
-            opt.dataset)
-        better_test = current_result_better(
-            tracking["score"][1], test_score, opt.task, opt.num_class,
-            opt.dataset)
-        save_latest = opt.save_latest_every > 0 and (
-            epoch % opt.save_latest_every == opt.save_latest_every - 1
-            or epoch == opt.epochs_num - 1)
-        if snap is None and (save_latest or (
-                opt.save_models and (better_valid or better_test))):
-            snap = self._snapshot(epoch)
-        factor = (self.lr_schedule.factor if snap is None
-                  else snap["lr_schedule"]["factor"])
-        self._track(tracking, better_valid, better_test, valid, test, snap)
-        self._log_epoch(epoch, dt, train, valid, test, factor)
-        if save_latest:
-            self.ckpt.save("latest", snap)
+            # best-model tracking (ref: Solver.py:59-93); one snapshot of the
+            # epoch serves both best slots and latest
+            better_valid = current_result_better(
+                tracking["score"][0], val_score, opt.task, opt.num_class,
+                opt.dataset)
+            better_test = current_result_better(
+                tracking["score"][1], test_score, opt.task, opt.num_class,
+                opt.dataset)
+            save_latest = opt.save_latest_every > 0 and (
+                epoch % opt.save_latest_every == opt.save_latest_every - 1
+                or epoch == opt.epochs_num - 1)
+            if snap is None and (save_latest or (
+                    opt.save_models and (better_valid or better_test))):
+                snap = self._snapshot(epoch)
+            factor = (self.lr_schedule.factor if snap is None
+                      else snap["lr_schedule"]["factor"])
+            self._track(tracking, better_valid, better_test, valid, test, snap)
+            self._log_epoch(epoch, dt, train, valid, test, factor)
+            if save_latest:
+                self.ckpt.save("latest", snap)
 
     def _track(self, tracking, better_valid: bool, better_test: bool, valid,
                test, snap: Optional[Dict]) -> None:

@@ -59,6 +59,7 @@ import torch
 from torch import nn
 
 from mimrl_tpu_torch.core.config import MimrlConfig
+from mimrl_tpu_torch.core.spans import span
 from mimrl_tpu_torch.mi.knn import prod_knn_sample
 from mimrl_tpu_torch.models.model import (CMI_KEYS, MODEL_INPUTS, MimrlModel,
                                           forward_batch)
@@ -157,13 +158,14 @@ def sample_all_knn(generator: Optional[torch.Generator], bank: FeatureBank,
         "tc_a": (bank.T, bank.C, bank.A),
         "tc_v": (bank.T, bank.C, bank.V),
     }
-    return {
-        name: prod_knn_sample(
-            generator, *triples[name], batch_size=batch_size,
-            k_neighbor=k_neighbor, radius=radius, valid=bank.valid,
-            anchor_idx=None if anchors is None else anchors[name])
-        for name in CMI_KEYS
-    }
+    with span("mi/knn"):
+        return {
+            name: prod_knn_sample(
+                generator, *triples[name], batch_size=batch_size,
+                k_neighbor=k_neighbor, radius=radius, valid=bank.valid,
+                anchor_idx=None if anchors is None else anchors[name])
+            for name in CMI_KEYS
+        }
 
 
 def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -181,18 +183,19 @@ def _guarded_step(enabled: bool, optimizer: ChainOptimizer, loss, grads
     backward). Returns the device flag ``ok``, or None when not enabled.
     On a mesh the gradients are averaged over the batch axes first
     (``ChainOptimizer.reduce``), so every rank decides alike."""
-    grads = optimizer.reduce(grads)
-    if not enabled:
-        optimizer.step(grads)
-        return None
-    ok = torch.isfinite(loss) & _all_finite(grads)
-    live = list(optimizer.params) + optimizer.state()
-    with torch.no_grad():
-        old = [t.detach().clone() for t in live]
-        optimizer.step(grads)
-        for t, o in zip(live, old):
-            t.copy_(torch.where(ok, t, o))
-    return ok
+    with span("optim/step"):
+        grads = optimizer.reduce(grads)
+        if not enabled:
+            optimizer.step(grads)
+            return None
+        ok = torch.isfinite(loss) & _all_finite(grads)
+        live = list(optimizer.params) + optimizer.state()
+        with torch.no_grad():
+            old = [t.detach().clone() for t in live]
+            optimizer.step(grads)
+            for t, o in zip(live, old):
+                t.copy_(torch.where(ok, t, o))
+        return ok
 
 
 def _grads(loss, params: List[nn.Parameter]) -> List[torch.Tensor]:
@@ -257,7 +260,7 @@ def features_step(model: MimrlModel, batch: Dict[str, torch.Tensor],
     """The training-mode forward (dropout on) under ``no_grad``: [F_F,
     T_F, A_F, V_F], constants of stage 1."""
     model.train()
-    with torch.no_grad():
+    with span("step/features"), torch.no_grad():
         _, *feats = forward_batch(model, batch, generator=generator)
     return feats
 
@@ -270,13 +273,15 @@ def critic_update(model: MimrlModel, opt_vmi: ChainOptimizer,
     """One update of the estimator parameters from given features.
     Returns (loss, the 11 MI estimates) as device tensors."""
     model.train()
-    knn = sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
-                         cfg.radius, anchors)
-    mis, losses = model.compute_vmi_loss_stage1(labels, *feats, knn)
-    total = sum(l * c for l, c in zip(losses, cfg.loss_mi_coefficient1))
-    grads = _grads(total, opt_vmi.params)
-    _guarded_step(cfg.skip_nonfinite_updates, opt_vmi, total.detach(), grads)
-    return total.detach(), torch.stack(mis).detach()
+    with span("step/critic"):
+        knn = sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
+                             cfg.radius, anchors)
+        mis, losses = model.compute_vmi_loss_stage1(labels, *feats, knn)
+        total = sum(l * c for l, c in zip(losses, cfg.loss_mi_coefficient1))
+        grads = _grads(total, opt_vmi.params)
+        _guarded_step(cfg.skip_nonfinite_updates, opt_vmi, total.detach(),
+                      grads)
+        return total.detach(), torch.stack(mis).detach()
 
 
 def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
@@ -285,9 +290,10 @@ def critic_step(model: MimrlModel, opt_vmi: ChainOptimizer, cfg: MimrlConfig,
                 anchors: Optional[Dict[str, torch.Tensor]] = None):
     """Stage 1: a fresh forward, then one update of the estimator
     parameters. Returns (loss, the 11 MI estimates) as device tensors."""
-    feats = features_step(model, batch, generator)
-    return critic_update(model, opt_vmi, cfg, feats, labels, bank, generator,
-                         anchors)
+    with span("step/critic"):
+        feats = features_step(model, batch, generator)
+        return critic_update(model, opt_vmi, cfg, feats, labels, bank,
+                             generator, anchors)
 
 
 def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
@@ -301,18 +307,20 @@ def train_step(model: MimrlModel, opt_main: ChainOptimizer, cfg: MimrlConfig,
     device tensor). Returns (loss,
     the 8 MI channels, the model's output) as device tensors."""
     model.train()
-    knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
-                          cfg.radius, anchors) if use_mi else None)
-    total, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn,
-                                         generator, custom_loss)
-    grads = _grads(total, opt_main.params)
-    ok = _guarded_step(cfg.skip_nonfinite_updates, opt_main, total.detach(),
-                       grads)
-    if ok is not None:
-        # NaN features in the bank would poison every later kNN sample
-        ok = ok & _all_finite(feats + [labels.float()])
-    new_bank.write(offset, labels, *feats, ok=ok)
-    return total.detach(), mis, out.detach()
+    with span("step/train"):
+        knn = (sample_all_knn(generator, bank, cfg.batch_size,
+                              cfg.k_neighbor, cfg.radius, anchors)
+               if use_mi else None)
+        total, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn,
+                                             generator, custom_loss)
+        grads = _grads(total, opt_main.params)
+        ok = _guarded_step(cfg.skip_nonfinite_updates, opt_main,
+                           total.detach(), grads)
+        if ok is not None:
+            # NaN features in the bank would poison every later kNN sample
+            ok = ok & _all_finite(feats + [labels.float()])
+        new_bank.write(offset, labels, *feats, ok=ok)
+        return total.detach(), mis, out.detach()
 
 
 @torch.no_grad()
@@ -325,11 +333,13 @@ def eval_step(model: MimrlModel, cfg: MimrlConfig,
     """Deterministic forward and the stage-2 objective. Returns (loss, the
     8 MI channels, output, (F_F, T_F, A_F, V_F))."""
     model.eval()
-    knn = (sample_all_knn(generator, bank, cfg.batch_size, cfg.k_neighbor,
-                          cfg.radius, anchors) if use_mi else None)
-    loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn, None,
-                                        custom_loss)
-    return loss, mis, out, tuple(feats)
+    with span("step/eval"):
+        knn = (sample_all_knn(generator, bank, cfg.batch_size,
+                              cfg.k_neighbor, cfg.radius, anchors)
+               if use_mi else None)
+        loss, mis, out, feats = stage2_loss(model, cfg, batch, labels, knn,
+                                            None, custom_loss)
+        return loss, mis, out, tuple(feats)
 
 
 def grad_debug_step(model: MimrlModel, cfg: MimrlConfig,
